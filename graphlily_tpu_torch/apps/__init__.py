@@ -1,0 +1,3 @@
+from .module_collection import ModuleCollection
+from .bfs import BFS
+from .pagerank import PageRank

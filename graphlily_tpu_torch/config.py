@@ -1,0 +1,43 @@
+"""Engine configuration for the PyTorch/CUDA port.
+
+Counterpart of `graphlily_tpu/config.py`, keeping the fields the ported
+slice reads. The port computes every value in float32; `mxu_precision` is
+accepted for call-site parity with the JAX package and changes nothing:
+the CUDA kernels never use tensor cores, and the plain PyTorch versions
+run with TF32 off (`torch.backends.cuda.matmul.allow_tf32 = False`, which
+`chip_smoke.py` sets and prints).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    dtype: str = "float32"           # value dtype
+    engine: str = "auto"             # "auto" | "xla" | "pallas" | "router"
+                                     # (same ladder as the JAX package; only
+                                     # the roll router and the reference
+                                     # "xla" engine are ported so far)
+    sort_rows_by_degree: bool = False  # symmetric degree-sort relabel
+    mxu_precision: str = "highest"   # accepted, ignored (always fp32)
+    device: Optional[str] = None     # None: "cuda" when a card is present,
+                                     # else "cpu"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def resolve_device(self) -> torch.device:
+        if self.device is not None:
+            return torch.device(self.device)
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+    def resolve_engine(self) -> str:
+        return self.engine   # "auto" resolves per module (capability ladder)
+
+
+DEFAULT_CONFIG = EngineConfig()

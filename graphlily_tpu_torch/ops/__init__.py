@@ -1,0 +1,3 @@
+from .reference import (COODevice, coo_from_csr, spmv_coo, ewise_add_scalar,
+                        assign_vector_dense)
+from .router import RouterSpMV, RouterArrays

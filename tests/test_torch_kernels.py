@@ -1,0 +1,100 @@
+"""CUDA kernels K1 (fused), K2 (scatter), K3 (reduce) against their plain
+PyTorch versions, on the card.
+
+Needs a CUDA card and nvcc; every test skips without a card. Imports only
+torch and the port (no jax), so on a machine without jax it runs as
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+Tolerances: K2 is a pure copy of products and must equal its plain
+version bit for bit. K1 and K3 add with float atomics in an order that
+changes from run to run: ANDOR adds 0/1 counts and stays exact; MULADD is
+held to max|y - y64| <= 1e-5 * max|y64| against the float64 oracle at
+these sizes (the smoke test's googleplus bound is 1e-4, for hub rows of up
+to ~1e5 terms).
+"""
+import numpy as np
+import pytest
+import torch
+
+from graphlily_tpu_torch import (ArithmeticSemiring, LogicalSemiring,
+                                 EngineConfig)
+from graphlily_tpu_torch.io import (rmat_csr, pack_router,
+                                    util_round_csr_matrix_dim)
+from graphlily_tpu_torch.module import SpMVModule
+from graphlily_tpu_torch.ops import RouterSpMV
+
+from test_torch_fixtures import FIXTURES
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _oracle(csr, semiring, x):
+    mod = SpMVModule(EngineConfig(engine="xla", device="cpu"))
+    mod.set_semiring(semiring)
+    padded = csr.copy()
+    util_round_csr_matrix_dim(padded, 1024, 1024)
+    mod.load_and_format_matrix(padded)
+    return mod.compute_reference_results(x)
+
+
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("name", list(FIXTURES))
+def test_kernels_match_plain(name, semiring, cuda):
+    build, region_rows = FIXTURES[name]
+    csr = build()
+    lay = pack_router(csr, region_rows=region_rows)
+    eng = RouterSpMV(lay, semiring, EngineConfig(device="cuda"))
+    rng = np.random.default_rng(7)
+    x = rng.random(lay.num_cols).astype(np.float32) + 0.5
+    x[rng.random(lay.num_cols) < 0.3] = 0.0
+    xt = torch.from_numpy(x).to(cuda)
+
+    stream = eng.scatter(xt)
+    stream_plain = eng.scatter_plain(xt)
+    assert torch.equal(stream.view(torch.int32),
+                       stream_plain.view(torch.int32))
+    y_reduce = eng.reduce(stream)
+    y_reduce_plain = eng.reduce_plain(stream)
+    y_fused = eng.fused_spmv(xt)
+    y_fused_plain = eng.fused_plain(xt)
+    torch.cuda.synchronize()
+    assert eng.launches == {"fused": 1, "scatter": 1, "reduce": 1}
+
+    want = _oracle(csr, semiring, x)
+    n = lay.num_rows
+    outs = {"K3": y_reduce, "K3 plain": y_reduce_plain,
+            "K1": y_fused, "K1 plain": y_fused_plain}
+    for label, y in outs.items():
+        y = y[:n].cpu().numpy().astype(np.float64)
+        if semiring is LogicalSemiring:
+            np.testing.assert_array_equal((y != 0).astype(np.float64), want,
+                                          err_msg=label)
+        else:
+            err = np.abs(y - want).max()
+            assert err <= 1e-5 * np.abs(want).max(), (label, err)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+def test_engine_call_on_card(fused, cuda):
+    """The engine's public call on CUDA tensors launches the kernels of its
+    branch, never the plain versions."""
+    csr = rmat_csr(3000, 40000, seed=5)
+    lay = pack_router(csr)
+    eng = RouterSpMV(lay, LogicalSemiring, EngineConfig(device="cuda"))
+    eng.fused = fused
+    x = (np.random.default_rng(3).random(lay.num_cols) < 0.1).astype(
+        np.float32)
+    y = eng(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(y, _oracle(csr, LogicalSemiring, x))
+    want = ({"fused": 1, "scatter": 0, "reduce": 0} if fused
+            else {"fused": 0, "scatter": 1, "reduce": 1})
+    assert eng.launches == want
