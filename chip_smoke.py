@@ -1,30 +1,48 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (graphlily_tpu_torch) on one GPU.
 
-Drives the port's main path once at the full googleplus stand-in (RMAT,
-107,614 vertices, 13,673,453 edges, seed 0, degree-sorted), through the
-entry points a user calls, and checks every result against the float64
-oracles. Phases, one or more lines each:
+Drives the port's two main paths once, through the entry points a user
+calls, and checks every result against the float64 oracles:
+
+  * the googleplus stand-in (RMAT, 107,614 vertices, 13,673,453 edges,
+    seed 0, degree-sorted) through the roll router (K1, K2, K3);
+  * the pokec stand-in (RMAT, 1,632,803 vertices, 30,622,564 edges,
+    seed 0, degree-sorted) through the planar router (K4 fused, K4
+    scatter -> K3, and K5 under planar_deal="bucket").
+
+Phases, one or more lines each:
 
   1. card      nvidia-smi name and power limit; TF32 switched off
-  2. build     nvcc build of csrc/*.cu (seconds)
-  3. kernels   K1 fused, K2 scatter, K3 reduce and their plain PyTorch
-               versions on the router layout, MULADD and ANDOR, each held
-               against SpMVModule.compute_reference_results; K2's flush
-               stream must equal its plain version bit for bit
-  4. pagerank  PageRank.pull(0.9, 10): engine roll, fused branch
-  5. bfs       BFS.pull(0, 7), once on the fused branch and once on the
-               split branch (K2 -> K3), each equal to the oracle
-  6. times     CUDA events, min over 5 reps of a 100-call loop: SpMV ms and
-               GTEPS (nnz / time per SpMV) for the kernels and the plain
-               versions, PageRank ms/iter, BFS pull ms
+  2. build     nvcc build of csrc/*.cu, one nvcc per source, in parallel
+  3. kernels   googleplus: K1, K2, K3 and their plain PyTorch versions on
+               the router layout, MULADD and ANDOR, each held against
+               SpMVModule.compute_reference_results; K2's flush stream
+               must equal its plain version bit for bit
+  4. pagerank  googleplus PageRank.pull(0.9, 10): engine roll, fused
+  5. bfs       googleplus BFS.pull(0, 7), fused and split (K2 -> K3)
+  6. times     googleplus, CUDA events, min over 5 reps of a 100-call
+               loop: kernels and plain versions (ms, GTEPS), PageRank
+               ms/iter, BFS pull ms
+  7. pokec     the graph, then PageRank and BFS formatted through
+               EngineConfig(sort_rows_by_degree=True) (engine "auto" ->
+               planar, deal "free"), layout facts and pack seconds; a
+               third BFS packs the "bucket" deal
+  8. apps      pokec PageRank.pull(0.9, 10) and BFS.pull(0, 11) fused and
+               split, and BFS.pull(0, 11) on the bucket layout (K5)
+  9. kernels   pokec, on the apps' engines: K4 fused and K4 scatter -> K3
+               against their plain versions and the oracle, MULADD
+               (PageRank's engine) and ANDOR (BFS's); K4's flush stream
+               and K5's x2 bit-equal to their plain versions
+  10. times    pokec, as phase 6, plus the planar engine call fused and
+               split
 
-The launch counters are set to 0 right before phases 4-5 (the main path)
-and read right after; every kernel must have run there. Then it prints
-the kernels' JSON line and, last, {"ok": true, "device": {...}}.
-Any failure raises: the exit code is not 0 and the ok line is not printed.
+The launch counters are set to 0 right before each path's app runs
+(phases 4-5 and 8) and read right after; every kernel of the path must
+have run there. Then it prints the kernels' JSON line and, last,
+{"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
+and the ok line is not printed.
 
-Usage: python3 chip_smoke.py [--scale S]   (S < 1 shrinks the graph)
+Usage: python3 chip_smoke.py [--scale S]   (S < 1 shrinks both graphs)
 """
 from __future__ import annotations
 
@@ -39,11 +57,17 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = "graphlily_tpu_torch/csrc/router_spmv.cu"
-REPLACES = {
-    "K1_router_fused": "graphlily_tpu/ops/router_pallas.py:419",
-    "K2_router_scatter": "graphlily_tpu/ops/router_pallas.py:368",
-    "K3_router_reduce": "graphlily_tpu/ops/router_pallas.py:756",
+ROUTER_SRC = "graphlily_tpu_torch/csrc/router_spmv.cu"
+PLANAR_SRC = "graphlily_tpu_torch/csrc/planar_spmv.cu"
+KERNELS = {   # name -> (source, TPU kernel it replaces)
+    "K1_router_fused": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:419"),
+    "K2_router_scatter": (ROUTER_SRC,
+                          "graphlily_tpu/ops/router_pallas.py:368"),
+    "K3_router_reduce": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:756"),
+    "K4_planar_fused": (PLANAR_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
+    "K4_planar_scatter": (PLANAR_SRC,
+                          "graphlily_tpu/ops/router_pallas.py:1398"),
+    "K5_planar_xperm": (PLANAR_SRC, "graphlily_tpu/ops/router_pallas.py:924"),
 }
 MULADD_RTOL = 1e-4   # fp32 atomics in any order over hub rows of ~1e5 terms
 
@@ -88,10 +112,25 @@ def check_close(label: str, y, want: np.ndarray, exact: bool) -> float:
     return err
 
 
+def bit_equal(torch, label: str, a, b) -> None:
+    if a.shape != b.shape or not torch.equal(a.view(torch.int32),
+                                             b.view(torch.int32)):
+        raise AssertionError(f"{label} differs from its plain version")
+
+
+def reset(engines) -> None:
+    for eng in engines:
+        eng.launches = dict.fromkeys(eng.launches, 0)
+
+
+def gteps(nnz: int, ms: float) -> str:
+    return f"{nnz / ms / 1e6:.2f} GTEPS"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
-                    help="graph scale (1.0 = the full googleplus stand-in)")
+                    help="graph scale (1.0 = the full stand-ins)")
     args = ap.parse_args(argv)
     if not (ROOT / "graphlily_tpu_torch").is_dir():
         print("chip_smoke: graphlily_tpu_torch/ not found beside the script",
@@ -102,16 +141,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from graphlily_tpu_torch import (EngineConfig, ArithmeticSemiring,
-                                     LogicalSemiring)
-    from graphlily_tpu_torch.apps import PageRank, BFS
-    from graphlily_tpu_torch.io import (iccad_standin, ICCAD_GRAPHS,
-                                        degree_sort_permutation,
-                                        symmetric_permute,
-                                        util_round_csr_matrix_dim)
-    from graphlily_tpu_torch.module import SpMVModule
     from graphlily_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     # ---- 1. card --------------------------------------------------------
     card = card_line()
     log("phase 1 card (nvidia-smi name, power.limit):")
@@ -121,13 +153,44 @@ def main(argv=None) -> int:
     log(f"phase 1 tf32: matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    dev = torch.device("cuda")
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _build.library()
     log(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
-        f"({_build.library_path().name})")
+        f"({', '.join(p.name for p in _build.library_paths())})")
+
+    rec = {name: {} for name in KERNELS}
+    googleplus(torch, args, rec, card)
+    pokec(torch, args, rec, card)
+
+    for name, r in rec.items():
+        if r.get("launches", 0) == 0:
+            raise AssertionError(f"{name} was not launched on an app path")
+    kernels = [{
+        "name": name, "route": "cuda", "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1], "launches": r["launches"],
+        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+    } for name, r in rec.items()]
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def googleplus(torch, args, rec: dict, card: str) -> None:
+    """Phases 3-6: the roll router on the googleplus stand-in."""
+    from graphlily_tpu_torch import (EngineConfig, ArithmeticSemiring,
+                                     LogicalSemiring)
+    from graphlily_tpu_torch.apps import PageRank, BFS
+    from graphlily_tpu_torch.io import (iccad_standin, ICCAD_GRAPHS,
+                                        degree_sort_permutation,
+                                        symmetric_permute,
+                                        util_round_csr_matrix_dim)
+    from graphlily_tpu_torch.module import SpMVModule
+    dev = torch.device("cuda")
 
     # ---- 3. kernels vs plain versions, against the float64 oracle ---------
     t0 = time.perf_counter()
@@ -140,7 +203,6 @@ def main(argv=None) -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     cfg = EngineConfig(engine="router", device="cuda")
     rng = np.random.default_rng(0)
-    errs, engines, xs = {}, {}, {}
     for semiring in (ArithmeticSemiring, LogicalSemiring):
         t0 = time.perf_counter()
         mod = SpMVModule(cfg)
@@ -168,9 +230,7 @@ def main(argv=None) -> int:
         y3 = eng.reduce(s2)
         y3p = eng.reduce_plain(s2)
         torch.cuda.synchronize()
-        if not torch.equal(s2.view(torch.int32), s2p.view(torch.int32)):
-            raise AssertionError(f"{semiring.name}: K2 stream differs from "
-                                 "its plain version")
+        bit_equal(torch, f"{semiring.name}: K2 stream", s2, s2p)
         for label, y in (("K1", y1), ("K1 plain", y1p), ("K3 (K2->K3)", y3),
                          ("K3 plain", y3p), ("engine call", mod.apply(xt))):
             y = y.cpu().numpy()
@@ -180,12 +240,10 @@ def main(argv=None) -> int:
             log(f"phase 3 {semiring.name} {label}: max|y-y64|={err:.3e} "
                 f"max|y64|={np.abs(want).max():.6e} ok")
         if not exact:
-            errs = {
-                "K1_router_fused": float((y1 - y1p).abs().max()),
-                "K2_router_scatter": float((s2 - s2p).abs().max()),
-                "K3_router_reduce": float((y3 - y3p).abs().max()),
-            }
-            engines["spmv"], xs["spmv"] = eng, xt
+            rec["K1_router_fused"]["err"] = float((y1 - y1p).abs().max())
+            rec["K2_router_scatter"]["err"] = float((s2 - s2p).abs().max())
+            rec["K3_router_reduce"]["err"] = float((y3 - y3p).abs().max())
+            spmv_eng, spmv_x = eng, xt
         log(f"phase 3 {semiring.name}: K2 stream bit-equal to plain; ok")
 
     # ---- 4-5. main path: PageRank and BFS through the public API ----------
@@ -205,24 +263,19 @@ def main(argv=None) -> int:
                                  f"{app.SpMV_.engine_name!r}, not fused roll")
     pr_eng, bfs_eng = pr.SpMV_.engine, bfs.SpMV_.engine
     iters = ICCAD_GRAPHS["googleplus"]["iters"]
-    for eng in (pr_eng, bfs_eng):
-        eng.launches = dict.fromkeys(eng.launches, 0)
+    reset((pr_eng, bfs_eng))
     rank = pr.pull(0.9, 10)
     dist_fused = bfs.pull(0, iters)
     bfs_eng.fused = False          # the split branch, through the same API
     dist_split = bfs.pull(0, iters)
     bfs_eng.fused = True
     torch.cuda.synchronize()
-    launches = {
-        "K1_router_fused": pr_eng.launches["fused"] + bfs_eng.launches["fused"],
-        "K2_router_scatter": bfs_eng.launches["scatter"],
-        "K3_router_reduce": bfs_eng.launches["reduce"],
-    }
+    rec["K1_router_fused"]["launches"] = (pr_eng.launches["fused"]
+                                          + bfs_eng.launches["fused"])
+    rec["K2_router_scatter"]["launches"] = bfs_eng.launches["scatter"]
+    rec["K3_router_reduce"]["launches"] = bfs_eng.launches["reduce"]
     log(f"phase 4-5 launches: pagerank {pr_eng.launches} bfs "
         f"{bfs_eng.launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
     err = check_close("pagerank", rank, pr.compute_reference_results(0.9, 10),
                       exact=False)
     log(f"phase 4 pagerank pull(0.9, 10): engine=roll fused "
@@ -234,45 +287,200 @@ def main(argv=None) -> int:
         f"({int((want > 0).sum())} reached) ok")
 
     # ---- 6. times ---------------------------------------------------------
-    eng, xt = engines["spmv"], xs["spmv"]
+    eng, xt = spmv_eng, spmv_x
     nnz = eng.nnz
     stream = eng.scatter(xt)
-    ms = {
-        "K1_router_fused": time_ms(torch, lambda: eng.fused_spmv(xt)),
-        "K2_router_scatter": time_ms(torch, lambda: eng.scatter(xt)),
-        "K3_router_reduce": time_ms(torch, lambda: eng.reduce(stream)),
+    timed = {
+        "K1_router_fused": (lambda: eng.fused_spmv(xt),
+                            lambda: eng.fused_plain(xt)),
+        "K2_router_scatter": (lambda: eng.scatter(xt),
+                              lambda: eng.scatter_plain(xt)),
+        "K3_router_reduce": (lambda: eng.reduce(stream),
+                             lambda: eng.reduce_plain(stream)),
     }
-    plain_ms = {
-        "K1_router_fused": time_ms(torch, lambda: eng.fused_plain(xt)),
-        "K2_router_scatter": time_ms(torch, lambda: eng.scatter_plain(xt)),
-        "K3_router_reduce": time_ms(torch, lambda: eng.reduce_plain(stream)),
-    }
+    for name, (kernel, plain) in timed.items():
+        rec[name]["ms"] = time_ms(torch, kernel)
+        rec[name]["plain_ms"] = time_ms(torch, plain)
     spmv_ms = time_ms(torch, lambda: eng(xt))
     split_ms = time_ms(torch, lambda: eng.reduce(eng.scatter(xt)))
     pr_ms = time_ms(torch, lambda: pr.pull(0.9, 100, device_output=True),
                     iters=1, reps=3) / 100
     bfs_ms = time_ms(torch, lambda: bfs.pull(0, iters, device_output=True),
                      iters=5, reps=3)
-    for name in ms:
-        log(f"phase 6 {name}: {ms[name]:.4f} ms ({nnz / ms[name] / 1e6:.2f} "
-            f"GTEPS) plain {plain_ms[name]:.4f} ms "
-            f"({nnz / plain_ms[name] / 1e6:.2f} GTEPS)")
+    for name in timed:
+        ms, plain_ms = rec[name]["ms"], rec[name]["plain_ms"]
+        log(f"phase 6 {name}: {ms:.4f} ms ({gteps(nnz, ms)}) plain "
+            f"{plain_ms:.4f} ms ({gteps(nnz, plain_ms)})")
     log(f"phase 6 spmv engine call (fused): {spmv_ms:.4f} ms "
-        f"({nnz / spmv_ms / 1e6:.2f} GTEPS); split K2->K3 {split_ms:.4f} ms "
-        f"({nnz / split_ms / 1e6:.2f} GTEPS)")
+        f"({gteps(nnz, spmv_ms)}); split K2->K3 {split_ms:.4f} ms "
+        f"({gteps(nnz, split_ms)})")
     log(f"phase 6 pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
         f"{bfs_ms:.4f} ms; card {card}")
 
-    kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES[name], "launches": launches[name],
-        "max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain_ms[name],
-    } for name in REPLACES]
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+
+def pokec(torch, args, rec: dict, card: str) -> None:
+    """Phases 7-10: the planar router on the pokec stand-in."""
+    from graphlily_tpu_torch import EngineConfig
+    from graphlily_tpu_torch.apps import PageRank, BFS
+    from graphlily_tpu_torch.io import iccad_standin, ICCAD_GRAPHS
+    dev = torch.device("cuda")
+    iters = ICCAD_GRAPHS["pokec"]["iters"]
+
+    # ---- 7. graph and layouts ----------------------------------------------
+    t0 = time.perf_counter()
+    g = iccad_standin("pokec", scale=args.scale, seed=0)
+    log(f"phase 7 graph: pokec stand-in scale={args.scale} rows={g.num_rows} "
+        f"nnz={g.nnz} ({time.perf_counter() - t0:.1f} s)")
+    # the auto ladder picks the planar router at full size (nnz >= 2M,
+    # epg < 200); a shrunken graph is denser per page and asks for it by
+    # name
+    engine = "auto" if args.scale >= 1 else "planar"
+    apps = {}
+    for key, app_cls, deal in (("pagerank", PageRank, "free"),
+                               ("bfs", BFS, "free"),
+                               ("bfs_bucket", BFS, "bucket")):
+        t0 = time.perf_counter()
+        app = app_cls(EngineConfig(sort_rows_by_degree=True, engine=engine,
+                                   planar_deal=deal))
+        if app_cls is PageRank:
+            app.load_and_format_matrix(g, 0.9)
+        else:
+            app.load_and_format_matrix(g)
+        secs = time.perf_counter() - t0
+        mod = app.SpMV_
+        eng = mod.engine
+        if mod.engine_name != "planar" or not eng.fused:
+            raise AssertionError(f"pokec {key} resolved {mod.engine_name!r}"
+                                 f" (fused={getattr(eng, 'fused', None)}), "
+                                 "not fused planar")
+        w2 = eng.arrays.rg[..., 1]
+        log(f"phase 7 pokec {key} layout (deal={deal}, scale={args.scale}): "
+            f"relabel+pack+init {secs:.1f} s region_rows={eng.region_rows} "
+            f"regions={eng.num_regions} cb={eng.cb} dstep={eng.dstep} "
+            f"f={eng.f} nsteps={eng.nsteps} slots={eng.num_slots} "
+            f"pieces={int((w2[:, :eng.dstep] > 0).sum())} "
+            f"flushes={int((w2 < 0).sum())} "
+            f"stream_MB={eng.nsteps * eng.f * 4096 / 1e6:.1f} "
+            f"y_MB={eng.out_len * 4 / 1e6:.2f} fused={eng.fused}")
+        apps[key] = app
+    pr, bfs, bfsb = apps["pagerank"], apps["bfs"], apps["bfs_bucket"]
+    pr_eng, bfs_eng = pr.SpMV_.engine, bfs.SpMV_.engine
+    bfsb_eng = bfsb.SpMV_.engine
+
+    # ---- 8. main path: PageRank and BFS through the public API ------------
+    reset((pr_eng, bfs_eng, bfsb_eng))
+    rank = pr.pull(0.9, 10)
+    dist_fused = bfs.pull(0, iters)
+    bfs_eng.fused = False          # the split branch, through the same API
+    dist_split = bfs.pull(0, iters)
+    bfs_eng.fused = True
+    dist_bucket = bfsb.pull(0, iters)
+    torch.cuda.synchronize()
+    engines = (pr_eng, bfs_eng, bfsb_eng)
+    rec["K4_planar_fused"]["launches"] = sum(e.launches["fused"]
+                                             for e in engines)
+    rec["K4_planar_scatter"]["launches"] = bfs_eng.launches["scatter"]
+    rec["K3_router_reduce"]["launches"] += bfs_eng.launches["reduce"]
+    rec["K5_planar_xperm"]["launches"] = bfsb_eng.launches["xperm"]
+    log(f"phase 8 launches: pagerank {pr_eng.launches} bfs "
+        f"{bfs_eng.launches} bfs bucket {bfsb_eng.launches}")
+    err = check_close("pokec pagerank", rank,
+                      pr.compute_reference_results(0.9, 10), exact=False)
+    log(f"phase 8 pagerank pull(0.9, 10): engine=planar fused "
+        f"max|r-r64|={err:.3e} ok")
+    want = bfs.compute_reference_results(0, iters)
+    check_close("pokec bfs fused", dist_fused, want, exact=True)
+    check_close("pokec bfs split", dist_split, want, exact=True)
+    log(f"phase 8 bfs pull(0, {iters}): fused and split equal the oracle "
+        f"({int((want > 0).sum())} reached) ok")
+    check_close("pokec bfs bucket", dist_bucket, want, exact=True)
+    log(f"phase 8 bfs pull(0, {iters}) deal=bucket: equal to the oracle "
+        f"({int((want > 0).sum())} reached) ok")
+
+    # ---- 9. kernels vs plain versions, on the apps' engines ---------------
+    rng = np.random.default_rng(1)
+    for label, app in (("MULADD", pr), ("ANDOR", bfs)):
+        mod, eng = app.SpMV_, app.SpMV_.engine
+        exact = label == "ANDOR"
+        if exact:
+            x = (rng.random(eng.num_cols) < 0.05).astype(np.float32)
+        else:
+            x = rng.random(eng.num_cols).astype(np.float32)
+        xt = torch.from_numpy(x).to(dev)
+        want = mod.compute_reference_results(x)
+        y4 = eng.fused_spmv(xt)
+        y4p = eng.fused_plain(xt)
+        s4 = eng.scatter(xt)
+        s4p = eng.scatter_plain(xt)
+        y3 = eng.reduce(s4)
+        y3p = eng.reduce_plain(s4)
+        torch.cuda.synchronize()
+        bit_equal(torch, f"pokec {label}: K4 stream", s4, s4p)
+        for name, y in (("K4 fused", y4), ("K4 fused plain", y4p),
+                        ("K3 (K4->K3)", y3), ("K3 plain", y3p)):
+            y = y.cpu().numpy()
+            if exact:
+                y = (y != 0).astype(np.float64)
+            err = check_close(f"pokec {label} {name}", y, want, exact)
+            log(f"phase 9 {label} {name}: max|y-y64|={err:.3e} "
+                f"max|y64|={np.abs(want).max():.6e} ok")
+        log(f"phase 9 {label}: K4 stream bit-equal to plain; ok")
+        if not exact:
+            rec["K4_planar_fused"]["err"] = float((y4 - y4p).abs().max())
+            rec["K4_planar_scatter"]["err"] = float((s4 - s4p).abs().max())
+            rec["K3_router_reduce"]["err"] = max(
+                rec["K3_router_reduce"]["err"], float((y3 - y3p).abs().max()))
+            spmv_x = xt
+    xb = torch.from_numpy(rng.random(bfsb_eng.num_cols).astype(
+        np.float32)).to(dev)
+    x2, x2p = bfsb_eng.xperm(xb), bfsb_eng.xperm_plain(xb)
+    torch.cuda.synchronize()
+    bit_equal(torch, "pokec K5 x2", x2, x2p)
+    rec["K5_planar_xperm"]["err"] = float((x2 - x2p).abs().max())
+    sb, sbp = bfsb_eng.scatter(xb), bfsb_eng.scatter_plain(xb)
+    torch.cuda.synchronize()
+    bit_equal(torch, "pokec bucket K5 -> K4 stream", sb, sbp)
+    log("phase 9 bucket: K5 x2 and K5 -> K4 stream bit-equal to plain; ok")
+
+    # ---- 10. times ----------------------------------------------------------
+    eng, xt = pr_eng, spmv_x
+    nnz = eng.nnz
+    stream = eng.scatter(xt)
+    timed = {
+        "K4_planar_fused": (lambda: eng.fused_spmv(xt),
+                            lambda: eng.fused_plain(xt)),
+        "K4_planar_scatter": (lambda: eng.scatter(xt),
+                              lambda: eng.scatter_plain(xt)),
+        "K3_router_reduce": (lambda: eng.reduce(stream),
+                             lambda: eng.reduce_plain(stream)),
+        "K5_planar_xperm": (lambda: bfsb_eng.xperm(xb),
+                            lambda: bfsb_eng.xperm_plain(xb)),
+    }
+    for name, (kernel, plain) in timed.items():
+        ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+        if name != "K3_router_reduce":   # K3's entry keeps googleplus' times
+            rec[name]["ms"], rec[name]["plain_ms"] = ms, plain_ms
+        rate = ("" if name == "K5_planar_xperm"
+                else f" ({gteps(nnz, ms)}; plain {gteps(nnz, plain_ms)})")
+        log(f"phase 10 pokec {name}: {ms:.4f} ms plain {plain_ms:.4f} ms"
+            f"{rate}")
+    spmv_ms = time_ms(torch, lambda: eng(xt))
+    eng.fused = False
+    split_ms = time_ms(torch, lambda: eng(xt))
+    eng.fused = True
+    xs = torch.from_numpy((rng.random(bfsb_eng.num_cols) < 0.05).astype(
+        np.float32)).to(dev)
+    bucket_ms = time_ms(torch, lambda: bfsb_eng(xs))
+    pr_ms = time_ms(torch, lambda: pr.pull(0.9, 100, device_output=True),
+                    iters=1, reps=3) / 100
+    bfs_ms = time_ms(torch, lambda: bfs.pull(0, iters, device_output=True),
+                     iters=5, reps=3)
+    log(f"phase 10 pokec planar engine call: fused {spmv_ms:.4f} ms "
+        f"({gteps(nnz, spmv_ms)}); split K4->K3 {split_ms:.4f} ms "
+        f"({gteps(nnz, split_ms)}); bucket ANDOR (K5 + K4 fused) "
+        f"{bucket_ms:.4f} ms ({gteps(bfsb_eng.nnz, bucket_ms)})")
+    log(f"phase 10 pokec pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
+        f"{bfs_ms:.4f} ms; card {card}")
 
 
 if __name__ == "__main__":

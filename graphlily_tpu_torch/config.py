@@ -19,13 +19,25 @@ import torch
 class EngineConfig:
     dtype: str = "float32"           # value dtype
     engine: str = "auto"             # "auto" | "xla" | "pallas" | "router"
-                                     # (same ladder as the JAX package; only
-                                     # the roll router and the reference
-                                     # "xla" engine are ported so far)
+                                     # | "roll" | "planar" (same ladder as
+                                     # the JAX package; the roll and planar
+                                     # routers and the reference "xla"
+                                     # engine are ported)
     sort_rows_by_degree: bool = False  # symmetric degree-sort relabel
     mxu_precision: str = "highest"   # accepted, ignored (always fp32)
     device: Optional[str] = None     # None: "cuda" when a card is present,
                                      # else "cpu"
+    planar_deal: str = "free"        # planar layout deal: "free" (chained
+                                     # gather) or "bucket" (x re-laid by
+                                     # K5)
+
+    def __post_init__(self):
+        if self.planar_deal == "permc":
+            raise NotImplementedError(
+                "planar_deal='permc' (PERM-C layouts) is not ported yet "
+                "(ROADMAP queue 1, item 11)")
+        if self.planar_deal not in ("free", "bucket"):
+            raise ValueError(f"unknown planar_deal {self.planar_deal!r}")
 
     @property
     def torch_dtype(self) -> torch.dtype:

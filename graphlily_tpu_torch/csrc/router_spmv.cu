@@ -33,7 +33,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_rows.cuh"
+
 namespace {
+
+using glt::warp_add_rows;
 
 constexpr int kChunk = 1024;
 constexpr int kThreads = 128;
@@ -101,29 +105,6 @@ __global__ void __launch_bounds__(kThreads) router_scatter_kernel(
       * kChunk + d.dst;
   for (int i = threadIdx.x; i < d.len; i += kThreads)
     out[i] = gathered<kAndOr>(x, a_page, a_r, a_sub, a_vals, chunk, e0 + i);
-}
-
-// Add one value per lane into y[row], one atomic per run of equal rows
-// among the warp's lanes (row < 0: the lane adds nothing). Runs are found
-// from head flags, so rows need not be sorted; when they are (deposits
-// are row-sorted) the heavy rows of a degree-sorted graph cost one
-// atomic per 32 elements instead of 32 atomics on one address. All 32
-// lanes must call it together.
-__device__ __forceinline__ void warp_add_rows(float* __restrict__ yr, int row,
-                                              float v) {
-  constexpr unsigned kAll = 0xffffffffu;
-  const unsigned lane = threadIdx.x & 31;
-  const int prev = __shfl_up_sync(kAll, row, 1);
-  const bool head = lane == 0 || prev != row;
-  const unsigned heads = __ballot_sync(kAll, head);
-  const int seg = __popc(heads & (kAll >> (31 - lane)));   // run id
-  // suffix sums within each run; a run's head ends with the run's total
-  for (int off = 1; off < 32; off <<= 1) {
-    const float vo = __shfl_down_sync(kAll, v, off);
-    const int so = __shfl_down_sync(kAll, seg, off);
-    if (lane + off < 32 && so == seg) v += vo;
-  }
-  if (head && row >= 0 && v != 0.f) atomicAdd(yr + row, v);
 }
 
 // ---------------------------------------------------------------------------

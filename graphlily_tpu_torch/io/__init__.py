@@ -8,3 +8,5 @@ from .generate import (uniform_csr, dense_csr, conflict_csr, rmat_csr,
                        iccad_standin, ICCAD_GRAPHS)
 from .router_format import (RouterSpMVLayout, choose_region_rows,
                             pack_router, deposit_targets)
+from .planar_format import (PlanarSpMVLayout, choose_planar_region_rows,
+                            pack_planar, planes_to_triples)

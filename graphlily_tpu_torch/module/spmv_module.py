@@ -4,8 +4,9 @@ Counterpart of `graphlily_tpu/module/spmv_module.py`: owns the formatted
 matrix, the vector/mask/results buffers, a `run()` that executes one
 masked semiring SpMV on the module's device, and a float64 CPU oracle.
 
-Engine selection keeps the JAX package's ladder. Two engines are ported:
-the roll router (ops/router.py) and the reference COO engine ("xla",
+Engine selection keeps the JAX package's ladder. Three engines are
+ported: the roll router (ops/router.py), the planar router (ops/planar.py,
+packed with `config.planar_deal`) and the reference COO engine ("xla",
 ops/reference.py). A branch that resolves to an engine not ported yet
 raises NotImplementedError naming its ROADMAP queue-1 item; it never
 substitutes another engine.
@@ -22,13 +23,14 @@ from ..semiring import MaskType, OpType, FLOAT_INF
 from ..io.matrix import CSRMatrix
 from ..io.formatter import util_round_csr_matrix_dim, estimate_chunk_layout_gb
 from ..io.router_format import choose_region_rows, pack_router
+from ..io.planar_format import pack_planar
 from ..ops.reference import coo_from_csr, spmv_coo
 from ..ops.router import RouterSpMV
+from ..ops.planar import PlanarSpMV
 from .base import BaseModule, DeviceBuffer
 
 _NOT_PORTED = {
     "chunked": "the chunked engine PallasSpMV (ROADMAP queue 1, item 7)",
-    "planar": "the planar engine PlanarSpMV (ROADMAP queue 1, item 6)",
     "tropical": "the tropical engine TropicalSpMV (ROADMAP queue 1, item 9)",
 }
 
@@ -61,8 +63,8 @@ def resolve_engine(csr: CSRMatrix, engine: str, tropical: bool) -> str:
         engine = "router"
     if engine == "router":
         return resolve_router_flavor(csr)
-    if engine == "xla":
-        return "xla"
+    if engine in ("roll", "planar", "xla"):   # a router flavor by name
+        return engine
     raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -73,7 +75,7 @@ class SpMVModule(BaseModule):
         self.vector_buf = DeviceBuffer()
         self.mask_buf = DeviceBuffer()
         self.results_buf = DeviceBuffer()
-        self.engine: Optional[RouterSpMV] = None
+        self.engine: Optional[RouterSpMV] = None   # or its PlanarSpMV
         self.engine_name = ""
         self._coo = None
         self.num_rows_ = 0
@@ -95,10 +97,15 @@ class SpMVModule(BaseModule):
                 f"engine {name!r} is not ported yet: {_NOT_PORTED[name]}")
         self.engine_name = name
         if name == "roll":
-            lay = pack_router(csr_matrix)
-            self.engine = RouterSpMV(lay, self.semiring_, self.config,
-                                     self.mask_type_)
-            self.num_rows_, self.num_cols_ = lay.num_rows, lay.num_cols
+            self.engine = RouterSpMV(pack_router(csr_matrix), self.semiring_,
+                                     self.config, self.mask_type_)
+        elif name == "planar":
+            self.engine = PlanarSpMV(
+                pack_planar(csr_matrix, deal=self.config.planar_deal),
+                self.semiring_, self.config, self.mask_type_)
+        if self.engine is not None:
+            self.num_rows_ = self.engine.num_rows
+            self.num_cols_ = self.engine.num_cols
         else:
             work = csr_matrix.copy()
             util_round_csr_matrix_dim(work, 1024, 1024)

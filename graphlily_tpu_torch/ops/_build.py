@@ -1,12 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-`nvcc` compiles every `.cu` file under `graphlily_tpu_torch/csrc/` for
-sm_90a into one shared library with a plain C interface, and `ctypes`
-loads it. The build runs at first use, into `graphlily_tpu_torch/build/`
-(git-ignored), under a name keyed by a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads at once. Nothing here
-runs at import: on a machine without CUDA the module imports and only
-`library()` fails.
+`nvcc` compiles each `.cu` file under `graphlily_tpu_torch/csrc/` for
+sm_90a into its own shared library with a plain C interface, all files at
+once (one nvcc process each), and `ctypes` loads them. The build runs at
+first use, into `graphlily_tpu_torch/build/` (git-ignored), under names
+keyed by a hash of the source, the shared headers (`*.cuh`) and the
+flags, so a changed source rebuilds and an unchanged one loads at once.
+Nothing here runs at import: on a machine without CUDA the module imports
+and only `library()` fails.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -27,17 +30,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points of csrc/router_spmv.cu: pointers and the CUDA stream as
-# c_void_p, sizes and flags as c_int; each returns cudaGetLastError().
+# C entry points of csrc/*.cu: pointers and the CUDA stream as c_void_p,
+# sizes and flags as c_int; each returns cudaGetLastError().
 SIGNATURES = {
+    # router_spmv.cu: K1, K2, K3
     "glt_router_scatter": [_P] * 8 + [_I] * 5 + [_P],
     "glt_router_reduce": [_P] * 5 + [_I] * 2 + [_P],
     "glt_router_fused": [_P] * 11 + [_I] * 6 + [_P],
+    # planar_spmv.cu: K4 scatter, K4 fused, K5
+    "glt_planar_scatter": [_P] * 9 + [_I] * 5 + [_P],
+    "glt_planar_fused": [_P] * 12 + [_I] * 6 + [_P],
+    "glt_planar_xperm": [_P] * 3 + [_I] + [_P],
 }
 
 
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -50,23 +62,27 @@ def _nvcc() -> str:
                        "is installed")
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libglt_kernels_{h.hexdigest()[:16]}.so"
+    for f in (src, *headers()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(out: Path) -> str:
-    """Compile the sources into `out`; returns nvcc's output (the ptxas
+def library_paths() -> list[Path]:
+    return [library_path(src) for src in sources()]
+
+
+def build(src: Path, out: Path) -> str:
+    """Compile one source into `out`; returns nvcc's output (the ptxas
     register and spill report). The library is written under a temporary
     name and renamed, so a concurrent or cut-off build never leaves a
     partial file under the final name."""
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         log = proc.stdout + proc.stderr
@@ -81,14 +97,24 @@ def build(out: Path) -> str:
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if its sources changed."""
-    path = library_path()
-    if not path.exists():
-        build(path)
-    lib = ctypes.CDLL(str(path))
+def library() -> types.SimpleNamespace:
+    """Every C entry point of SIGNATURES, bound; the sources that changed
+    are built first, each by its own nvcc, all at the same time."""
+    paths = [(src, library_path(src)) for src in sources()]
+    todo = [(src, out) for src, out in paths if not out.exists()]
+    if todo:
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            for fut in [pool.submit(build, src, out) for src, out in todo]:
+                fut.result()
+    libs = [ctypes.CDLL(str(out)) for _, out in paths]
+    fns = {}
     for name, argtypes in SIGNATURES.items():
+        lib = next((lib for lib in libs if hasattr(lib, name)), None)
+        if lib is None:
+            raise RuntimeError(f"no kernel library exports {name}")
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    # the CDLL handles stay referenced so the libraries stay loaded
+    return types.SimpleNamespace(libraries=libs, **fns)

@@ -16,6 +16,9 @@ contract: gather, `index_copy_` into a zeroed flush stream through the
 deposit targets, `index_add_` into y) only when given CPU tensors. Each
 kernel launch adds one to `launches[name]`.
 
+`PlanarSpMV` (ops/planar.py) inherits the argument checks, K3, the fused
+rule and `__call__`.
+
 TPU-only parts of the JAX engine are not carried over: the 3-D output
 view, the flat descriptor layout, the two accumulator banks, the bf16
 value stream and the ablation hooks. Frontier predication (SpMSpV) comes
@@ -65,23 +68,9 @@ class RouterSpMV:
     def __init__(self, layout, semiring: Semiring,
                  config: EngineConfig = DEFAULT_CONFIG,
                  mask_type: MaskType = MaskType.NO_MASK):
-        if semiring.op == OpType.ADDMIN:
-            raise ValueError("router engine supports MULADD/ANDOR only")
-        if config.dtype != "float32":
-            raise ValueError("the router kernels compute in float32 only")
-        self.semiring = semiring
-        self.mask_type = mask_type
-        self.device = config.resolve_device()
+        self._init_common(layout, semiring, config, mask_type)
         lay = layout
-        self.num_rows, self.num_cols = lay.num_rows, lay.num_cols
-        self.nsteps, self.cb, self.f = lay.nsteps, lay.cb, lay.f
-        self.rstep, self.dstep = lay.rstep, lay.dstep
-        self.region_rows, self.num_regions = lay.region_rows, lay.num_regions
-        self.nnz = lay.nnz
-
-        def dev(a):
-            return torch.from_numpy(a).reshape(-1).to(self.device)
-
+        dev = self._dev
         target = deposit_targets(lay.rg, lay.dstep, lay.f)
         self.arrays = RouterArrays(
             a_page=dev(lay.a_page), a_r=dev(lay.a_r), a_sub=dev(lay.a_sub),
@@ -89,10 +78,31 @@ class RouterSpMV:
             rg=dev(lay.rg).reshape(lay.nsteps, lay.rstep, 2),
             target=dev(target).reshape(lay.nsteps, lay.dstep),
             c_code=dev(lay.c_code), c_hi=dev(lay.c_hi), c_lo=dev(lay.c_lo))
+        self.launches = {"fused": 0, "scatter": 0, "reduce": 0}
+
+    def _init_common(self, lay, semiring: Semiring, config: EngineConfig,
+                     mask_type: MaskType) -> None:
+        """What every flush-stream engine shares: checks, sizes, the fused
+        rule and the plain versions' index cache."""
+        if semiring.op == OpType.ADDMIN:
+            raise ValueError("router engine supports MULADD/ANDOR only")
+        if config.dtype != "float32":
+            raise ValueError("the router kernels compute in float32 only")
+        self.semiring = semiring
+        self.mask_type = mask_type
+        self.device = config.resolve_device()
+        self.num_rows, self.num_cols = lay.num_rows, lay.num_cols
+        self.nsteps, self.cb, self.f = lay.nsteps, lay.cb, lay.f
+        self.rstep, self.dstep = lay.rstep, lay.dstep
+        self.region_rows, self.num_regions = lay.region_rows, lay.num_regions
+        self.nnz, self.num_slots = lay.nnz, lay.num_slots
         self.out_len = self.num_regions * self.region_rows
         self.fused = self.out_len * 4 <= FUSED_MAX_Y_BYTES
-        self.launches = {"fused": 0, "scatter": 0, "reduce": 0}
         self._plain_index = None
+
+    def _dev(self, a) -> torch.Tensor:
+        """A layout array, flattened, on the engine's device."""
+        return torch.from_numpy(a).reshape(-1).to(self.device)
 
     # ---- argument checks ---------------------------------------------------
     def _check(self, t: torch.Tensor, numel: int, what: str) -> bool:
@@ -204,15 +214,19 @@ class RouterSpMV:
         el_col = (arr.a_page.long()[chunk[rep]] * CHUNK
                   + arr.a_sub[el_src].long() * 128 + arr.a_r[el_src].long())
         el_dst = tgt[rep] * CHUNK + dst[rep] + off
-        code = arr.c_code.long().repeat_interleave(CHUNK)
-        row = torch.where(
-            code >= 0,
-            code * self.region_rows + arr.c_hi.long() * 128 + arr.c_lo.long(),
-            torch.full_like(code, self.out_len))
-        idx = dict(src=el_src, col=el_col, dst=el_dst, row=row)
+        idx = dict(src=el_src, col=el_col, dst=el_dst, row=self._rows(arr))
         if a is None:
             self._plain_index = idx
         return idx
+
+    def _rows(self, arr) -> torch.Tensor:
+        """Output row of every flush-stream position; positions of unused
+        chunks point one past the end."""
+        code = arr.c_code.long().repeat_interleave(CHUNK)
+        return torch.where(
+            code >= 0,
+            code * self.region_rows + arr.c_hi.long() * 128 + arr.c_lo.long(),
+            torch.full_like(code, self.out_len))
 
     def scatter_plain(self, x: torch.Tensor,
                       a: RouterArrays | None = None) -> torch.Tensor:

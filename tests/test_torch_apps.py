@@ -1,14 +1,17 @@
 """The port's PageRank and BFS (pull) against the JAX apps and the float64
 oracles, on the CPU (the router's plain PyTorch versions).
 
-Graph: RMAT 3000 vertices / 40k edges, seed 5. The port runs
-`engine="router"` (resolved to the roll router) with and without the
-degree-sort relabel; JAX runs `engine="xla"`. PageRank must agree within
-rtol 1e-5 (fp32 sums in other orders), BFS exactly. Branches of the
-engine ladder whose engine is not ported must raise NotImplementedError.
+Graphs: RMAT 3000 vertices / 40k edges, seed 5, which `engine="router"`
+resolves to the roll router, and the hypersparse RMAT 50000 / 150k, seed
+5, which it resolves to the planar router (both deals). The port runs
+with and without the degree-sort relabel; JAX runs `engine="xla"`.
+PageRank must agree within rtol 1e-5 (fp32 sums in other orders), BFS
+exactly. Branches of the engine ladder whose engine is not ported must
+raise NotImplementedError.
 """
 import numpy as np
 import pytest
+import torch
 
 import graphlily_tpu as jg
 from graphlily_tpu.apps import BFS as JaxBFS, PageRank as JaxPageRank
@@ -21,10 +24,15 @@ from graphlily_tpu_torch.module import SpMVModule
 from test_torch_io import to_jax
 
 SORT = [False, True]
+DEALS = ["free", "bucket"]
 
 
 def _graph():
     return rmat_csr(3000, 40000, seed=5)
+
+
+def _hypersparse_graph():
+    return rmat_csr(50000, 150000, seed=5)
 
 
 @pytest.mark.parametrize("engine", ["router", "xla"])
@@ -81,14 +89,90 @@ def test_bfs_push_not_ported():
     ("pallas", "arithmetic", _graph, "item 7"),
     ("router", "tropical", _graph, "item 9"),
     ("auto", "tropical", _graph, "item 7"),         # feasible: chunked
-    ("router", "arithmetic",                          # hypersparse: planar
-     lambda: uniform_csr(100000, 100000, 2, seed=1), "item 6"),
 ])
 def test_unported_engine_raises(engine, semiring, graph, item):
     mod = SpMVModule(tg.EngineConfig(engine=engine, device="cpu"))
     mod.set_semiring(tg.SEMIRINGS[semiring])
     with pytest.raises(NotImplementedError, match=item):
         mod.load_and_format_matrix(graph())
+
+
+@pytest.mark.parametrize("deal", DEALS)
+@pytest.mark.parametrize("semiring", ["arithmetic", "logical"])
+def test_hypersparse_graph_resolves_to_planar_and_runs(semiring, deal):
+    """The graph whose planar branch raised before the planar port now
+    resolves to the planar engine and matches the float64 oracle."""
+    g = uniform_csr(100000, 100000, 2, seed=1)
+    mod = SpMVModule(tg.EngineConfig(engine="router", device="cpu",
+                                     planar_deal=deal))
+    mod.set_semiring(tg.SEMIRINGS[semiring])
+    mod.load_and_format_matrix(g)
+    assert mod.engine_name == "planar"
+    assert mod.engine.chained == (deal == "free")
+    x = np.random.default_rng(4).random(mod.get_num_cols()).astype(
+        np.float32)
+    mod.send_vector_host_to_device(x)
+    mod.run()
+    got = mod.send_results_device_to_host().astype(np.float64)
+    want = mod.compute_reference_results(x)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("engine,graph", [
+    ("planar", _graph),                 # epg >= 200 would pick roll
+    ("roll", _hypersparse_graph),       # epg < 200 would pick planar
+])
+def test_router_flavor_by_name(engine, graph):
+    """As in the JAX package, engine="roll" or "planar" skips the flavor
+    rule."""
+    g = graph()
+    mod = SpMVModule(tg.EngineConfig(engine=engine, device="cpu"))
+    mod.set_semiring(tg.ArithmeticSemiring)
+    mod.load_and_format_matrix(g)
+    assert mod.engine_name == engine
+    x = np.random.default_rng(6).random(mod.get_num_cols()).astype(
+        np.float32)
+    got = mod.apply(torch.from_numpy(x)).numpy().astype(np.float64)
+    want = mod.compute_reference_results(x)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("deal", DEALS)
+@pytest.mark.parametrize("sort", SORT, ids=["plain", "degree_sorted"])
+def test_planar_pagerank_pull_matches(sort, deal):
+    g = _hypersparse_graph()
+    app = PageRank(tg.EngineConfig(engine="router", sort_rows_by_degree=sort,
+                                   device="cpu", planar_deal=deal))
+    app.load_and_format_matrix(g, 0.9)
+    assert app.SpMV_.engine_name == "planar"
+    got = app.pull(0.9, 10)
+    jax_app = JaxPageRank(jg.EngineConfig(engine="xla"))
+    jax_app.load_and_format_matrix(to_jax(g), 0.9)
+    want = np.asarray(jax_app.pull(0.9, 10))
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got, app.compute_reference_results(0.9, 10),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("deal", DEALS)
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+@pytest.mark.parametrize("sort", SORT, ids=["plain", "degree_sorted"])
+def test_planar_bfs_pull_matches(sort, fused, deal):
+    g = _hypersparse_graph()
+    app = BFS(tg.EngineConfig(engine="router", sort_rows_by_degree=sort,
+                              device="cpu", planar_deal=deal))
+    app.load_and_format_matrix(g)
+    assert app.SpMV_.engine_name == "planar"
+    app.SpMV_.engine.fused = fused
+    jax_app = JaxBFS(jg.EngineConfig(engine="xla"))
+    jax_app.load_and_format_matrix(to_jax(g))
+    for src in (0, 17):
+        got = app.pull(src, 8)
+        np.testing.assert_array_equal(got, np.asarray(jax_app.pull(src, 8)))
+        np.testing.assert_array_equal(got, app.compute_reference_results(
+            src, 8))
+        assert (got > 0).sum() > 1
 
 
 def test_module_chained_run():

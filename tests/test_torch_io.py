@@ -13,11 +13,14 @@ import graphlily_tpu.io as jio
 from graphlily_tpu.io import formatter as jfmt
 from graphlily_tpu.io.matrix import CSRMatrix as JCSRMatrix
 from graphlily_tpu.io.router_format import pack_router as jax_pack_router
+from graphlily_tpu.io.planar_format import (
+    pack_planar as jax_pack_planar, planes_to_triples as jax_planes_to_triples)
 
 import graphlily_tpu_torch.io as tio
-from graphlily_tpu_torch.io import deposit_targets, pack_router
+from graphlily_tpu_torch.io import (deposit_targets, pack_router, pack_planar,
+                                    planes_to_triples)
 
-from test_torch_fixtures import FIXTURES
+from test_torch_fixtures import FIXTURES, PLANAR_FIXTURES
 
 CSR_FIELDS = ("adj_data", "adj_indices", "adj_indptr")
 LAYOUT_ARRAYS = ("a_r", "a_sub", "a_vals", "a_page", "rg", "c_code", "c_hi",
@@ -25,6 +28,10 @@ LAYOUT_ARRAYS = ("a_r", "a_sub", "a_vals", "a_page", "rg", "c_code", "c_hi",
 LAYOUT_SCALARS = ("num_rows", "num_cols", "nnz", "num_col_tiles",
                   "num_regions", "region_rows", "cb", "rstep", "f", "nsteps",
                   "fill_a", "fill_stream", "dstep", "num_slots")
+PLANAR_ARRAYS = ("a_r", "xperm", "a_vals", "a_page", "rg", "planes", "c_code",
+                 "c_hi", "c_lo", "el_slot", "el_stream", "a_sub")
+PLANAR_SCALARS = LAYOUT_SCALARS + ("dmax",)
+DEALS = ["free", "bucket"]
 
 
 def to_jax(csr) -> JCSRMatrix:
@@ -107,10 +114,59 @@ def test_pack_router_matches_jax(name):
     assert lay.mem_bytes == jlay.mem_bytes
 
 
-@pytest.mark.parametrize("name", ["uniform", "rmat", "multi_region",
-                                  "hub_page", "region_1024"])
-def test_deposit_targets_hit_first_later_flush_of_own_slot(name):
-    lay, _ = _pack_both(name)
+def _pack_planar_both(name, deal, keep_el_stream=False):
+    build, region_rows = PLANAR_FIXTURES[name]
+    csr = build()
+    return (pack_planar(csr, region_rows=region_rows, deal=deal,
+                        keep_el_stream=keep_el_stream),
+            jax_pack_planar(to_jax(csr), region_rows=region_rows, deal=deal,
+                            keep_el_stream=keep_el_stream, native=False))
+
+
+@pytest.mark.parametrize("keep_el_stream", [False, True],
+                         ids=["plain", "el_stream"])
+@pytest.mark.parametrize("deal", DEALS)
+@pytest.mark.parametrize("name", list(PLANAR_FIXTURES))
+def test_pack_planar_matches_jax(name, deal, keep_el_stream):
+    lay, jlay = _pack_planar_both(name, deal, keep_el_stream)
+    if region_rows := PLANAR_FIXTURES[name][1]:
+        assert lay.region_rows == region_rows
+    assert (lay.a_sub is not None) == (deal == "free")
+    assert (lay.el_stream is not None) == keep_el_stream
+    for field in PLANAR_ARRAYS:
+        a, b = getattr(lay, field), getattr(jlay, field)
+        if a is None or b is None:
+            assert a is None and b is None, field
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        np.testing.assert_array_equal(a, b, err_msg=field)
+    for field in PLANAR_SCALARS:
+        assert getattr(lay, field) == getattr(jlay, field), field
+    assert lay.mem_bytes == jlay.mem_bytes
+
+
+@pytest.mark.parametrize("deal", DEALS)
+@pytest.mark.parametrize("name", list(PLANAR_FIXTURES))
+def test_planes_to_triples_matches_jax(name, deal):
+    """The blocked conversion gives JAX's words, whatever the block."""
+    lay, jlay = _pack_planar_both(name, deal)
+    want = jax_planes_to_triples(jlay)
+    for block_steps in (1, 3, 64):
+        got = planes_to_triples(lay, block_steps=block_steps)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_planes_to_triples_rejects_broken_run():
+    lay, _ = _pack_planar_both("rmat", "free")
+    t, p, s = np.argwhere((lay.planes < 0).sum(axis=3) >= 3)[0]
+    lane = np.nonzero(lay.planes[t, p, s] < 0)[0][0]
+    lay.planes[t, p, s, lane + 1] = 0      # a hole inside the run
+    with pytest.raises(ValueError, match="single run"):
+        planes_to_triples(lay)
+
+
+def _check_deposit_targets(lay):
     rg = lay.rg.astype(np.int64)
     target = deposit_targets(lay.rg, lay.dstep, lay.f)
     assert target.shape == (lay.nsteps, lay.dstep)
@@ -135,6 +191,20 @@ def test_deposit_targets_hit_first_later_flush_of_own_slot(name):
         assert flush_pos[tgt] > pos
         assert flush_pos[tgt] == min(p for p in slot_flushes[slot] if p > pos)
         assert lay.c_code[tgt] >= 0
+
+
+@pytest.mark.parametrize("name", ["uniform", "rmat", "multi_region",
+                                  "hub_page", "region_1024"])
+def test_deposit_targets_hit_first_later_flush_of_own_slot(name):
+    _check_deposit_targets(_pack_both(name)[0])
+
+
+@pytest.mark.parametrize("deal", DEALS)
+@pytest.mark.parametrize("name", list(PLANAR_FIXTURES))
+def test_planar_deposit_targets_hit_first_later_flush_of_own_slot(name, deal):
+    """The planar descriptor words share the roll layout's slot and flush
+    fields, so `deposit_targets` applies unchanged."""
+    _check_deposit_targets(_pack_planar_both(name, deal)[0])
 
 
 def test_deposit_targets_reject_unflushed_deposit():

@@ -1,13 +1,14 @@
-"""CUDA kernels K1 (fused), K2 (scatter), K3 (reduce) against their plain
-PyTorch versions, on the card.
+"""CUDA kernels K1 (fused), K2 (scatter), K3 (reduce) of the roll router
+and K4 (scatter, fused) and K5 (xperm) of the planar router against their
+plain PyTorch versions, on the card.
 
 Needs a CUDA card and nvcc; every test skips without a card. Imports only
 torch and the port (no jax), so on a machine without jax it runs as
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
-Tolerances: K2 is a pure copy of products and must equal its plain
-version bit for bit. K1 and K3 add with float atomics in an order that
+Tolerances: K2, K4 scatter and K5 are pure copies of products or of x and
+must equal their plain versions bit for bit. K1, K4 fused and K3 add with float atomics in an order that
 changes from run to run: ANDOR adds 0/1 counts and stays exact; MULADD is
 held to max|y - y64| <= 1e-5 * max|y64| against the float64 oracle at
 these sizes (the smoke test's googleplus bound is 1e-4, for hub rows of up
@@ -19,12 +20,12 @@ import torch
 
 from graphlily_tpu_torch import (ArithmeticSemiring, LogicalSemiring,
                                  EngineConfig)
-from graphlily_tpu_torch.io import (rmat_csr, pack_router,
+from graphlily_tpu_torch.io import (rmat_csr, pack_router, pack_planar,
                                     util_round_csr_matrix_dim)
 from graphlily_tpu_torch.module import SpMVModule
-from graphlily_tpu_torch.ops import RouterSpMV
+from graphlily_tpu_torch.ops import RouterSpMV, PlanarSpMV
 
-from test_torch_fixtures import FIXTURES
+from test_torch_fixtures import FIXTURES, PLANAR_FIXTURES
 
 pytestmark = pytest.mark.gpu
 
@@ -97,4 +98,67 @@ def test_engine_call_on_card(fused, cuda):
     np.testing.assert_array_equal(y, _oracle(csr, LogicalSemiring, x))
     want = ({"fused": 1, "scatter": 0, "reduce": 0} if fused
             else {"fused": 0, "scatter": 1, "reduce": 1})
+    assert eng.launches == want
+
+
+def _assert_close_to_oracle(outs, want, n, semiring):
+    for label, y in outs.items():
+        y = y[:n].cpu().numpy().astype(np.float64)
+        if semiring is LogicalSemiring:
+            np.testing.assert_array_equal((y != 0).astype(np.float64), want,
+                                          err_msg=label)
+        else:
+            err = np.abs(y - want).max()
+            assert err <= 1e-5 * np.abs(want).max(), (label, err)
+
+
+@pytest.mark.parametrize("deal", ["free", "bucket"])
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("name", list(PLANAR_FIXTURES))
+def test_planar_kernels_match_plain(name, semiring, deal, cuda):
+    build, region_rows = PLANAR_FIXTURES[name]
+    csr = build()
+    lay = pack_planar(csr, region_rows=region_rows, deal=deal)
+    eng = PlanarSpMV(lay, semiring, EngineConfig(device="cuda"))
+    rng = np.random.default_rng(7)
+    x = rng.random(lay.num_cols).astype(np.float32) + 0.5
+    x[rng.random(lay.num_cols) < 0.3] = 0.0
+    xt = torch.from_numpy(x).to(cuda)
+
+    if deal == "bucket":
+        assert torch.equal(eng.xperm(xt).view(torch.int32),
+                           eng.xperm_plain(xt).view(torch.int32))
+    stream = eng.scatter(xt)
+    stream_plain = eng.scatter_plain(xt)
+    assert torch.equal(stream.view(torch.int32),
+                       stream_plain.view(torch.int32))
+    y_reduce = eng.reduce(stream)
+    y_fused = eng.fused_spmv(xt)
+    y_fused_plain = eng.fused_plain(xt)
+    torch.cuda.synchronize()
+    xperms = 3 if deal == "bucket" else 0   # xperm, scatter, fused
+    assert eng.launches == {"fused": 1, "scatter": 1, "reduce": 1,
+                            "xperm": xperms}
+    _assert_close_to_oracle({"K4 scatter -> K3": y_reduce, "K4 fused": y_fused,
+                             "K4 fused plain": y_fused_plain},
+                            _oracle(csr, semiring, x), lay.num_rows, semiring)
+
+
+@pytest.mark.parametrize("deal", ["free", "bucket"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+def test_planar_engine_call_on_card(fused, deal, cuda):
+    """The planar engine's public call on CUDA tensors launches the kernels
+    of its branch (K5 first for bucket layouts), never the plain versions."""
+    csr = rmat_csr(50000, 150000, seed=5)
+    lay = pack_planar(csr, deal=deal)
+    eng = PlanarSpMV(lay, LogicalSemiring, EngineConfig(device="cuda"))
+    eng.fused = fused
+    x = (np.random.default_rng(3).random(lay.num_cols) < 0.1).astype(
+        np.float32)
+    y = eng(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(y, _oracle(csr, LogicalSemiring, x))
+    want = ({"fused": 1, "scatter": 0, "reduce": 0} if fused
+            else {"fused": 0, "scatter": 1, "reduce": 1})
+    want["xperm"] = int(deal == "bucket")
     assert eng.launches == want
