@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (graphlily_tpu_torch) on one GPU.
 
-Drives the port's two main paths once, through the entry points a user
+Drives the port's main paths once, through the entry points a user
 calls, and checks every result against the float64 oracles:
 
   * the googleplus stand-in (RMAT, 107,614 vertices, 13,673,453 edges,
     seed 0, degree-sorted) through the roll router (K1, K2, K3);
   * the pokec stand-in (RMAT, 1,632,803 vertices, 30,622,564 edges,
     seed 0, degree-sorted) through the planar router (K4 fused, K4
-    scatter -> K3, and K5 under planar_deal="bucket").
+    scatter -> K3, and K5 under planar_deal="bucket");
+  * SSSP on the googleplus stand-in (self edges added: 13,780,368 nnz),
+    through the chunked engine (the K6/K7 kernel), and PageRank and BFS
+    on the googleplus stand-in at scale 0.1, which the ladder also sends
+    to the chunked engine.
 
 Phases, one or more lines each:
 
@@ -35,10 +39,21 @@ Phases, one or more lines each:
                and K5's x2 bit-equal to their plain versions
   10. times    pokec, as phase 6, plus the planar engine call fused and
                split
+  11. sssp     googleplus SSSP(EngineConfig(sort_rows_by_degree=True)):
+               engine "auto" -> chunked; layout facts and load seconds;
+               pull(0, 7) bit-equal to the oracle
+  12. chunked  the K6/K7 kernel against its plain version and the oracle:
+               ADDMIN on the SSSP layout, MULADD and ANDOR on googleplus
+               through engine="pallas"; PageRank.pull(0.9, 10) and
+               BFS.pull(0, 7) on googleplus at scale 0.1 (engine "auto" ->
+               chunked)
+  13. times    the chunked kernel and its plain version (ADDMIN, MULADD,
+               ANDOR), SSSP pull(0, 7) ms, the chunked MULADD engine call
+               against the roll router's fused call on the same graph
 
 The launch counters are set to 0 right before each path's app runs
-(phases 4-5 and 8) and read right after; every kernel of the path must
-have run there. Then it prints the kernels' JSON line and, last,
+(phases 4-5, 8, 11 and 12) and read right after; every kernel of the path
+must have run there. Then it prints the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the ok line is not printed.
 
@@ -59,6 +74,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 ROUTER_SRC = "graphlily_tpu_torch/csrc/router_spmv.cu"
 PLANAR_SRC = "graphlily_tpu_torch/csrc/planar_spmv.cu"
+CHUNKED_SRC = "graphlily_tpu_torch/csrc/chunked_spmv.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K1_router_fused": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:419"),
     "K2_router_scatter": (ROUTER_SRC,
@@ -68,6 +84,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K4_planar_scatter": (PLANAR_SRC,
                           "graphlily_tpu/ops/router_pallas.py:1398"),
     "K5_planar_xperm": (PLANAR_SRC, "graphlily_tpu/ops/router_pallas.py:924"),
+    # one kernel for both chunked launchers: K7 (resident) and K6 (streamed)
+    "K6_K7_chunked": (CHUNKED_SRC,
+                      "graphlily_tpu/ops/spmv_pallas.py:294 (K7), "
+                      "graphlily_tpu/ops/spmv_pallas.py:160 (K6)"),
 }
 MULADD_RTOL = 1e-4   # fp32 atomics in any order over hub rows of ~1e5 terms
 
@@ -161,8 +181,9 @@ def main(argv=None) -> int:
         f"({', '.join(p.name for p in _build.library_paths())})")
 
     rec = {name: {} for name in KERNELS}
-    googleplus(torch, args, rec, card)
+    gp = googleplus(torch, args, rec, card)
     pokec(torch, args, rec, card)
+    chunked(torch, args, rec, card, gp)
 
     for name, r in rec.items():
         if r.get("launches", 0) == 0:
@@ -180,8 +201,10 @@ def main(argv=None) -> int:
     return 0
 
 
-def googleplus(torch, args, rec: dict, card: str) -> None:
-    """Phases 3-6: the roll router on the googleplus stand-in."""
+def googleplus(torch, args, rec: dict, card: str) -> dict:
+    """Phases 3-6: the roll router on the googleplus stand-in. Returns the
+    graph, its degree-sorted form and the roll engine with its MULADD x,
+    for the chunked phases."""
     from graphlily_tpu_torch import (EngineConfig, ArithmeticSemiring,
                                      LogicalSemiring)
     from graphlily_tpu_torch.apps import PageRank, BFS
@@ -316,6 +339,7 @@ def googleplus(torch, args, rec: dict, card: str) -> None:
         f"({gteps(nnz, split_ms)})")
     log(f"phase 6 pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
         f"{bfs_ms:.4f} ms; card {card}")
+    return {"g": g, "gs": gs, "roll": spmv_eng, "x": spmv_x}
 
 
 def pokec(torch, args, rec: dict, card: str) -> None:
@@ -481,6 +505,148 @@ def pokec(torch, args, rec: dict, card: str) -> None:
         f"{bucket_ms:.4f} ms ({gteps(bfsb_eng.nnz, bucket_ms)})")
     log(f"phase 10 pokec pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
         f"{bfs_ms:.4f} ms; card {card}")
+
+
+def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
+    """Phases 11-13: SSSP and the small-graph apps on the chunked engine."""
+    from graphlily_tpu_torch import (EngineConfig, ArithmeticSemiring,
+                                     LogicalSemiring, FLOAT_INF)
+    from graphlily_tpu_torch.apps import SSSP, PageRank, BFS
+    from graphlily_tpu_torch.io import iccad_standin, ICCAD_GRAPHS
+    from graphlily_tpu_torch.module import SpMVModule
+    dev = torch.device("cuda")
+    iters = ICCAD_GRAPHS["googleplus"]["iters"]
+    inf = float(FLOAT_INF)
+
+    # ---- 11. main path: SSSP through the public API -------------------------
+    t0 = time.perf_counter()
+    sssp = SSSP(EngineConfig(sort_rows_by_degree=True))
+    sssp.load_and_format_matrix(gp["g"])
+    secs = time.perf_counter() - t0
+    mod, eng = sssp.SpMV_, sssp.SpMV_.engine
+    if mod.engine_name != "chunked":
+        raise AssertionError(f"SSSP resolved {mod.engine_name!r}, not chunked")
+    code = eng.arrays.code.long()
+    per_window = torch.bincount(torch.div(code, eng.nct, rounding_mode="floor"),
+                                minlength=eng.num_rows // 128).cpu().numpy()
+    slots = eng.num_chunks * 1024
+    top_row = int(np.diff(mod.csr_matrix_.adj_indptr.astype(np.int64)).max())
+    log(f"phase 11 sssp layout (scale={args.scale}): relabel+self edges+pack"
+        f"+init {secs:.1f} s nnz={eng.nnz} chunks={eng.num_chunks} "
+        f"fill={eng.nnz / slots:.3f} col_tiles={eng.nct} "
+        f"window_groups={eng.out_len // 1024} streams r/rows/vals MB="
+        f"{slots / 1e6:.1f}/{slots / 1e6:.1f}/{4 * slots / 1e6:.1f} "
+        f"windows_with_chunks={int((per_window > 0).sum())}/{len(per_window)}"
+        f" median_window_chunks={int(np.median(per_window[per_window > 0]))}"
+        f" window0_chunks={int(per_window[0])} top_row_nnz={top_row}")
+    reset((eng,))
+    dist = sssp.pull(0, iters)
+    torch.cuda.synchronize()
+    rec["K6_K7_chunked"]["launches"] = eng.launches["chunked"]
+    log(f"phase 11 launches: sssp {eng.launches}")
+    want = sssp.compute_reference_results(0, iters)
+    check_close("sssp", dist, want, exact=True)
+    log(f"phase 11 sssp pull(0, {iters}): engine=chunked, equal to the "
+        f"oracle ({int((want < inf).sum())} reached) ok")
+
+    # ---- 12. the kernel against its plain version and the oracle ------------
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 1000, eng.num_cols).astype(np.float32)
+    x[rng.random(eng.num_cols) < 0.5] = inf    # integers: exact fp32 sums
+    xt_min = torch.from_numpy(x).to(dev)
+    y, yp = eng.spmv(xt_min), eng.spmv_plain(xt_min)
+    torch.cuda.synchronize()
+    bit_equal(torch, "ADDMIN chunked kernel", y, yp)
+    want = mod.compute_reference_results(x)
+    for label, out in (("kernel", y), ("plain", yp),
+                       ("engine call", mod.apply(xt_min))):
+        check_close(f"ADDMIN chunked {label}", out.cpu().numpy(), want,
+                    exact=True)
+    rec["K6_K7_chunked"]["err"] = float((y - yp).abs().max())
+    log("phase 12 ADDMIN (SSSP layout): kernel bit-equal to plain; kernel, "
+        "plain and engine call equal to the oracle; ok")
+    engines = {}
+    for semiring in (ArithmeticSemiring, LogicalSemiring):
+        t0 = time.perf_counter()
+        m = SpMVModule(EngineConfig(engine="pallas", device="cuda"))
+        m.set_semiring(semiring)
+        m.load_and_format_matrix(gp["gs"])
+        e = m.engine
+        assert m.engine_name == "chunked", m.engine_name
+        exact = semiring is LogicalSemiring
+        if exact:
+            xs = (rng.random(e.num_cols) < 0.05).astype(np.float32)
+        else:
+            xs = rng.random(e.num_cols).astype(np.float32)
+        xt = torch.from_numpy(xs).to(dev)
+        want = m.compute_reference_results(xs)
+        y, yp = e.spmv(xt), e.spmv_plain(xt)
+        torch.cuda.synchronize()
+        if exact:
+            bit_equal(torch, "ANDOR chunked kernel", y, yp)
+        for label, out in (("kernel", y), ("plain", yp),
+                           ("engine call", m.apply(xt))):
+            out = out.cpu().numpy()
+            if exact:
+                out = (out != 0).astype(np.float64)
+            err = check_close(f"{semiring.name} chunked {label}", out, want,
+                              exact)
+            log(f"phase 12 {semiring.name} chunked {label} (googleplus, "
+                f"engine=pallas, pack+init {time.perf_counter() - t0:.1f} s,"
+                f" {e.num_chunks} chunks): max|y-y64|={err:.3e} "
+                f"max|y64|={np.abs(want).max():.6e} ok")
+        engines[semiring.name] = (m, e, xt)
+    small = iccad_standin("googleplus", scale=0.1 * args.scale, seed=0)
+    cfg = EngineConfig(sort_rows_by_degree=True)
+    pr, bfs = PageRank(cfg), BFS(cfg)
+    pr.load_and_format_matrix(small, 0.9)
+    bfs.load_and_format_matrix(small)
+    for app in (pr, bfs):
+        if app.SpMV_.engine_name != "chunked":
+            raise AssertionError(f"{type(app).__name__} on {small.nnz} edges "
+                                 f"resolved {app.SpMV_.engine_name!r}")
+    reset((pr.SpMV_.engine, bfs.SpMV_.engine))
+    rank = pr.pull(0.9, 10)
+    dist = bfs.pull(0, iters)
+    torch.cuda.synchronize()
+    log(f"phase 12 launches: pagerank {pr.SpMV_.engine.launches} bfs "
+        f"{bfs.SpMV_.engine.launches}")
+    if min(pr.SpMV_.engine.launches["chunked"],
+           bfs.SpMV_.engine.launches["chunked"]) == 0:
+        raise AssertionError("the small-graph apps did not launch the kernel")
+    err = check_close("small pagerank", rank,
+                      pr.compute_reference_results(0.9, 10), exact=False)
+    want = bfs.compute_reference_results(0, iters)
+    check_close("small bfs", dist, want, exact=True)
+    log(f"phase 12 googleplus scale {0.1 * args.scale:g} ({small.nnz} edges):"
+        f" engine=chunked; pagerank pull(0.9, 10) max|r-r64|={err:.3e}; "
+        f"bfs pull(0, {iters}) equal to the oracle "
+        f"({int((want > 0).sum())} reached) ok")
+
+    # ---- 13. times ------------------------------------------------------------
+    ms = time_ms(torch, lambda: eng.spmv(xt_min))
+    plain_ms = time_ms(torch, lambda: eng.spmv_plain(xt_min))
+    rec["K6_K7_chunked"]["ms"], rec["K6_K7_chunked"]["plain_ms"] = ms, plain_ms
+    log(f"phase 13 ADDMIN chunked kernel (SSSP layout): {ms:.4f} ms "
+        f"({gteps(eng.nnz, ms)}) plain {plain_ms:.4f} ms "
+        f"({gteps(eng.nnz, plain_ms)})")
+    for name, (m, e, xt) in engines.items():
+        k_ms = time_ms(torch, lambda: e.spmv(xt))
+        p_ms = time_ms(torch, lambda: e.spmv_plain(xt))
+        log(f"phase 13 {name} chunked kernel (googleplus): {k_ms:.4f} ms "
+            f"({gteps(e.nnz, k_ms)}) plain {p_ms:.4f} ms "
+            f"({gteps(e.nnz, p_ms)})")
+    m, e, _ = engines["arithmetic"]
+    roll, xt = gp["roll"], gp["x"]
+    chunked_ms = time_ms(torch, lambda: m.apply(xt))
+    roll_ms = time_ms(torch, lambda: roll(xt))
+    sssp_ms = time_ms(torch, lambda: sssp.pull(0, iters, device_output=True),
+                      iters=5, reps=3)
+    log(f"phase 13 MULADD engine call on the same googleplus graph: chunked "
+        f"{chunked_ms:.4f} ms ({gteps(e.nnz, chunked_ms)}), roll router fused "
+        f"{roll_ms:.4f} ms ({gteps(roll.nnz, roll_ms)})")
+    log(f"phase 13 sssp pull(0, {iters}): {sssp_ms:.4f} ms; ADDMIN engine "
+        f"call {time_ms(torch, lambda: eng(xt_min)):.4f} ms; card {card}")
 
 
 if __name__ == "__main__":

@@ -20,9 +20,11 @@ class EngineConfig:
     dtype: str = "float32"           # value dtype
     engine: str = "auto"             # "auto" | "xla" | "pallas" | "router"
                                      # | "roll" | "planar" (same ladder as
-                                     # the JAX package; the roll and planar
-                                     # routers and the reference "xla"
-                                     # engine are ported)
+                                     # the JAX package; "pallas" names the
+                                     # chunked engine; the chunked, roll
+                                     # and planar engines and the reference
+                                     # "xla" engine are ported, the
+                                     # tropical engine is not)
     sort_rows_by_degree: bool = False  # symmetric degree-sort relabel
     mxu_precision: str = "highest"   # accepted, ignored (always fp32)
     device: Optional[str] = None     # None: "cuda" when a card is present,

@@ -3,7 +3,8 @@ from .matrix import (CSRMatrix, CSCMatrix, csr2csc, csr_from_coo,
 from .formatter import (util_round_csr_matrix_dim,
                         util_normalize_csr_matrix_by_outdegree, permute_rows,
                         symmetric_permute, degree_sort_permutation,
-                        estimate_chunk_layout_gb)
+                        estimate_chunk_layout_gb, add_self_edges_for_sssp,
+                        ChunkedSpMVLayout, pack_csr_chunks)
 from .generate import (uniform_csr, dense_csr, conflict_csr, rmat_csr,
                        iccad_standin, ICCAD_GRAPHS)
 from .router_format import (RouterSpMVLayout, choose_region_rows,

@@ -4,12 +4,13 @@ Counterpart of `graphlily_tpu/module/spmv_module.py`: owns the formatted
 matrix, the vector/mask/results buffers, a `run()` that executes one
 masked semiring SpMV on the module's device, and a float64 CPU oracle.
 
-Engine selection keeps the JAX package's ladder. Three engines are
-ported: the roll router (ops/router.py), the planar router (ops/planar.py,
-packed with `config.planar_deal`) and the reference COO engine ("xla",
-ops/reference.py). A branch that resolves to an engine not ported yet
-raises NotImplementedError naming its ROADMAP queue-1 item; it never
-substitutes another engine.
+Engine selection keeps the JAX package's ladder. Four engines are
+ported: the chunked engine (ops/chunked.py, packed with the semiring zero
+as pad value), the roll router (ops/router.py), the planar router
+(ops/planar.py, packed with `config.planar_deal`) and the reference COO
+engine ("xla", ops/reference.py). A branch that resolves to an engine not
+ported yet (the tropical engine) raises NotImplementedError naming its
+ROADMAP queue-1 item; it never substitutes another engine.
 """
 from __future__ import annotations
 
@@ -21,16 +22,17 @@ import torch
 from ..config import EngineConfig, DEFAULT_CONFIG
 from ..semiring import MaskType, OpType, FLOAT_INF
 from ..io.matrix import CSRMatrix
-from ..io.formatter import util_round_csr_matrix_dim, estimate_chunk_layout_gb
+from ..io.formatter import (util_round_csr_matrix_dim,
+                            estimate_chunk_layout_gb, pack_csr_chunks)
 from ..io.router_format import choose_region_rows, pack_router
 from ..io.planar_format import pack_planar
 from ..ops.reference import coo_from_csr, spmv_coo
+from ..ops.chunked import ChunkedSpMV
 from ..ops.router import RouterSpMV
 from ..ops.planar import PlanarSpMV
 from .base import BaseModule, DeviceBuffer
 
 _NOT_PORTED = {
-    "chunked": "the chunked engine PallasSpMV (ROADMAP queue 1, item 7)",
     "tropical": "the tropical engine TropicalSpMV (ROADMAP queue 1, item 9)",
 }
 
@@ -75,7 +77,8 @@ class SpMVModule(BaseModule):
         self.vector_buf = DeviceBuffer()
         self.mask_buf = DeviceBuffer()
         self.results_buf = DeviceBuffer()
-        self.engine: Optional[RouterSpMV] = None   # or its PlanarSpMV
+        # RouterSpMV, its PlanarSpMV, or ChunkedSpMV; None for "xla"
+        self.engine: Optional[RouterSpMV | ChunkedSpMV] = None
         self.engine_name = ""
         self._coo = None
         self.num_rows_ = 0
@@ -96,7 +99,11 @@ class SpMVModule(BaseModule):
             raise NotImplementedError(
                 f"engine {name!r} is not ported yet: {_NOT_PORTED[name]}")
         self.engine_name = name
-        if name == "roll":
+        if name == "chunked":
+            self.engine = ChunkedSpMV(
+                pack_csr_chunks(csr_matrix, pad_val=float(self.semiring_.zero)),
+                self.semiring_, self.config, self.mask_type_)
+        elif name == "roll":
             self.engine = RouterSpMV(pack_router(csr_matrix), self.semiring_,
                                      self.config, self.mask_type_)
         elif name == "planar":

@@ -29,10 +29,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of csrc/*.cu: pointers and the CUDA stream as c_void_p,
-# sizes and flags as c_int; each returns cudaGetLastError().
+# sizes and flags as c_int, scalars as c_float; each returns
+# cudaGetLastError().
 SIGNATURES = {
+    # chunked_spmv.cu: K6 and K7 in one kernel
+    "glt_chunked_spmv": [_P] * 6 + [_I] * 3 + [_F, _P],
     # router_spmv.cu: K1, K2, K3
     "glt_router_scatter": [_P] * 8 + [_I] * 5 + [_P],
     "glt_router_reduce": [_P] * 5 + [_I] * 2 + [_P],

@@ -1,23 +1,25 @@
-"""The port's PageRank and BFS (pull) against the JAX apps and the float64
-oracles, on the CPU (the router's plain PyTorch versions).
+"""The port's PageRank, BFS and SSSP (pull) against the JAX apps and the
+float64 oracles, on the CPU (the engines' plain PyTorch versions).
 
 Graphs: RMAT 3000 vertices / 40k edges, seed 5, which `engine="router"`
-resolves to the roll router, and the hypersparse RMAT 50000 / 150k, seed
-5, which it resolves to the planar router (both deals). The port runs
-with and without the degree-sort relabel; JAX runs `engine="xla"`.
-PageRank must agree within rtol 1e-5 (fp32 sums in other orders), BFS
-exactly. Branches of the engine ladder whose engine is not ported must
-raise NotImplementedError.
+resolves to the roll router and `engine="auto"` (under 2M edges) to the
+chunked engine, and the hypersparse RMAT 50000 / 150k, seed 5, which
+`engine="router"` resolves to the planar router (both deals). The port
+runs with and without the degree-sort relabel; JAX runs `engine="xla"`.
+PageRank must agree within rtol 1e-5 (fp32 sums in other orders), BFS and
+SSSP (unit weights: integer distances) exactly. Branches of the engine
+ladder whose engine is not ported must raise NotImplementedError.
 """
 import numpy as np
 import pytest
 import torch
 
 import graphlily_tpu as jg
-from graphlily_tpu.apps import BFS as JaxBFS, PageRank as JaxPageRank
+from graphlily_tpu.apps import (BFS as JaxBFS, PageRank as JaxPageRank,
+                                SSSP as JaxSSSP)
 
 import graphlily_tpu_torch as tg
-from graphlily_tpu_torch.apps import BFS, PageRank
+from graphlily_tpu_torch.apps import BFS, PageRank, SSSP
 from graphlily_tpu_torch.io import rmat_csr, uniform_csr
 from graphlily_tpu_torch.module import SpMVModule
 
@@ -35,14 +37,17 @@ def _hypersparse_graph():
     return rmat_csr(50000, 150000, seed=5)
 
 
-@pytest.mark.parametrize("engine", ["router", "xla"])
+RESOLVES = {"router": "roll", "xla": "xla", "auto": "chunked"}
+
+
+@pytest.mark.parametrize("engine", ["router", "xla", "auto"])
 @pytest.mark.parametrize("sort", SORT, ids=["plain", "degree_sorted"])
 def test_pagerank_pull_matches(sort, engine):
     g = _graph()
     app = PageRank(tg.EngineConfig(engine=engine, sort_rows_by_degree=sort,
                                    device="cpu"))
     app.load_and_format_matrix(g, 0.9)
-    assert app.SpMV_.engine_name == ("roll" if engine == "router" else "xla")
+    assert app.SpMV_.engine_name == RESOLVES[engine]
     got = app.pull(0.9, 10)
     jax_app = JaxPageRank(jg.EngineConfig(engine="xla"))
     jax_app.load_and_format_matrix(to_jax(g), 0.9)
@@ -54,6 +59,8 @@ def test_pagerank_pull_matches(sort, engine):
     if engine == "router":
         assert app.SpMV_.engine.launches == {"fused": 0, "scatter": 0,
                                              "reduce": 0}
+    if engine == "auto":
+        assert app.SpMV_.engine.launches == {"chunked": 0}
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
@@ -84,17 +91,103 @@ def test_bfs_push_not_ported():
         app.pull_push(0, 3)
 
 
+@pytest.mark.parametrize("sort", SORT, ids=["plain", "degree_sorted"])
+def test_bfs_pull_chunked_matches(sort):
+    """Under 2M edges the auto ladder picks the chunked engine."""
+    g = _graph()
+    app = BFS(tg.EngineConfig(sort_rows_by_degree=sort, device="cpu"))
+    app.load_and_format_matrix(g)
+    assert app.SpMV_.engine_name == "chunked"
+    jax_app = JaxBFS(jg.EngineConfig(engine="xla"))
+    jax_app.load_and_format_matrix(to_jax(g))
+    for src in (0, 17):
+        got = app.pull(src, 6)
+        np.testing.assert_array_equal(got, np.asarray(jax_app.pull(src, 6)))
+        np.testing.assert_array_equal(got, app.compute_reference_results(
+            src, 6))
+        assert (got > 0).sum() > 1
+
+
+@pytest.mark.parametrize("engine", ["auto", "pallas", "xla"])
+@pytest.mark.parametrize("sort", SORT, ids=["plain", "degree_sorted"])
+def test_sssp_pull_matches(sort, engine):
+    g = _graph()
+    app = SSSP(tg.EngineConfig(engine=engine, sort_rows_by_degree=sort,
+                               device="cpu"))
+    app.load_and_format_matrix(g)
+    assert app.SpMV_.engine_name == ("xla" if engine == "xla" else "chunked")
+    jax_app = JaxSSSP(jg.EngineConfig(engine="xla"))
+    jax_app.load_and_format_matrix(to_jax(g))
+    for src in (0, 17):
+        got = app.pull(src, 6)
+        assert got.dtype == np.float32 and got.shape == (app.matrix_num_rows_,)
+        np.testing.assert_array_equal(got, np.asarray(jax_app.pull(src, 6)))
+        np.testing.assert_array_equal(got, app.compute_reference_results(
+            src, 6))
+        reached = got < tg.FLOAT_INF
+        assert 1 < reached.sum() < g.num_rows
+    if engine != "xla":
+        assert app.SpMV_.engine.launches == {"chunked": 0}
+
+
+def test_sssp_weighted_pull_matches():
+    """unit_weights=False keeps the graph's weights: SSSP equals the JAX
+    app bit for bit and the float64 oracle within fp32 rounding."""
+    g = _graph()
+    app = SSSP(tg.EngineConfig(device="cpu"))
+    app.load_and_format_matrix(g, unit_weights=False)
+    jax_app = JaxSSSP(jg.EngineConfig(engine="xla"))
+    jax_app.load_and_format_matrix(to_jax(g), unit_weights=False)
+    got = app.pull(3, 5)
+    np.testing.assert_array_equal(got, np.asarray(jax_app.pull(3, 5)))
+    np.testing.assert_allclose(got, app.compute_reference_results(3, 5),
+                               rtol=1e-6, atol=0)
+
+
+def test_sssp_push_not_ported():
+    app = SSSP(tg.EngineConfig(device="cpu"))
+    app.load_and_format_matrix(_graph())
+    with pytest.raises(NotImplementedError, match="SpMSpV"):
+        app.push(0, 3)
+    with pytest.raises(NotImplementedError, match="SpMSpV"):
+        app.pull_push(0, 3)
+
+
 @pytest.mark.parametrize("engine,semiring,graph,item", [
-    ("auto", "arithmetic", _graph, "item 7"),       # small graph: chunked
-    ("pallas", "arithmetic", _graph, "item 7"),
     ("router", "tropical", _graph, "item 9"),
-    ("auto", "tropical", _graph, "item 7"),         # feasible: chunked
 ])
 def test_unported_engine_raises(engine, semiring, graph, item):
     mod = SpMVModule(tg.EngineConfig(engine=engine, device="cpu"))
     mod.set_semiring(tg.SEMIRINGS[semiring])
     with pytest.raises(NotImplementedError, match=item):
         mod.load_and_format_matrix(graph())
+
+
+@pytest.mark.parametrize("engine,semiring", [
+    ("auto", "arithmetic"),       # small graph: chunked
+    ("pallas", "arithmetic"),     # the chunked engine by name
+    ("auto", "tropical"),         # feasible tropical: chunked
+    ("auto", "logical"),
+])
+def test_small_graph_resolves_to_chunked_and_runs(engine, semiring):
+    """The graphs whose chunked branch raised before the chunked port now
+    resolve to the chunked engine and match the float64 oracle."""
+    mod = SpMVModule(tg.EngineConfig(engine=engine, device="cpu"))
+    mod.set_semiring(tg.SEMIRINGS[semiring])
+    mod.load_and_format_matrix(_graph())
+    assert mod.engine_name == "chunked"
+    x = np.random.default_rng(4).random(mod.get_num_cols()).astype(
+        np.float32)
+    mod.send_vector_host_to_device(x)
+    mod.run()
+    got = mod.send_results_device_to_host().astype(np.float64)
+    want = mod.compute_reference_results(x)
+    if semiring == "arithmetic":
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    elif semiring == "logical":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2.0**-23, atol=0)
 
 
 @pytest.mark.parametrize("deal", DEALS)

@@ -6,6 +6,10 @@ uniform, dense, mod-128 conflict, RMAT, multi-region and hub-page graphs,
 plus the explicit region heights. PLANAR_FIXTURES are the JAX planar
 tests' graphs (tests/test_planar.py): RMAT 9000/60k, two region heights,
 the two-mega-column hub graph, and a uniform graph with several regions.
+CHUNKED_FIXTURES are the JAX chunked-engine tests' graphs
+(tests/test_spmv_pallas.py): uniform, dense, mod-128 conflict, RMAT, a
+rectangular graph, empty window groups, empty rows and a hub row;
+`hub_window_csr` puts thousands of chunks in one window.
 The tests here check that each is a well-formed CSR matrix and is rebuilt
 identically.
 """
@@ -75,6 +79,63 @@ PLANAR_FIXTURES = {
 }
 
 
+def hub_rows_csr() -> CSRMatrix:
+    """One hub row with 700 nnz in one column tile (its lane runs fill
+    whole chunks) plus 299 singleton rows (tests/test_spmv_pallas.py, the
+    tropical hub-row case)."""
+    rng = np.random.default_rng(3)
+    rows = np.concatenate([np.zeros(700, np.int64),
+                           np.arange(1, 300, dtype=np.int64)])
+    cols = np.concatenate([rng.integers(0, 1024, 700),
+                           rng.integers(0, 1024, 299)])
+    vals = rng.random(999).astype(np.float32)
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    indptr = np.zeros(1025, np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    return CSRMatrix(1024, 1024, vals, cols.astype(np.uint32),
+                     np.cumsum(indptr).astype(np.uint32))
+
+
+def empty_windows_csr() -> CSRMatrix:
+    """Rows beyond the first 100 empty, rounded to 4096 rows: three of the
+    four window groups need all-padding filler chunks."""
+    csr = uniform_csr(100, 3000, 4, seed=9)
+    util_round_csr_matrix_dim(csr, 4096, 1024)
+    return csr
+
+
+def hub_window_csr() -> CSRMatrix:
+    """Rows 0-127 dense over the first 128 columns of each of 32 column
+    tiles (4,096 chunks, all in window 0: the atomics of thousands of
+    chunks meet on 128 rows) plus an RMAT graph's rows 128 and up."""
+    rng = np.random.default_rng(8)
+    base = rmat_csr(4096, 30000, seed=8)
+    keep = base.row_ids() >= 128
+    hub_cols = (np.arange(32)[:, None] * 1024 + np.arange(128)).reshape(-1)
+    dense_rows = np.repeat(np.arange(128, dtype=np.int64), len(hub_cols))
+    dense_cols = np.tile(hub_cols, 128)
+    return csr_from_coo(
+        np.concatenate([dense_rows, base.row_ids()[keep]]),
+        np.concatenate([dense_cols, base.adj_indices[:base.nnz][keep]]),
+        np.concatenate([rng.random(len(dense_rows)).astype(np.float32),
+                        base.adj_data[:base.nnz][keep]]),
+        4096, 32 * 1024)
+
+
+# the JAX chunked tests' graphs (tests/test_spmv_pallas.py)
+CHUNKED_FIXTURES = {
+    "uniform": lambda: uniform_csr(1500, 1500, 4, seed=21),
+    "dense": lambda: dense_csr(256, 256),
+    "conflict": lambda: conflict_csr(1024, 2048),
+    "rmat": lambda: rmat_csr(3000, 40000, seed=5),
+    "rect": lambda: uniform_csr(900, 2100, 3, seed=6),
+    "empty_windows": empty_windows_csr,
+    "tropical_empty_rows": lambda: uniform_csr(64, 1024, 3, seed=10),
+    "hub_rows": hub_rows_csr,
+}
+
+
 @pytest.mark.parametrize("name", list(FIXTURES))
 def test_fixture_is_well_formed_and_deterministic(name):
     _check_well_formed_and_deterministic(FIXTURES[name][0])
@@ -83,6 +144,12 @@ def test_fixture_is_well_formed_and_deterministic(name):
 @pytest.mark.parametrize("name", list(PLANAR_FIXTURES))
 def test_planar_fixture_is_well_formed_and_deterministic(name):
     _check_well_formed_and_deterministic(PLANAR_FIXTURES[name][0])
+
+
+@pytest.mark.parametrize("name", [*CHUNKED_FIXTURES, "hub_window"])
+def test_chunked_fixture_is_well_formed_and_deterministic(name):
+    _check_well_formed_and_deterministic(
+        CHUNKED_FIXTURES.get(name, hub_window_csr))
 
 
 def _check_well_formed_and_deterministic(build):
