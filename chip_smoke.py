@@ -12,7 +12,10 @@ calls, and checks every result against the float64 oracles:
   * SSSP on the googleplus stand-in (self edges added: 13,780,368 nnz),
     through the chunked engine (the K6/K7 kernel), and PageRank and BFS
     on the googleplus stand-in at scale 0.1, which the ladder also sends
-    to the chunked engine.
+    to the chunked engine;
+  * push and pull_push (SpMSpV) of BFS on both stand-ins and of SSSP on
+    googleplus, through the frontier-predicated kernels: K1p, K2p -> K3p
+    (roll), K4p fused and K4p scatter -> K3p (planar), K7p (chunked).
 
 Phases, one or more lines each:
 
@@ -50,12 +53,35 @@ Phases, one or more lines each:
   13. times    the chunked kernel and its plain version (ADDMIN, MULADD,
                ANDOR), SSSP pull(0, 7) ms, the chunked MULADD engine call
                against the roll router's fused call on the same graph
+  14. push     googleplus BFS (the phase 4-5 app; SpMSpV shares its roll
+               engine): push(0, 7) and pull_push(0, 7, threshold=0.05),
+               fused (K1p) and split (K2p -> K3p), bit-equal to the oracle
+  15. push     pokec BFS push(0, 11) and pull_push(0, 11) on the free deal,
+               fused (K4p fused) and split (K4p scatter -> K3p), and push
+               on the bucket deal (K5 -> K4p fused)
+  16. push     googleplus SSSP (the phase 11 app; SpMSpV packs its own
+               chunk_order="col" layout) push(0, 7) and pull_push(0, 7)
+               (K7p, ADDMIN) and BFS push on googleplus at scale 0.1 (K7p,
+               ANDOR); the col layout's chunks and the batches a 1-vertex
+               frontier keeps
+  17. kernels  each predicated kernel against its plain version and the
+               unpredicated kernel for three frontiers (empty, 1 vertex,
+               5% of the columns), and their times (CUDA events, min over
+               5 reps of 100 calls); push and pull_push ms of each app with
+               the pull_push_time_breakdown phase split
 
 The launch counters are set to 0 right before each path's app runs
-(phases 4-5, 8, 11 and 12) and read right after; every kernel of the path
-must have run there. Then it prints the kernels' JSON line and, last,
-{"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
-and the ok line is not printed.
+(phases 4-5, 8, 11, 12 and 14-16) and read right after; every kernel of
+the path must have run there. Then it prints the kernels' JSON line: per
+kernel its launches on the app paths, its largest difference from its
+plain version, its time, its plain version's, its bound (the larger of
+the bytes it must move over 3.35 TB/s and its fp32 operations over
+67 TFLOP/s, the H100 SXM's published peaks, counted from this run's
+inputs; a predicated kernel's from its 5% frontier) and, for the MULADD
+SpMVs, the time of `torch.mv` on a CSR tensor of the same matrix (cuSPARSE;
+timed here, never used by the port). Last comes {"ok": true, "device":
+{...}}. Any failure raises: the exit code is not 0 and the ok line is not
+printed.
 
 Usage: python3 chip_smoke.py [--scale S]   (S < 1 shrinks both graphs)
 """
@@ -88,8 +114,22 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K6_K7_chunked": (CHUNKED_SRC,
                       "graphlily_tpu/ops/spmv_pallas.py:294 (K7), "
                       "graphlily_tpu/ops/spmv_pallas.py:160 (K6)"),
+    # the frontier-predicated forms (SpMSpV): the Pallas launchers with sm/na
+    "K7p_chunked_pred": (CHUNKED_SRC, "graphlily_tpu/ops/spmv_pallas.py:335"),
+    "K1p_router_fused_pred": (ROUTER_SRC,
+                              "graphlily_tpu/ops/router_pallas.py:419"),
+    "K2p_router_scatter_pred": (ROUTER_SRC,
+                                "graphlily_tpu/ops/router_pallas.py:368"),
+    "K3p_router_reduce_pred": (ROUTER_SRC,
+                               "graphlily_tpu/ops/router_pallas.py:756"),
+    "K4p_planar_fused_pred": (PLANAR_SRC,
+                              "graphlily_tpu/ops/router_pallas.py:1459"),
+    "K4p_planar_scatter_pred": (PLANAR_SRC,
+                                "graphlily_tpu/ops/router_pallas.py:1398"),
 }
 MULADD_RTOL = 1e-4   # fp32 atomics in any order over hub rows of ~1e5 terms
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks at 700 W
+FP32_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -147,6 +187,70 @@ def gteps(nnz: int, ms: float) -> str:
     return f"{nnz / ms / 1e6:.2f} GTEPS"
 
 
+def set_bound(r: dict, nbytes: float, nops: float) -> None:
+    """The least time the card could take: bytes over the memory rate or
+    fp32 operations over the peak rate, whichever is larger."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = nops / FP32_OPS_PER_S * 1e3
+    r["bound_ms"], r["bound_by"] = (tb, "bytes") if tb >= to else (
+        to, "operations")
+    r["bound_bytes"] = nbytes
+
+
+def router_traffic(eng, act=None) -> dict:
+    """What a roll or planar kernel must move on this run's input, from
+    the layout: A-stream bytes of the real entries it reads (int8 lane,
+    fp32 value, int8 sublane where the layout has one; padding slots are
+    not counted) and one page word per chunk read, elements deposited,
+    flush chunks reduced, deposit-slot words and x/y. `act` (the
+    frontier's activity) restricts it to the live work."""
+    a = eng.arrays
+    per_slot = 5 + (a.a_sub is not None)
+    units = eng.chunk_units()
+    slots = eng.nsteps * eng.dstep
+    if act is None:
+        chunks, elems = units.numel(), eng.nnz
+        live = int((a.c_code >= 0).sum())
+        x_bytes = 4 * eng.num_cols
+    else:
+        on = act.bool()
+        chunks = int(on[units].sum())
+        elems = int(on[eng.plain_index()["unit"]].sum())
+        live = int(eng.live_chunks(act).sum())
+        x_bytes = 4 * eng.ACT_COLS * int(on.sum())
+    desc = slots * (12 + (32 if hasattr(a, "tri") else 0))
+    return dict(a=elems * per_slot + 4 * chunks, elems=elems, live=live,
+                desc=desc, x=x_bytes, y=4 * eng.out_len,
+                stream=4 * eng.nsteps * eng.f * 1024)
+
+
+def router_bounds(eng, act=None) -> dict:
+    """(bytes, ops) of the fused, scatter and reduce kernels."""
+    t = router_traffic(eng, act)
+    return {
+        "fused": (t["a"] + t["desc"] + 2 * t["elems"] + t["x"] + t["y"],
+                  2 * t["elems"]),
+        "scatter": (t["a"] + t["desc"] + t["x"] + t["stream"], t["elems"]),
+        "reduce": (t["live"] * 1024 * 6 + t["y"], t["elems"]),
+    }
+
+
+def library_mv(torch, csr, xt, want: np.ndarray) -> float:
+    """ms of `torch.mv` on a CSR tensor of `csr` (cuSPARSE), the one
+    PyTorch call that computes the same MULADD SpMV; checked against the
+    float64 oracle first."""
+    nnz = csr.nnz
+    a = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.adj_indptr.astype(np.int64)),
+        torch.from_numpy(csr.adj_indices[:nnz].astype(np.int64)),
+        torch.from_numpy(csr.adj_data[:nnz].astype(np.float32)),
+        size=(csr.num_rows, csr.num_cols)).to(xt.device)
+    x = xt[:csr.num_cols]
+    check_close("library torch.mv", torch.mv(a, x).cpu().numpy(), want,
+                exact=False)
+    return time_ms(torch, lambda: torch.mv(a, x))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -180,10 +284,12 @@ def main(argv=None) -> int:
     log(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(p.name for p in _build.library_paths())})")
 
-    rec = {name: {} for name in KERNELS}
+    rec = {name: {"library_ms": None} for name in KERNELS}
     gp = googleplus(torch, args, rec, card)
-    pokec(torch, args, rec, card)
-    chunked(torch, args, rec, card, gp)
+    pk = pokec(torch, args, rec, card)
+    ch = chunked(torch, args, rec, card, gp)
+    push_paths(torch, args, gp, pk, ch, rec)
+    predicated_kernels(torch, rec, card, gp, pk, ch)
 
     for name, r in rec.items():
         if r.get("launches", 0) == 0:
@@ -192,7 +298,14 @@ def main(argv=None) -> int:
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": r["launches"],
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
     } for name, r in rec.items()]
+    for k in kernels:
+        log(f"bound {k['name']}: {k['ms']:.4f} ms against a bound of "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}, "
+            f"{rec[k['name']]['bound_bytes'] / 1e6:.1f} MB); library "
+            f"{k['library_ms']}")
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -266,7 +379,7 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
             rec["K1_router_fused"]["err"] = float((y1 - y1p).abs().max())
             rec["K2_router_scatter"]["err"] = float((s2 - s2p).abs().max())
             rec["K3_router_reduce"]["err"] = float((y3 - y3p).abs().max())
-            spmv_eng, spmv_x = eng, xt
+            spmv_eng, spmv_x, spmv_mod = eng, xt, mod
         log(f"phase 3 {semiring.name}: K2 stream bit-equal to plain; ok")
 
     # ---- 4-5. main path: PageRank and BFS through the public API ----------
@@ -326,6 +439,12 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
         rec[name]["plain_ms"] = time_ms(torch, plain)
     spmv_ms = time_ms(torch, lambda: eng(xt))
     split_ms = time_ms(torch, lambda: eng.reduce(eng.scatter(xt)))
+    for name, (nbytes, nops) in zip(timed, router_bounds(eng).values()):
+        set_bound(rec[name], nbytes, nops)
+    rec["K1_router_fused"]["library_ms"] = library_mv(
+        torch, gs, xt, spmv_mod.compute_reference_results(xt.cpu().numpy()))
+    log(f"phase 6 library torch.mv (CSR, cuSPARSE) on the same MULADD "
+        f"SpMV: {rec['K1_router_fused']['library_ms']:.4f} ms")
     pr_ms = time_ms(torch, lambda: pr.pull(0.9, 100, device_output=True),
                     iters=1, reps=3) / 100
     bfs_ms = time_ms(torch, lambda: bfs.pull(0, iters, device_output=True),
@@ -339,7 +458,8 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
         f"({gteps(nnz, split_ms)})")
     log(f"phase 6 pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
         f"{bfs_ms:.4f} ms; card {card}")
-    return {"g": g, "gs": gs, "roll": spmv_eng, "x": spmv_x}
+    return {"g": g, "gs": gs, "roll": spmv_eng, "x": spmv_x, "bfs": bfs,
+            "library_ms": rec["K1_router_fused"]["library_ms"]}
 
 
 def pokec(torch, args, rec: dict, card: str) -> None:
@@ -480,6 +600,13 @@ def pokec(torch, args, rec: dict, card: str) -> None:
         "K5_planar_xperm": (lambda: bfsb_eng.xperm(xb),
                             lambda: bfsb_eng.xperm_plain(xb)),
     }
+    bounds = router_bounds(eng)
+    set_bound(rec["K4_planar_fused"], *bounds["fused"])
+    set_bound(rec["K4_planar_scatter"], *bounds["scatter"])
+    set_bound(rec["K5_planar_xperm"],
+              bfsb_eng.num_col_tiles * 8 * 1024 + 8 * bfsb_eng.num_cols, 0)
+    log(f"phase 10 pokec K3 bound on the planar stream: "
+        f"{bounds['reduce'][0] / HBM_BYTES_PER_S * 1e3:.4f} ms")
     for name, (kernel, plain) in timed.items():
         ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
         if name != "K3_router_reduce":   # K3's entry keeps googleplus' times
@@ -503,8 +630,14 @@ def pokec(torch, args, rec: dict, card: str) -> None:
         f"({gteps(nnz, spmv_ms)}); split K4->K3 {split_ms:.4f} ms "
         f"({gteps(nnz, split_ms)}); bucket ANDOR (K5 + K4 fused) "
         f"{bucket_ms:.4f} ms ({gteps(bfsb_eng.nnz, bucket_ms)})")
+    rec["K4_planar_fused"]["library_ms"] = library_mv(
+        torch, pr.SpMV_.csr_matrix_, xt,
+        pr.SpMV_.compute_reference_results(xt.cpu().numpy()))
+    log(f"phase 10 pokec library torch.mv (CSR, cuSPARSE) on PageRank's "
+        f"MULADD SpMV: {rec['K4_planar_fused']['library_ms']:.4f} ms")
     log(f"phase 10 pokec pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
         f"{bfs_ms:.4f} ms; card {card}")
+    return {"bfs": bfs, "bfsb": bfsb}
 
 
 def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
@@ -627,6 +760,8 @@ def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
     ms = time_ms(torch, lambda: eng.spmv(xt_min))
     plain_ms = time_ms(torch, lambda: eng.spmv_plain(xt_min))
     rec["K6_K7_chunked"]["ms"], rec["K6_K7_chunked"]["plain_ms"] = ms, plain_ms
+    set_bound(rec["K6_K7_chunked"],
+              chunked_bytes(eng, eng.num_chunks, eng.nnz), 2 * eng.nnz)
     log(f"phase 13 ADDMIN chunked kernel (SSSP layout): {ms:.4f} ms "
         f"({gteps(eng.nnz, ms)}) plain {plain_ms:.4f} ms "
         f"({gteps(eng.nnz, plain_ms)})")
@@ -644,9 +779,294 @@ def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
                       iters=5, reps=3)
     log(f"phase 13 MULADD engine call on the same googleplus graph: chunked "
         f"{chunked_ms:.4f} ms ({gteps(e.nnz, chunked_ms)}), roll router fused "
-        f"{roll_ms:.4f} ms ({gteps(roll.nnz, roll_ms)})")
+        f"{roll_ms:.4f} ms ({gteps(roll.nnz, roll_ms)}), library torch.mv "
+        f"{gp['library_ms']:.4f} ms; chunked MULADD bound "
+        f"{chunked_bytes(e, e.num_chunks, e.nnz) / HBM_BYTES_PER_S * 1e3:.4f}"
+        f" ms")
     log(f"phase 13 sssp pull(0, {iters}): {sssp_ms:.4f} ms; ADDMIN engine "
         f"call {time_ms(torch, lambda: eng(xt_min)):.4f} ms; card {card}")
+    return {"sssp": sssp, "bfs_small": bfs}
+
+
+def chunked_bytes(eng, chunks: int, real: int,
+                  x_tiles: int | None = None) -> int:
+    """Bytes a chunked kernel must move: the streams of the `real` entries
+    it folds (int8 lane, int8 row, fp32 value; padding slots are not
+    counted), the codes of the chunks that hold them, x's tiles it reads
+    and y once."""
+    tiles = eng.nct if x_tiles is None else x_tiles
+    return 6 * real + 4 * chunks + 4 * 1024 * tiles + 4 * eng.out_len
+
+
+def frontier_x(torch, ncols: int, kind: str, zero: float, rng):
+    """A dense frontier on the card: no entry, one column, or 5% of the
+    columns active (integer values 1..1000: exact in any fp32 order), the
+    semiring zero elsewhere."""
+    k = {"empty": 0, "one": 1, "5pct": ncols // 20}[kind]
+    x = np.full(ncols, zero, np.float32)
+    x[rng.choice(ncols, size=k, replace=False)] = rng.integers(
+        1, 1001, k).astype(np.float32)
+    return torch.from_numpy(x).to("cuda")
+
+
+def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict) -> None:
+    """Phases 14-16: push and pull_push through the public API, with the
+    launch counters set to 0 just before each path and read just after."""
+    from graphlily_tpu_torch.io import ICCAD_GRAPHS
+    from graphlily_tpu_torch import FLOAT_INF
+
+    # ---- 14. googleplus BFS push and pull_push (roll: K1p, K2p -> K3p) ------
+    bfs = gp["bfs"]
+    eng = bfs.SpMV_.engine
+    if bfs.SpMSpV_.engine is not eng:
+        raise AssertionError("googleplus BFS holds two copies of its engine")
+    iters = ICCAD_GRAPHS["googleplus"]["iters"]
+    want = bfs.compute_reference_results(0, iters)
+    reset((eng,))
+    runs = {"push fused": bfs.push(0, iters),
+            "pull_push fused": bfs.pull_push(0, iters, threshold=0.05)}
+    eng.fused = False
+    runs["push split"] = bfs.push(0, iters)
+    runs["pull_push split"] = bfs.pull_push(0, iters, threshold=0.05)
+    eng.fused = True
+    torch.cuda.synchronize()
+    rec["K1p_router_fused_pred"]["launches"] = eng.launches["fused_pred"]
+    rec["K2p_router_scatter_pred"]["launches"] = eng.launches["scatter_pred"]
+    rec["K3p_router_reduce_pred"]["launches"] = eng.launches["reduce_pred"]
+    log(f"phase 14 launches: googleplus bfs {eng.launches}")
+    for label, dist in runs.items():
+        check_close(f"googleplus bfs {label}", dist, want, exact=True)
+    log(f"phase 14 googleplus bfs push(0, {iters}) and pull_push(0, {iters},"
+        f" 0.05), fused and split: equal to the oracle "
+        f"({int((want > 0).sum())} reached) ok")
+
+    # ---- 15. pokec BFS push and pull_push (planar: K4p fused, K4p scatter) --
+    bfs, bfsb = pk["bfs"], pk["bfsb"]
+    eng, engb = bfs.SpMV_.engine, bfsb.SpMV_.engine
+    for app in (bfs, bfsb):
+        if app.SpMSpV_.engine is not app.SpMV_.engine:
+            raise AssertionError("pokec BFS holds two copies of its engine")
+    iters = ICCAD_GRAPHS["pokec"]["iters"]
+    want = bfs.compute_reference_results(0, iters)
+    reset((eng, engb))
+    runs = {"push fused": bfs.push(0, iters),
+            "pull_push fused": bfs.pull_push(0, iters, threshold=0.05)}
+    eng.fused = False
+    runs["push split"] = bfs.push(0, iters)
+    runs["pull_push split"] = bfs.pull_push(0, iters, threshold=0.05)
+    eng.fused = True
+    runs["push bucket"] = bfsb.push(0, iters)
+    torch.cuda.synchronize()
+    rec["K4p_planar_fused_pred"]["launches"] = (eng.launches["fused_pred"]
+                                                + engb.launches["fused_pred"])
+    rec["K4p_planar_scatter_pred"]["launches"] = eng.launches["scatter_pred"]
+    rec["K3p_router_reduce_pred"]["launches"] += eng.launches["reduce_pred"]
+    log(f"phase 15 launches: pokec bfs {eng.launches} bfs bucket "
+        f"{engb.launches}")
+    for label, dist in runs.items():
+        check_close(f"pokec bfs {label}", dist, want, exact=True)
+    log(f"phase 15 pokec bfs push(0, {iters}) and pull_push(0, {iters}, "
+        f"0.05), fused, split and bucket: equal to the oracle "
+        f"({int((want > 0).sum())} reached) ok")
+
+    # ---- 16. googleplus SSSP push and pull_push (chunked: K7p) --------------
+    sssp, small = ch["sssp"], ch["bfs_small"]
+    seng, beng = sssp.SpMSpV_.engine, small.SpMSpV_.engine
+    for e in (seng, beng):
+        if not e.col_order:
+            raise AssertionError("SpMSpV did not pack a chunk_order='col' "
+                                 "layout")
+    iters = ICCAD_GRAPHS["googleplus"]["iters"]
+    act = seng.tile_activity(sssp._init_distance(sssp._internal_source(0)))
+    log(f"phase 16 sssp SpMSpV layout (chunk_order=col): "
+        f"chunks={seng.num_chunks} batches={seng.num_chunks // 32} "
+        f"col_tiles={seng.nct}; a 1-vertex frontier keeps "
+        f"{int(seng.kept_batches(act).sum())} batches, "
+        f"{int(seng.active_chunks(act).sum())} chunks")
+    want = sssp.compute_reference_results(0, iters)
+    want_small = small.compute_reference_results(0, iters)
+    reset((seng, beng))
+    runs = {"push": sssp.push(0, iters), "pull_push": sssp.pull_push(0, iters)}
+    dist_small = small.push(0, iters)
+    torch.cuda.synchronize()
+    rec["K7p_chunked_pred"]["launches"] = (seng.launches["chunked_pred"]
+                                           + beng.launches["chunked_pred"])
+    log(f"phase 16 launches: sssp SpMSpV {seng.launches} small bfs SpMSpV "
+        f"{beng.launches}")
+    for label, dist in runs.items():
+        check_close(f"sssp {label}", dist, want, exact=True)
+    check_close("small bfs push", dist_small, want_small, exact=True)
+    log(f"phase 16 sssp push(0, {iters}) and pull_push(0, {iters}): equal to "
+        f"the oracle ({int((want < float(FLOAT_INF)).sum())} reached); bfs "
+        f"push(0, {iters}) at scale {0.1 * args.scale:g} on K7p (ANDOR) "
+        f"equal to the oracle; ok")
+
+
+def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
+                       ch: dict) -> None:
+    """Phase 17: each predicated kernel against its plain version and the
+    unpredicated kernel for three frontiers, their times, and the push
+    apps' times with their phase split."""
+    from graphlily_tpu_torch import FLOAT_INF
+    from graphlily_tpu_torch.io import ICCAD_GRAPHS
+    rng = np.random.default_rng(17)
+    inf = float(FLOAT_INF)
+
+    def router_rows(label, eng, fused_name, scatter_name, reduce_name,
+                    muladd_err=0.0):
+        for kind in ("empty", "one", "5pct"):
+            xt = frontier_x(torch, eng.num_cols, kind, 0.0, rng)
+            act = eng.activity(xt)
+            live = eng.live_chunks(act)
+            s, sp = eng.scatter_predicated(xt, act), eng.scatter_plain(
+                xt, None, act)
+            y3, y3p = eng.reduce_predicated(s, live), eng.reduce_plain(
+                s, None, live)
+            y1, y1p = eng.fused_predicated(xt, act), eng.fused_plain(
+                xt, None, act)
+            full = eng.fused_spmv(xt)
+            torch.cuda.synchronize()
+            bit_equal(torch, f"{label} {kind} scatter", s, sp)
+            for name, y, yp in (("fused", y1, y1p), ("reduce", y3, y3p)):
+                bit_equal(torch, f"{label} {kind} {name}", y, yp)
+                bit_equal(torch, f"{label} {kind} {name} vs unpredicated",
+                          y, full)
+            errs = {n: float((y - yp).abs().max()) for n, y, yp in (
+                ("fused", y1, y1p), ("scatter", s, sp), ("reduce", y3, y3p))}
+            times = {n: time_ms(torch, f) for n, f in (
+                ("fused", lambda: eng.fused_predicated(xt, act)),
+                ("scatter", lambda: eng.scatter_predicated(xt, act)),
+                ("reduce", lambda: eng.reduce_predicated(s, live)))}
+            bounds = {n: max(b / HBM_BYTES_PER_S, o / FP32_OPS_PER_S) * 1e3
+                      for n, (b, o) in router_bounds(eng, act).items()}
+            log(f"phase 17 {label} {kind}: live deposits "
+                f"{int(eng.live_deposits(act).sum())}, live flush chunks "
+                f"{int(live.sum())}; fused_pred {times['fused']:.4f} ms "
+                f"(bound {bounds['fused']:.6f}), scatter_pred "
+                f"{times['scatter']:.4f} ms (bound {bounds['scatter']:.6f}), "
+                f"reduce_pred {times['reduce']:.4f} ms (bound "
+                f"{bounds['reduce']:.6f}); bit-equal to plain and to the "
+                f"unpredicated kernels ok")
+        full_ms = {n: time_ms(torch, f) for n, f in (
+            ("fused", lambda: eng.fused_spmv(xt)),
+            ("scatter", lambda: eng.scatter(xt)),
+            ("reduce", lambda: eng.reduce(s)))}
+        plain_ms = {n: time_ms(torch, f, iters=10) for n, f in (
+            ("fused", lambda: eng.fused_plain(xt, None, act)),
+            ("scatter", lambda: eng.scatter_plain(xt, None, act)),
+            ("reduce", lambda: eng.reduce_plain(s, None, live)))}
+        bounds = router_bounds(eng, act)
+        for n, name in (("fused", fused_name), ("scatter", scatter_name),
+                        ("reduce", reduce_name)):
+            if name is None:
+                continue
+            r = rec[name]
+            r["ms"], r["plain_ms"] = times[n], plain_ms[n]
+            r["err"] = max(errs[n], muladd_err if n == "fused" else 0.0)
+            set_bound(r, *bounds[n])
+        log(f"phase 17 {label} 5%: unpredicated fused {full_ms['fused']:.4f}"
+            f" ms, scatter {full_ms['scatter']:.4f} ms, reduce "
+            f"{full_ms['reduce']:.4f} ms; plain fused_pred "
+            f"{plain_ms['fused']:.4f} ms, scatter_pred "
+            f"{plain_ms['scatter']:.4f} ms, reduce_pred "
+            f"{plain_ms['reduce']:.4f} ms")
+
+    # roll (K1p, K2p, K3p): MULADD on the phase 3 engine within the
+    # tolerance, then ANDOR on the googleplus BFS engine bit for bit; K1p's
+    # row takes the larger difference from plain
+    roll = gp["roll"]
+    xt = frontier_x(torch, roll.num_cols, "5pct", 0.0, rng)
+    act = roll.activity(xt)
+    y, yp, full = (roll.fused_predicated(xt, act),
+                   roll.fused_plain(xt, None, act), roll.fused_spmv(xt))
+    torch.cuda.synchronize()
+    scale = float(yp.abs().max())
+    for label, ref in (("plain", yp), ("unpredicated", full)):
+        err = float((y - ref).abs().max())
+        if err > MULADD_RTOL * scale:
+            raise AssertionError(f"MULADD K1p vs {label}: {err} > "
+                                 f"{MULADD_RTOL * scale}")
+    muladd_err = float((y - yp).abs().max())
+    log(f"phase 17 googleplus roll MULADD 5%: K1p within {muladd_err:.3e} "
+        f"of plain (max|y| {scale:.6e}) ok")
+    router_rows("googleplus roll ANDOR", gp["bfs"].SpMV_.engine,
+                "K1p_router_fused_pred", "K2p_router_scatter_pred",
+                "K3p_router_reduce_pred", muladd_err)
+    # planar (K4p fused, K4p scatter -> K3p) on the pokec BFS engines
+    router_rows("pokec planar free ANDOR", pk["bfs"].SpMV_.engine,
+                "K4p_planar_fused_pred", "K4p_planar_scatter_pred", None)
+    engb = pk["bfsb"].SpMV_.engine
+    xt = frontier_x(torch, engb.num_cols, "5pct", 0.0, rng)
+    act = engb.activity(xt)
+    pairs = ((engb.fused_predicated(xt, act), engb.fused_plain(xt, None, act),
+              engb.fused_spmv(xt)),
+             (engb.scatter_predicated(xt, act),
+              engb.scatter_plain(xt, None, act), engb.scatter(xt)))
+    torch.cuda.synchronize()
+    for y, yp, full in pairs:
+        bit_equal(torch, "pokec bucket K4p", y, yp)
+        bit_equal(torch, "pokec bucket K4p vs unpredicated", y, full)
+    log("phase 17 pokec planar bucket ANDOR 5%: K5 -> K4p fused and K4p "
+        "scatter bit-equal to plain and unpredicated ok")
+
+    # chunked K7p on the SSSP SpMSpV engine (ADDMIN) and the small BFS one
+    seng = ch["sssp"].SpMSpV_.engine
+    for kind in ("empty", "one", "5pct"):
+        xt = frontier_x(torch, seng.num_cols, kind, inf, rng)
+        act = seng.tile_activity(xt)
+        y, yp, full = (seng.spmv_predicated(xt, act),
+                       seng.spmv_predicated_plain(xt, act), seng.spmv(xt))
+        torch.cuda.synchronize()
+        bit_equal(torch, f"K7p {kind}", y, yp)
+        bit_equal(torch, f"K7p {kind} vs unpredicated", y, full)
+        ms = time_ms(torch, lambda: seng.spmv_predicated(xt, act))
+        kept = seng.active_chunks(act)
+        real = int((seng.arrays.vals.view(-1, 1024)[kept] != inf).sum())
+        nbytes = chunked_bytes(seng, int(kept.sum()), real, int(act.sum()))
+        log(f"phase 17 googleplus chunked ADDMIN {kind}: active tiles "
+            f"{int(act.sum())}/{seng.nct}, batches "
+            f"{int(seng.kept_batches(act).sum())}/{seng.num_chunks // 32}, "
+            f"chunks {int(kept.sum())}, entries {real}; K7p {ms:.4f} ms "
+            f"(bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f}); bit-equal to "
+            f"plain and to the unpredicated kernel ok")
+    r = rec["K7p_chunked_pred"]
+    r["ms"], r["err"] = ms, float((y - yp).abs().max())
+    r["plain_ms"] = time_ms(torch, lambda: seng.spmv_predicated_plain(
+        xt, act), iters=10)
+    set_bound(r, nbytes, 2 * real)
+    full_ms = time_ms(torch, lambda: seng.spmv(xt))
+    log(f"phase 17 googleplus chunked ADDMIN 5%: unpredicated {full_ms:.4f}"
+        f" ms, plain K7p {r['plain_ms']:.4f} ms")
+    beng = ch["bfs_small"].SpMSpV_.engine
+    xt = frontier_x(torch, beng.num_cols, "5pct", 0.0, rng)
+    act = beng.tile_activity(xt)
+    y, yp, full = (beng.spmv_predicated(xt, act),
+                   beng.spmv_predicated_plain(xt, act), beng.spmv(xt))
+    torch.cuda.synchronize()
+    bit_equal(torch, "K7p ANDOR", y, yp)
+    bit_equal(torch, "K7p ANDOR vs unpredicated", y, full)
+    log("phase 17 chunked ANDOR 5% (scale 0.1): K7p bit-equal to plain and "
+        "unpredicated ok")
+
+    # the push apps' times, with the breakdown's phase split
+    apps = (("googleplus bfs", gp["bfs"], "googleplus"),
+            ("pokec bfs", pk["bfs"], "pokec"),
+            ("googleplus sssp", ch["sssp"], "googleplus"))
+    for label, app, graph in apps:
+        iters = ICCAD_GRAPHS[graph]["iters"]
+        ms = {name: time_ms(torch, lambda: fn(0, iters, device_output=True),
+                            iters=5, reps=3)
+              for name, fn in (("pull", app.pull), ("push", app.push),
+                               ("pull_push", app.pull_push))}
+        bd = app.pull_push_time_breakdown(0, iters)
+        phases = ", ".join(f"{k} {v:.4f}" for k, v in bd["phases_ms"].items())
+        log(f"phase 17 {label}({iters}): pull {ms['pull']:.4f} ms, push "
+            f"{ms['push']:.4f} ms, pull_push {ms['pull_push']:.4f} ms; "
+            f"breakdown: {bd['push_iterations']} push + "
+            f"{bd['pull_iterations']} pull iterations, total "
+            f"{bd['total_ms']:.4f} ms, phases ms: {phases}; dispatch floor "
+            f"{bd['dispatch_floor_ms']:.4f} ms x {sum(bd['calls'].values())} "
+            f"calls; card {card}")
 
 
 if __name__ == "__main__":

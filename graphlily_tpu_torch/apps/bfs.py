@@ -1,27 +1,46 @@
-"""BFS as graph linear algebra (pull).
+"""BFS as graph linear algebra: pull, push and pull_push.
 
-Counterpart of the pull half of `graphlily_tpu/apps/bfs.py`: logical
-semiring; SpMV masked WRITE_TO_ZERO against the distance vector (visited
-vertices drop out), then a dense assign WRITE_TO_ONE stamps `iter + 1`
-into the distances at the new frontier. The JAX app's
-`fori_loop(1, n + 1)` is a plain loop of launches here. Push and
-pull_push need SpMSpV, which is not ported yet.
+Counterpart of `graphlily_tpu/apps/bfs.py`: logical semiring. Pull is a
+SpMV masked WRITE_TO_ZERO against the distance vector (visited vertices
+drop out), then a dense assign WRITE_TO_ONE stamps `iter + 1` into the
+distances at the new frontier. Push is the same step through the SpMSpV
+module (its frontier-predicated kernels), whose engine is the SpMV
+module's own when that is a router (`reuse_from`). pull_push pushes while
+the frontier is sparse, then pulls.
+
+The JAX app's `fori_loop`s are plain loops of launches here. Its
+`while_loop` (pull_push) is a host loop that reads the 4-byte frontier
+nnz once per push step, the reference's `get_results_nnz`; nothing else
+is read back. The iteration semantics are JAX's fused loop's
+(`bfs.py:158-193`): iteration 1 always pushes; another push runs while
+it + 1 < num_iterations and nnz / n < threshold (in float32); pull runs
+the rest.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from ..config import EngineConfig, DEFAULT_CONFIG
 from ..semiring import LogicalSemiring, MaskType
-from ..io.matrix import CSRMatrix, load_csr_matrix_from_float_npz
+from ..io.matrix import CSRMatrix, csr2csc, load_csr_matrix_from_float_npz
 from ..io.formatter import util_round_csr_matrix_dim
-from ..module import SpMVModule, AssignVectorDenseModule
+from ..module import (SpMVModule, SpMSpVModule, eWiseAddModule,
+                      AssignVectorDenseModule, AssignVectorSparseModule)
 from ..ops.reference import assign_vector_dense
+from ..utils.profiling import PhaseTimer, sync, dispatch_floor_ms
 from .module_collection import ModuleCollection
 
-_NEEDS_SPMSPV = ("BFS push needs the SpMSpV engine, which is not ported yet "
-                 "(ROADMAP queue 1, item 8)")
+
+def keep_pushing(it: int, num_iterations: int, nnz: int, n: int,
+                 threshold: float) -> bool:
+    """pull_push's switch after `it` push iterations whose last frontier
+    holds `nnz` entries: JAX's `it + 1 < num_iterations and nnz / n <
+    threshold`, in float32 as there."""
+    sparse = np.float32(nnz) / np.float32(n) < np.float32(threshold)
+    return it + 1 < num_iterations and bool(sparse)
 
 
 class BFS(ModuleCollection):
@@ -38,6 +57,18 @@ class BFS(ModuleCollection):
         self.DenseAssign_.set_mask_type(MaskType.WRITE_TO_ONE)
         self.add_module(self.DenseAssign_)
 
+        self.SpMSpV_ = SpMSpVModule(config)
+        self.SpMSpV_.set_semiring(self.semiring_)
+        self.SpMSpV_.set_mask_type(MaskType.WRITE_TO_ZERO)
+        self.add_module(self.SpMSpV_)
+
+        self.SparseAssign_ = AssignVectorSparseModule(
+            generate_new_frontier=False, config=config)
+        self.add_module(self.SparseAssign_)
+
+        self.eWiseAdd_ = eWiseAddModule(config)
+        self.add_module(self.eWiseAdd_)
+
         self.matrix_num_rows_ = 0
         self.matrix_num_cols_ = 0
 
@@ -46,7 +77,8 @@ class BFS(ModuleCollection):
 
     def load_and_format_matrix(self, csr_matrix, skip_empty_rows: bool = False):
         """Accepts a CSRMatrix or an npz path: round dims, set all weights
-        to 1, format for the SpMV engine."""
+        to 1, format for the SpMV engine, build the CSC twin for SpMSpV
+        (sharing the SpMV module's router engine)."""
         if not isinstance(csr_matrix, CSRMatrix):
             csr_matrix = load_csr_matrix_from_float_npz(csr_matrix)
         csr_matrix = csr_matrix.copy()
@@ -54,12 +86,15 @@ class BFS(ModuleCollection):
         util_round_csr_matrix_dim(csr_matrix, 1024, 1024)
         csr_matrix.adj_data = np.ones_like(csr_matrix.adj_data)
         self.SpMV_.load_and_format_matrix(csr_matrix, skip_empty_rows)
+        self.SpMSpV_.load_and_format_matrix(csr2csc(csr_matrix),
+                                            reuse_from=self.SpMV_)
         self.matrix_num_rows_ = self.SpMV_.get_num_rows()
         self.matrix_num_cols_ = self.SpMV_.get_num_cols()
         assert self.matrix_num_rows_ == self.matrix_num_cols_
 
     def send_matrix_host_to_device(self):
         self.SpMV_.send_matrix_host_to_device()
+        self.SpMSpV_.send_matrix_host_to_device()
 
     def _init_state(self, source: int):
         n = self.matrix_num_rows_
@@ -69,25 +104,143 @@ class BFS(ModuleCollection):
         distance[source] = 1
         return frontier.to(self.device), distance.to(self.device)
 
-    def pull(self, source: int, num_iterations: int,
-             device_output: bool = False):
-        """Iterations 1..num_iterations: masked SpMV, then distance =
-        iter + 1 at the new frontier."""
-        source = self._internal_source(source)
-        frontier, distance = self._init_state(source)
-        for it in range(1, num_iterations + 1):
-            frontier = self.SpMV_.apply(frontier, distance)
-            distance = assign_vector_dense(distance, frontier, it + 1,
-                                           MaskType.WRITE_TO_ONE)
+    # ---- one iteration ---------------------------------------------------
+    def _pull_step(self, it: int, frontier, distance):
+        """Iteration `it` (1-based): masked SpMV, then distance = it + 1 at
+        the new frontier."""
+        frontier = self.SpMV_.apply(frontier, distance)
+        return frontier, assign_vector_dense(distance, frontier, it + 1,
+                                             MaskType.WRITE_TO_ONE)
+
+    def _push_step(self, it: int, frontier, distance):
+        """Iteration `it` through SpMSpV on the dense frontier; the sparse
+        assign writes it + 1 exactly where the masked product is nonzero."""
+        frontier = self.SpMSpV_.apply_dense(frontier, distance)
+        return frontier, assign_vector_dense(distance, frontier, it + 1,
+                                             MaskType.WRITE_TO_ONE)
+
+    def _result(self, distance, device_output: bool):
         if device_output:
             return distance
         return self._external(distance.cpu().numpy())
 
-    def push(self, source: int, num_iterations: int, *args, **kw):
-        raise NotImplementedError(_NEEDS_SPMSPV)
+    # ---- public API ------------------------------------------------------
+    def pull(self, source: int, num_iterations: int,
+             device_output: bool = False):
+        """Iterations 1..num_iterations of the masked SpMV."""
+        frontier, distance = self._init_state(self._internal_source(source))
+        for it in range(1, num_iterations + 1):
+            frontier, distance = self._pull_step(it, frontier, distance)
+        return self._result(distance, device_output)
 
-    def pull_push(self, source: int, num_iterations: int, *args, **kw):
-        raise NotImplementedError(_NEEDS_SPMSPV)
+    def push(self, source: int, num_iterations: int, chained: bool = False,
+             device_output: bool = False):
+        """Iterations 1..num_iterations of SpMSpV. `chained` runs the
+        module-by-module sequence through DeviceBuffers instead."""
+        source = self._internal_source(source)
+        if chained:
+            return self._external(self._push_chained(source, num_iterations))
+        frontier, distance = self._init_state(source)
+        for it in range(1, num_iterations + 1):
+            frontier, distance = self._push_step(it, frontier, distance)
+        return self._result(distance, device_output)
+
+    def pull_push(self, source: int, num_iterations: int,
+                  threshold: float = 0.05, device_output: bool = False):
+        """Push while the frontier is sparse (one 4-byte nnz read per push
+        step), then pull for the remaining iterations."""
+        n = self.matrix_num_rows_
+        frontier, distance = self._init_state(self._internal_source(source))
+        it = 0
+        while True:
+            it += 1
+            frontier, distance = self._push_step(it, frontier, distance)
+            nnz = int((frontier != 0).sum())
+            if not keep_pushing(it, num_iterations, nnz, n, threshold):
+                break
+        while it < num_iterations:
+            it += 1
+            frontier, distance = self._pull_step(it, frontier, distance)
+        return self._result(distance, device_output)
+
+    def pull_push_time_breakdown(self, source: int, num_iterations: int,
+                                 threshold: float = 0.05) -> dict:
+        """pull_push with host timings per phase, each phase synchronized;
+        the same iteration counts as pull_push. `dispatch_floor_ms` is the
+        cost of one empty launch and its sync: subtract n_calls x floor to
+        approximate device time."""
+        source = self._internal_source(source)
+        n = self.matrix_num_rows_
+        dev = self.device
+        # warm-up: the first launch of each kernel loads its library
+        fr0, dist0 = self._init_state(source)
+        self._push_step(1, fr0, dist0)
+        self._pull_step(1, fr0, dist0)
+        sync(dev)
+        floor_ms = dispatch_floor_ms(dev)
+
+        timer = PhaseTimer()
+        calls = {"spmspv": 0, "push_assign": 0, "nnz_readback": 0,
+                 "spmv": 0, "pull_assign": 0}
+        frontier, distance = self._init_state(source)
+        it = push_iters = pull_iters = 0
+        t_all = time.perf_counter()
+        while True:
+            it += 1
+            push_iters += 1
+            with timer.phase("push_spmspv"):
+                frontier = self.SpMSpV_.apply_dense(frontier, distance)
+                sync(dev)
+            with timer.phase("push_assign"):
+                distance = assign_vector_dense(distance, frontier, it + 1,
+                                               MaskType.WRITE_TO_ONE)
+                sync(dev)
+            with timer.phase("nnz_readback"):
+                nnz_host = int((frontier != 0).sum())
+            for k in ("spmspv", "push_assign", "nnz_readback"):
+                calls[k] += 1
+            if not keep_pushing(it, num_iterations, nnz_host, n, threshold):
+                break
+        while it < num_iterations:
+            it += 1
+            pull_iters += 1
+            with timer.phase("pull_spmv"):
+                frontier = self.SpMV_.apply(frontier, distance)
+                sync(dev)
+            with timer.phase("pull_assign"):
+                distance = assign_vector_dense(distance, frontier, it + 1,
+                                               MaskType.WRITE_TO_ONE)
+                sync(dev)
+            calls["spmv"] += 1
+            calls["pull_assign"] += 1
+        total_ms = (time.perf_counter() - t_all) * 1e3
+        ncalls = sum(calls.values())
+        return {
+            "phases_ms": dict(timer.times_ms),
+            "push_iterations": push_iters,
+            "pull_iterations": pull_iters,
+            "calls": calls,
+            "dispatch_floor_ms": floor_ms,
+            "dispatch_overhead_ms": floor_ms * ncalls,
+            "total_ms": total_ms,
+            "total_minus_dispatch_ms": max(total_ms - floor_ms * ncalls, 0.0),
+            "distance": self._external(distance.cpu().numpy()),
+        }
+
+    def _push_chained(self, source: int, num_iterations: int) -> np.ndarray:
+        """The reference call sequence, module by module: SpMSpV, copy the
+        results into the frontier buffer, sparse assign it + 1."""
+        _, distance = self._init_state(source)
+        self.SpMSpV_.send_vector_host_to_device(([source], [1.0]))
+        self.SpMSpV_.send_mask_host_to_device(distance.cpu().numpy())
+        self.SparseAssign_.bind_mask_buf(self.SpMSpV_.vector_buf)
+        self.SparseAssign_.bind_inout_buf(self.SpMSpV_.mask_buf)
+        for it in range(1, num_iterations + 1):
+            self.SpMSpV_.run()
+            self.SpMSpV_.copy_buffer_device_to_device(
+                self.SpMSpV_.results_buf, self.SpMSpV_.vector_buf)
+            self.SparseAssign_.run(it + 1)
+        return self.SpMSpV_.send_mask_device_to_host()
 
     def compute_reference_results(self, source: int, num_iterations: int):
         """Float64 CPU oracle."""

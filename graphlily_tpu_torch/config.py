@@ -32,6 +32,8 @@ class EngineConfig:
     planar_deal: str = "free"        # planar layout deal: "free" (chained
                                      # gather) or "bucket" (x re-laid by
                                      # K5)
+    frontier_capacity: Optional[int] = None  # SpMSpV sparse-vector capacity;
+                                             # None: the matrix's row count
 
     def __post_init__(self):
         if self.planar_deal == "permc":

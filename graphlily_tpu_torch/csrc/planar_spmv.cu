@@ -1,5 +1,6 @@
 // Planar-router SpMV kernels for Hopper (sm_90a): K4 scatter, K4 fused,
-// K5 xperm. Built by graphlily_tpu_torch/ops/_build.py with nvcc into a
+// K5 xperm, and the frontier-predicated K4p scatter and K4p fused (SpMSpV,
+// the `sm`/`na` launches of router_pallas.py:1747-1774). Built by graphlily_tpu_torch/ops/_build.py with nvcc into a
 // shared library with a plain C interface; ops/planar.py binds it with
 // ctypes and holds each kernel against its plain PyTorch version. The
 // split branch reduces K4's flush stream with K3 (router_spmv.cu).
@@ -38,6 +39,14 @@
 // K4 fused adds each product straight into y with float atomics, summed
 // first over runs of equal rows within the warp (glt::warp_add_rows; a
 // piece's lanes are row-sorted within each sublane).
+//
+// Predication (kPred). A planar A-chunk mixes the 8 pages of its column
+// tile, so activity is per 1024-column tile (act[a_page[c]],
+// PlanarSpMV._normalize_act). A piece of an inactive tile gathers only
+// zero products: K4p skips it (its stream elements stay zero; the split
+// branch's K3p skips the flush chunks no live piece targets). The grid is
+// the full one; a dead warp exits after its descriptor word and the
+// chunk's tile. K5 is unchanged.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -147,14 +156,14 @@ __device__ __forceinline__ float gathered(
 // stand-in, 22 per run, so the warp walks the piece's elements flattened
 // across sublanes (32 per pass, no lane idles on a short run) rather than
 // one run at a time; inactive slots cost one 8-byte descriptor read.
-template <Op kOp, bool kChained>
+template <Op kOp, bool kChained, bool kPred>
 __global__ void __launch_bounds__(kThreads) planar_scatter_kernel(
     const int* __restrict__ a_page, const int8_t* __restrict__ a_r,
     const int8_t* __restrict__ a_sub, const float* __restrict__ a_vals,
     const int2* __restrict__ rg, const int* __restrict__ tri,
     const int* __restrict__ target, const float* __restrict__ x,
-    float* __restrict__ stream, int cb, int rstep, int dstep,
-    long long npieces) {
+    float* __restrict__ stream, const uint8_t* __restrict__ act, int cb,
+    int rstep, int dstep, long long npieces) {
   const unsigned lane = threadIdx.x & 31;
   const long long gp = static_cast<long long>(blockIdx.x) * kWarps
       + (threadIdx.x >> 5);
@@ -163,10 +172,11 @@ __global__ void __launch_bounds__(kThreads) planar_scatter_kernel(
   const int j = static_cast<int>(gp - t * dstep);
   const int2 w = rg[t * rstep + j];
   if (w.y <= 0) return;                          // whole warp
-  const Runs r = load_runs(tri + (t * dstep + (w.x >> 8)) * kSub, lane);
   const long long c = t * cb + (w.x & 0xFF);
-  const long long chunk = c * kChunk;
   const int page = a_page[c];
+  if (kPred && !act[page]) return;               // whole warp
+  const Runs r = load_runs(tri + (t * dstep + (w.x >> 8)) * kSub, lane);
+  const long long chunk = c * kChunk;
   float* out = stream + static_cast<long long>(target[gp]) * kChunk;
   const int n = r.end[kSub - 1];
   for (int base = 0; base < n; base += 32) {
@@ -193,15 +203,16 @@ __global__ void __launch_bounds__(kThreads) planar_scatter_kernel(
 // target*1024 + s*128 + d0 + i; warp_add_rows folds each run of equal
 // rows among the warp's lanes into one atomic. The pass bound is uniform
 // across the warp, so every lane reaches the shuffles.
-template <Op kOp, bool kChained>
+template <Op kOp, bool kChained, bool kPred>
 __global__ void __launch_bounds__(kThreads) planar_fused_kernel(
     const int* __restrict__ a_page, const int8_t* __restrict__ a_r,
     const int8_t* __restrict__ a_sub, const float* __restrict__ a_vals,
     const int2* __restrict__ rg, const int* __restrict__ tri,
     const int* __restrict__ target, const int* __restrict__ c_code,
     const int8_t* __restrict__ c_hi, const int8_t* __restrict__ c_lo,
-    const float* __restrict__ x, float* __restrict__ y, int cb, int rstep,
-    int dstep, int region_rows, long long npieces) {
+    const float* __restrict__ x, float* __restrict__ y,
+    const uint8_t* __restrict__ act, int cb, int rstep, int dstep,
+    int region_rows, long long npieces) {
   const unsigned lane = threadIdx.x & 31;
   const long long gp = static_cast<long long>(blockIdx.x) * kWarps
       + (threadIdx.x >> 5);
@@ -210,13 +221,14 @@ __global__ void __launch_bounds__(kThreads) planar_fused_kernel(
   const int j = static_cast<int>(gp - t * dstep);
   const int2 w = rg[t * rstep + j];
   if (w.y <= 0) return;                          // whole warp
+  const long long c = t * cb + (w.x & 0xFF);
+  const int page = a_page[c];
+  if (kPred && !act[page]) return;               // whole warp
   const long long tgt = target[gp];
   const int code = c_code[tgt];
   if (code < 0) return;                          // whole warp
   const Runs r = load_runs(tri + (t * dstep + (w.x >> 8)) * kSub, lane);
-  const long long c = t * cb + (w.x & 0xFF);
   const long long chunk = c * kChunk;
-  const int page = a_page[c];
   float* yr = y + static_cast<long long>(code) * region_rows;
   const int8_t* hi = c_hi + tgt * kChunk;
   const int8_t* lo = c_lo + tgt * kChunk;
@@ -270,37 +282,82 @@ unsigned blocks_for(long long items, int per_block) {
   return static_cast<unsigned>((items + per_block - 1) / per_block);
 }
 
-template <Op kOp, bool kChained>
+template <Op kOp, bool kChained, bool kPred>
 void launch_scatter(const void* a_page, const void* a_r, const void* a_sub,
                     const void* a_vals, const void* rg, const void* tri,
                     const void* target, const void* x, void* stream_out,
-                    long long npieces, int cb, int rstep, int dstep,
-                    cudaStream_t st) {
-  planar_scatter_kernel<kOp, kChained>
+                    const void* act, long long npieces, int cb, int rstep,
+                    int dstep, cudaStream_t st) {
+  planar_scatter_kernel<kOp, kChained, kPred>
       <<<blocks_for(npieces, kWarps), kThreads, 0, st>>>(
           static_cast<const int*>(a_page), static_cast<const int8_t*>(a_r),
           static_cast<const int8_t*>(a_sub), static_cast<const float*>(a_vals),
           static_cast<const int2*>(rg), static_cast<const int*>(tri),
           static_cast<const int*>(target), static_cast<const float*>(x),
-          static_cast<float*>(stream_out), cb, rstep, dstep, npieces);
+          static_cast<float*>(stream_out), static_cast<const uint8_t*>(act),
+          cb, rstep, dstep, npieces);
 }
 
-template <Op kOp, bool kChained>
+template <Op kOp, bool kChained, bool kPred>
 void launch_fused(const void* a_page, const void* a_r, const void* a_sub,
                   const void* a_vals, const void* rg, const void* tri,
                   const void* target, const void* c_code, const void* c_hi,
-                  const void* c_lo, const void* x, void* y, long long npieces,
-                  int cb, int rstep, int dstep, int region_rows,
-                  cudaStream_t st) {
-  planar_fused_kernel<kOp, kChained>
+                  const void* c_lo, const void* x, void* y, const void* act,
+                  long long npieces, int cb, int rstep, int dstep,
+                  int region_rows, cudaStream_t st) {
+  planar_fused_kernel<kOp, kChained, kPred>
       <<<blocks_for(npieces, kWarps), kThreads, 0, st>>>(
           static_cast<const int*>(a_page), static_cast<const int8_t*>(a_r),
           static_cast<const int8_t*>(a_sub), static_cast<const float*>(a_vals),
           static_cast<const int2*>(rg), static_cast<const int*>(tri),
           static_cast<const int*>(target), static_cast<const int*>(c_code),
           static_cast<const int8_t*>(c_hi), static_cast<const int8_t*>(c_lo),
-          static_cast<const float*>(x), static_cast<float*>(y), cb, rstep,
-          dstep, region_rows, npieces);
+          static_cast<const float*>(x), static_cast<float*>(y),
+          static_cast<const uint8_t*>(act), cb, rstep, dstep, region_rows,
+          npieces);
+}
+
+template <bool kPred>
+int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
+                const void* a_vals, const void* rg, const void* tri,
+                const void* target, const void* x, void* stream_out,
+                const void* act, int nsteps, int cb, int rstep, int dstep,
+                int and_or, void* cuda_stream) {
+  const long long npieces = static_cast<long long>(nsteps) * dstep;
+  if (npieces > 0) {
+    auto st = static_cast<cudaStream_t>(cuda_stream);
+    const bool chained = a_sub != nullptr;
+    auto launch = and_or
+        ? (chained ? launch_scatter<Op::kAndOr, true, kPred>
+                   : launch_scatter<Op::kAndOr, false, kPred>)
+        : (chained ? launch_scatter<Op::kMulAdd, true, kPred>
+                   : launch_scatter<Op::kMulAdd, false, kPred>);
+    launch(a_page, a_r, a_sub, a_vals, rg, tri, target, x, stream_out, act,
+           npieces, cb, rstep, dstep, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPred>
+int run_fused(const void* a_page, const void* a_r, const void* a_sub,
+              const void* a_vals, const void* rg, const void* tri,
+              const void* target, const void* c_code, const void* c_hi,
+              const void* c_lo, const void* x, void* y, const void* act,
+              int nsteps, int cb, int rstep, int dstep, int region_rows,
+              int and_or, void* cuda_stream) {
+  const long long npieces = static_cast<long long>(nsteps) * dstep;
+  if (npieces > 0) {
+    auto st = static_cast<cudaStream_t>(cuda_stream);
+    const bool chained = a_sub != nullptr;
+    auto launch = and_or
+        ? (chained ? launch_fused<Op::kAndOr, true, kPred>
+                   : launch_fused<Op::kAndOr, false, kPred>)
+        : (chained ? launch_fused<Op::kMulAdd, true, kPred>
+                   : launch_fused<Op::kMulAdd, false, kPred>);
+    launch(a_page, a_r, a_sub, a_vals, rg, tri, target, c_code, c_hi, c_lo,
+           x, y, act, npieces, cb, rstep, dstep, region_rows, st);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -316,19 +373,20 @@ extern "C" int glt_planar_scatter(
     const void* a_vals, const void* rg, const void* tri, const void* target,
     const void* x, void* stream_out, int nsteps, int cb, int rstep,
     int dstep, int and_or, void* cuda_stream) {
-  const long long npieces = static_cast<long long>(nsteps) * dstep;
-  if (npieces > 0) {
-    auto st = static_cast<cudaStream_t>(cuda_stream);
-    const bool chained = a_sub != nullptr;
-    auto launch = and_or
-        ? (chained ? launch_scatter<Op::kAndOr, true>
-                   : launch_scatter<Op::kAndOr, false>)
-        : (chained ? launch_scatter<Op::kMulAdd, true>
-                   : launch_scatter<Op::kMulAdd, false>);
-    launch(a_page, a_r, a_sub, a_vals, rg, tri, target, x, stream_out,
-           npieces, cb, rstep, dstep, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_scatter<false>(a_page, a_r, a_sub, a_vals, rg, tri, target, x,
+                            stream_out, nullptr, nsteps, cb, rstep, dstep,
+                            and_or, cuda_stream);
+}
+
+// K4p scatter: act is the (num_col_tiles,) uint8 tile activity.
+extern "C" int glt_planar_scatter_pred(
+    const void* a_page, const void* a_r, const void* a_sub,
+    const void* a_vals, const void* rg, const void* tri, const void* target,
+    const void* x, void* stream_out, const void* act, int nsteps, int cb,
+    int rstep, int dstep, int and_or, void* cuda_stream) {
+  return run_scatter<true>(a_page, a_r, a_sub, a_vals, rg, tri, target, x,
+                           stream_out, act, nsteps, cb, rstep, dstep, and_or,
+                           cuda_stream);
 }
 
 extern "C" int glt_planar_fused(
@@ -337,19 +395,21 @@ extern "C" int glt_planar_fused(
     const void* c_code, const void* c_hi, const void* c_lo, const void* x,
     void* y, int nsteps, int cb, int rstep, int dstep, int region_rows,
     int and_or, void* cuda_stream) {
-  const long long npieces = static_cast<long long>(nsteps) * dstep;
-  if (npieces > 0) {
-    auto st = static_cast<cudaStream_t>(cuda_stream);
-    const bool chained = a_sub != nullptr;
-    auto launch = and_or
-        ? (chained ? launch_fused<Op::kAndOr, true>
-                   : launch_fused<Op::kAndOr, false>)
-        : (chained ? launch_fused<Op::kMulAdd, true>
-                   : launch_fused<Op::kMulAdd, false>);
-    launch(a_page, a_r, a_sub, a_vals, rg, tri, target, c_code, c_hi, c_lo,
-           x, y, npieces, cb, rstep, dstep, region_rows, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_fused<false>(a_page, a_r, a_sub, a_vals, rg, tri, target, c_code,
+                          c_hi, c_lo, x, y, nullptr, nsteps, cb, rstep, dstep,
+                          region_rows, and_or, cuda_stream);
+}
+
+// K4p fused: act is the (num_col_tiles,) uint8 tile activity.
+extern "C" int glt_planar_fused_pred(
+    const void* a_page, const void* a_r, const void* a_sub,
+    const void* a_vals, const void* rg, const void* tri, const void* target,
+    const void* c_code, const void* c_hi, const void* c_lo, const void* x,
+    void* y, const void* act, int nsteps, int cb, int rstep, int dstep,
+    int region_rows, int and_or, void* cuda_stream) {
+  return run_fused<true>(a_page, a_r, a_sub, a_vals, rg, tri, target, c_code,
+                         c_hi, c_lo, x, y, act, nsteps, cb, rstep, dstep,
+                         region_rows, and_or, cuda_stream);
 }
 
 extern "C" int glt_planar_xperm(const void* xperm, const void* x, void* x2,

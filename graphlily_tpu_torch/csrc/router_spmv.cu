@@ -1,5 +1,6 @@
 // Roll-router SpMV kernels for Hopper (sm_90a): K1 fused, K2 scatter,
-// K3 reduce. Built by graphlily_tpu_torch/ops/_build.py with nvcc into a
+// K3 reduce, and their frontier-predicated forms K1p, K2p, K3p (SpMSpV,
+// the `sm`/`na` launches of router_pallas.py:459-460, :1947-1963). Built by graphlily_tpu_torch/ops/_build.py with nvcc into a
 // shared library with a plain C interface; ops/router.py binds it with
 // ctypes and holds each kernel against its plain PyTorch version.
 //
@@ -29,6 +30,19 @@
 // add into y with float atomics, whose order changes from run to run
 // (ANDOR adds 0/1 counts, so it stays exact). Before its atomics each warp
 // sums its lanes' runs of equal rows (warp_add_rows).
+//
+// Predication (kPred). x is zero outside the frontier, so a deposit whose
+// A-chunk lies on an inactive 128-column page gathers only zero products.
+// The Pallas forms mask such deposits (_predicate_rg) and compact the grid
+// to the steps that keep a live deposit or a live flush (_predicate_exact),
+// because their flushes run in order. Here no flush order exists: K1p and
+// K2p skip the dead deposits (their stream elements stay zero in the
+// zeroed stream), and K3p skips the flush-stream chunks that no live
+// deposit targets (`live`, built on the device by the wrapper). The grid
+// is the full one; a dead block exits after its descriptor word and the
+// chunk's page. The page of A-chunk c is a_page[c]*8 + a_sub[c*1024]: a
+// roll chunk holds one page, so its first sublane byte is the page's
+// (router_pallas.py:_chunk_activity).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -61,6 +75,14 @@ __device__ __forceinline__ Deposit decode_deposit(int w1, int w2) {
   return d;
 }
 
+// Frontier activity of A-chunk `chunk`: act is per 128-column page.
+__device__ __forceinline__ bool chunk_active(
+    const uint8_t* __restrict__ act, const int* __restrict__ a_page,
+    const int8_t* __restrict__ a_sub, long long chunk) {
+  return act[static_cast<long long>(a_page[chunk]) * 8
+             + static_cast<int>(a_sub[chunk * kChunk])] != 0;
+}
+
 // Gathered product of stream element e of A-chunk `chunk`.
 template <bool kAndOr>
 __device__ __forceinline__ float gathered(
@@ -86,19 +108,20 @@ __device__ __forceinline__ float gathered(
 // Design: one block per (step, deposit slot); the block's threads walk the
 // deposit's run, so stream reads and writes are contiguous and coalesced,
 // and inactive slots exit after reading one 8-byte word.
-template <bool kAndOr>
+template <bool kAndOr, bool kPred>
 __global__ void __launch_bounds__(kThreads) router_scatter_kernel(
     const int* __restrict__ a_page, const int8_t* __restrict__ a_r,
     const int8_t* __restrict__ a_sub, const float* __restrict__ a_vals,
     const int2* __restrict__ rg, const int* __restrict__ target,
     const float* __restrict__ x, float* __restrict__ stream,
-    int cb, int rstep, int dstep) {
+    const uint8_t* __restrict__ act, int cb, int rstep, int dstep) {
   const int t = blockIdx.x / dstep;
   const int j = blockIdx.x - t * dstep;
   const int2 w = rg[static_cast<long long>(t) * rstep + j];
   if (w.y <= 0) return;
   const Deposit d = decode_deposit(w.x, w.y);
   const long long chunk = static_cast<long long>(t) * cb + d.k;
+  if (kPred && !chunk_active(act, a_page, a_sub, chunk)) return;
   const long long e0 = chunk * kChunk + d.src;
   float* out = stream
       + static_cast<long long>(target[static_cast<long long>(t) * dstep + j])
@@ -118,11 +141,14 @@ __global__ void __launch_bounds__(kThreads) router_scatter_kernel(
 // Design: one block per flushed chunk, coalesced reads; each warp sums
 // runs of equal rows before its atomics (warp_add_rows); a zero sum issues
 // no atomic, which changes no value.
+template <bool kPred>
 __global__ void __launch_bounds__(kThreads) router_reduce_kernel(
     const int* __restrict__ c_code, const float* __restrict__ stream,
     const int8_t* __restrict__ c_hi, const int8_t* __restrict__ c_lo,
-    float* __restrict__ y, int region_rows) {
+    float* __restrict__ y, const uint8_t* __restrict__ live,
+    int region_rows) {
   const long long s = blockIdx.x;
+  if (kPred && !live[s]) return;
   const int code = c_code[s];
   if (code < 0) return;
   float* yr = y + static_cast<long long>(code) * region_rows;
@@ -145,19 +171,22 @@ __global__ void __launch_bounds__(kThreads) router_reduce_kernel(
 // elements are row-sorted, so warp_add_rows folds each row's run into one
 // atomic per warp; zero sums (ANDOR with x = 0) issue no atomic. The loop
 // bound is uniform across the block, so every lane reaches the shuffles.
-template <bool kAndOr>
+template <bool kAndOr, bool kPred>
 __global__ void __launch_bounds__(kThreads) router_fused_kernel(
     const int* __restrict__ a_page, const int8_t* __restrict__ a_r,
     const int8_t* __restrict__ a_sub, const float* __restrict__ a_vals,
     const int2* __restrict__ rg, const int* __restrict__ target,
     const int* __restrict__ c_code, const int8_t* __restrict__ c_hi,
     const int8_t* __restrict__ c_lo, const float* __restrict__ x,
-    float* __restrict__ y, int cb, int rstep, int dstep, int region_rows) {
+    float* __restrict__ y, const uint8_t* __restrict__ act, int cb,
+    int rstep, int dstep, int region_rows) {
   const int t = blockIdx.x / dstep;
   const int j = blockIdx.x - t * dstep;
   const int2 w = rg[static_cast<long long>(t) * rstep + j];
   if (w.y <= 0) return;
   const Deposit d = decode_deposit(w.x, w.y);
+  if (kPred && !chunk_active(act, a_page, a_sub,
+                             static_cast<long long>(t) * cb + d.k)) return;
   const int tgt = target[static_cast<long long>(t) * dstep + j];
   const int code = c_code[tgt];
   if (code < 0) return;
@@ -178,32 +207,86 @@ __global__ void __launch_bounds__(kThreads) router_fused_kernel(
   }
 }
 
-template <bool kAndOr>
+template <bool kAndOr, bool kPred>
 void launch_scatter(const void* a_page, const void* a_r, const void* a_sub,
                     const void* a_vals, const void* rg, const void* target,
-                    const void* x, void* stream_out, unsigned nblocks,
-                    int cb, int rstep, int dstep, cudaStream_t st) {
-  router_scatter_kernel<kAndOr><<<nblocks, kThreads, 0, st>>>(
+                    const void* x, void* stream_out, const void* act,
+                    unsigned nblocks, int cb, int rstep, int dstep,
+                    cudaStream_t st) {
+  router_scatter_kernel<kAndOr, kPred><<<nblocks, kThreads, 0, st>>>(
       static_cast<const int*>(a_page), static_cast<const int8_t*>(a_r),
       static_cast<const int8_t*>(a_sub), static_cast<const float*>(a_vals),
       static_cast<const int2*>(rg), static_cast<const int*>(target),
       static_cast<const float*>(x), static_cast<float*>(stream_out),
-      cb, rstep, dstep);
+      static_cast<const uint8_t*>(act), cb, rstep, dstep);
 }
 
-template <bool kAndOr>
+template <bool kAndOr, bool kPred>
 void launch_fused(const void* a_page, const void* a_r, const void* a_sub,
                   const void* a_vals, const void* rg, const void* target,
                   const void* c_code, const void* c_hi, const void* c_lo,
-                  const void* x, void* y, unsigned nblocks, int cb, int rstep,
-                  int dstep, int region_rows, cudaStream_t st) {
-  router_fused_kernel<kAndOr><<<nblocks, kThreads, 0, st>>>(
+                  const void* x, void* y, const void* act, unsigned nblocks,
+                  int cb, int rstep, int dstep, int region_rows,
+                  cudaStream_t st) {
+  router_fused_kernel<kAndOr, kPred><<<nblocks, kThreads, 0, st>>>(
       static_cast<const int*>(a_page), static_cast<const int8_t*>(a_r),
       static_cast<const int8_t*>(a_sub), static_cast<const float*>(a_vals),
       static_cast<const int2*>(rg), static_cast<const int*>(target),
       static_cast<const int*>(c_code), static_cast<const int8_t*>(c_hi),
       static_cast<const int8_t*>(c_lo), static_cast<const float*>(x),
-      static_cast<float*>(y), cb, rstep, dstep, region_rows);
+      static_cast<float*>(y), static_cast<const uint8_t*>(act), cb, rstep,
+      dstep, region_rows);
+}
+
+template <bool kPred>
+int run_reduce(const void* c_code, const void* stream_in, const void* c_hi,
+               const void* c_lo, void* y, const void* live, int nchunks,
+               int region_rows, void* cuda_stream) {
+  if (nchunks > 0) {
+    router_reduce_kernel<kPred><<<static_cast<unsigned>(nchunks), kThreads,
+                                  0, static_cast<cudaStream_t>(cuda_stream)>>>(
+        static_cast<const int*>(c_code), static_cast<const float*>(stream_in),
+        static_cast<const int8_t*>(c_hi), static_cast<const int8_t*>(c_lo),
+        static_cast<float*>(y), static_cast<const uint8_t*>(live),
+        region_rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPred>
+int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
+                const void* a_vals, const void* rg, const void* target,
+                const void* x, void* stream_out, const void* act, int nsteps,
+                int cb, int rstep, int dstep, int and_or,
+                void* cuda_stream) {
+  const long long nblocks = static_cast<long long>(nsteps) * dstep;
+  if (nblocks > 0) {
+    auto st = static_cast<cudaStream_t>(cuda_stream);
+    auto launch = and_or ? launch_scatter<true, kPred>
+                         : launch_scatter<false, kPred>;
+    launch(a_page, a_r, a_sub, a_vals, rg, target, x, stream_out, act,
+           static_cast<unsigned>(nblocks), cb, rstep, dstep, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPred>
+int run_fused(const void* a_page, const void* a_r, const void* a_sub,
+              const void* a_vals, const void* rg, const void* target,
+              const void* c_code, const void* c_hi, const void* c_lo,
+              const void* x, void* y, const void* act, int nsteps, int cb,
+              int rstep, int dstep, int region_rows, int and_or,
+              void* cuda_stream) {
+  const long long nblocks = static_cast<long long>(nsteps) * dstep;
+  if (nblocks > 0) {
+    auto st = static_cast<cudaStream_t>(cuda_stream);
+    auto launch = and_or ? launch_fused<true, kPred>
+                         : launch_fused<false, kPred>;
+    launch(a_page, a_r, a_sub, a_vals, rg, target, c_code, c_hi, c_lo, x, y,
+           act, static_cast<unsigned>(nblocks), cb, rstep, dstep,
+           region_rows, st);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -211,35 +294,44 @@ void launch_fused(const void* a_page, const void* a_r, const void* a_sub,
 // ---------------------------------------------------------------------------
 // C entry points. Each launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (0 = launched).
-// Outputs must be zeroed by the caller.
+// Outputs must be zeroed by the caller. The *_pred forms take `act`, the
+// (num_col_tiles*8,) uint8 page activity (K1p, K2p), or `live`, the
+// (nsteps*f,) uint8 flush-chunk liveness (K3p).
 
 extern "C" int glt_router_scatter(
     const void* a_page, const void* a_r, const void* a_sub,
     const void* a_vals, const void* rg, const void* target, const void* x,
     void* stream_out, int nsteps, int cb, int rstep, int dstep, int and_or,
     void* cuda_stream) {
-  const long long nblocks = static_cast<long long>(nsteps) * dstep;
-  if (nblocks > 0) {
-    auto st = static_cast<cudaStream_t>(cuda_stream);
-    auto launch = and_or ? launch_scatter<true> : launch_scatter<false>;
-    launch(a_page, a_r, a_sub, a_vals, rg, target, x, stream_out,
-           static_cast<unsigned>(nblocks), cb, rstep, dstep, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_scatter<false>(a_page, a_r, a_sub, a_vals, rg, target, x,
+                            stream_out, nullptr, nsteps, cb, rstep, dstep,
+                            and_or, cuda_stream);
+}
+
+extern "C" int glt_router_scatter_pred(
+    const void* a_page, const void* a_r, const void* a_sub,
+    const void* a_vals, const void* rg, const void* target, const void* x,
+    void* stream_out, const void* act, int nsteps, int cb, int rstep,
+    int dstep, int and_or, void* cuda_stream) {
+  return run_scatter<true>(a_page, a_r, a_sub, a_vals, rg, target, x,
+                           stream_out, act, nsteps, cb, rstep, dstep, and_or,
+                           cuda_stream);
 }
 
 extern "C" int glt_router_reduce(
     const void* c_code, const void* stream_in, const void* c_hi,
     const void* c_lo, void* y, int nchunks, int region_rows,
     void* cuda_stream) {
-  if (nchunks > 0) {
-    router_reduce_kernel<<<static_cast<unsigned>(nchunks), kThreads, 0,
-                           static_cast<cudaStream_t>(cuda_stream)>>>(
-        static_cast<const int*>(c_code), static_cast<const float*>(stream_in),
-        static_cast<const int8_t*>(c_hi), static_cast<const int8_t*>(c_lo),
-        static_cast<float*>(y), region_rows);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_reduce<false>(c_code, stream_in, c_hi, c_lo, y, nullptr,
+                           nchunks, region_rows, cuda_stream);
+}
+
+extern "C" int glt_router_reduce_pred(
+    const void* c_code, const void* stream_in, const void* c_hi,
+    const void* c_lo, void* y, const void* live, int nchunks,
+    int region_rows, void* cuda_stream) {
+  return run_reduce<true>(c_code, stream_in, c_hi, c_lo, y, live, nchunks,
+                          region_rows, cuda_stream);
 }
 
 extern "C" int glt_router_fused(
@@ -248,12 +340,18 @@ extern "C" int glt_router_fused(
     const void* c_code, const void* c_hi, const void* c_lo, const void* x,
     void* y, int nsteps, int cb, int rstep, int dstep, int region_rows,
     int and_or, void* cuda_stream) {
-  const long long nblocks = static_cast<long long>(nsteps) * dstep;
-  if (nblocks > 0) {
-    auto st = static_cast<cudaStream_t>(cuda_stream);
-    auto launch = and_or ? launch_fused<true> : launch_fused<false>;
-    launch(a_page, a_r, a_sub, a_vals, rg, target, c_code, c_hi, c_lo, x, y,
-           static_cast<unsigned>(nblocks), cb, rstep, dstep, region_rows, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_fused<false>(a_page, a_r, a_sub, a_vals, rg, target, c_code,
+                          c_hi, c_lo, x, y, nullptr, nsteps, cb, rstep, dstep,
+                          region_rows, and_or, cuda_stream);
+}
+
+extern "C" int glt_router_fused_pred(
+    const void* a_page, const void* a_r, const void* a_sub,
+    const void* a_vals, const void* rg, const void* target,
+    const void* c_code, const void* c_hi, const void* c_lo, const void* x,
+    void* y, const void* act, int nsteps, int cb, int rstep, int dstep,
+    int region_rows, int and_or, void* cuda_stream) {
+  return run_fused<true>(a_page, a_r, a_sub, a_vals, rg, target, c_code,
+                         c_hi, c_lo, x, y, act, nsteps, cb, rstep, dstep,
+                         region_rows, and_or, cuda_stream);
 }

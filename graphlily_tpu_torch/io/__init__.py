@@ -1,4 +1,4 @@
-from .matrix import (CSRMatrix, CSCMatrix, csr2csc, csr_from_coo,
+from .matrix import (CSRMatrix, CSCMatrix, csr2csc, csc2csr, csr_from_coo,
                      load_csr_matrix_from_float_npz)
 from .formatter import (util_round_csr_matrix_dim,
                         util_normalize_csr_matrix_by_outdegree, permute_rows,

@@ -90,3 +90,22 @@ def csr2csc(csr: CSRMatrix) -> CSCMatrix:
         adj_indices=rows[order].astype(np.uint32),
         adj_indptr=indptr.astype(np.uint32),
     )
+
+
+def csc2csr(csc: CSCMatrix) -> CSRMatrix:
+    """Inverse of csr2csc, by a stable sort over rows."""
+    nnz = csc.nnz
+    rows = csc.adj_indices[:nnz].astype(np.int64)
+    cols = np.repeat(np.arange(csc.num_cols, dtype=np.int64),
+                     np.diff(csc.adj_indptr.astype(np.int64)))
+    indptr = np.zeros(csc.num_rows + 1, dtype=np.int64)
+    indptr[1:] = np.bincount(rows, minlength=csc.num_rows)
+    indptr = np.cumsum(indptr)
+    order = np.argsort(rows, kind="stable")
+    return CSRMatrix(
+        num_rows=csc.num_rows,
+        num_cols=csc.num_cols,
+        adj_data=csc.adj_data[:nnz][order].copy(),
+        adj_indices=cols[order].astype(np.uint32),
+        adj_indptr=indptr.astype(np.uint32),
+    )

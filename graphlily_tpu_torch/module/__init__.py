@@ -1,3 +1,5 @@
 from .base import BaseModule, DeviceBuffer
 from .spmv_module import SpMVModule
-from .apply_modules import eWiseAddModule, AssignVectorDenseModule
+from .spmspv_module import SpMSpVModule
+from .apply_modules import (eWiseAddModule, AssignVectorDenseModule,
+                            AssignVectorSparseModule)

@@ -22,11 +22,16 @@ mask, as the JAX engine does (router_pallas.py:1757-1782). Each wrapper
 runs its kernel on CUDA tensors and its plain PyTorch version (`*_plain`)
 only when given CPU tensors; each launch adds one to `launches[name]`.
 
+SpMSpV (`call_predicated`, inherited) runs K4p fused or K4p scatter ->
+K3p (`fused_predicated`, `scatter_predicated`). A planar A-chunk mixes
+the 8 pages of its column tile, so activity is per 1024-column tile, as
+in JAX `PlanarSpMV._normalize_act`; K5 runs unpredicated.
+
 TPU-only parts of the JAX engine are not carried over: the two
 accumulator banks, the looped/unrolled split, the guard batching, the
-bf16 value stream, the 16-tile padding of the xperm call and the 3-D
-output view. Frontier predication (SpMSpV) and PERM-C layouts come with
-their own ports (ROADMAP queue 1, items 8 and 11).
+bf16 value stream, the 16-tile padding of the xperm call, the 3-D output
+view and the step compaction. PERM-C layouts come with their own port
+(ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -97,7 +102,8 @@ class PlanarSpMV(RouterSpMV):
             target=dev(target).reshape(lay.nsteps, lay.dstep),
             c_code=dev(lay.c_code), c_hi=dev(lay.c_hi), c_lo=dev(lay.c_lo),
             xperm=None if self.chained else dev(lay.xperm))
-        self.launches = {"fused": 0, "scatter": 0, "reduce": 0, "xperm": 0}
+        self.launches = {"fused": 0, "scatter": 0, "reduce": 0, "xperm": 0,
+                         "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0}
 
     # ---- K5 xperm --------------------------------------------------------------
     def xperm(self, x: torch.Tensor,
@@ -162,6 +168,58 @@ class PlanarSpMV(RouterSpMV):
         self.launches["fused"] += 1
         return y
 
+    # ---- SpMSpV: tile activity, K4p ---------------------------------------------
+    ACT_COLS = 1024   # columns per activity flag: a column tile
+
+    def chunk_units(self, a: PlanarArrays | None = None) -> torch.Tensor:
+        """(nsteps*cb,) int64: each A-chunk's activity flag, its tile."""
+        arr = self.arrays if a is None else a
+        return arr.a_page.long()
+
+    def _deposit_k(self, w1: torch.Tensor) -> torch.Tensor:
+        """A-chunk within the step of a planar piece word."""
+        return w1 & 0xFF
+
+    def scatter_predicated(self, x: torch.Tensor, act: torch.Tensor,
+                           arrays: PlanarArrays | None = None) -> torch.Tensor:
+        """K4 scatter over the pieces of active tiles only (K5 first for
+        "bucket" layouts): the flush stream, (nsteps, f, 8, 128)."""
+        a = self.arrays if arrays is None else arrays
+        x = x.reshape(-1)
+        if not self._check(x, self.num_cols, "x"):
+            return self.scatter_plain(x, a, act)
+        self._check_flags(act, self.num_act, "act")
+        xs = self._gather_source(x, a)
+        stream = torch.zeros(self.nsteps * self.f * CHUNK,
+                             dtype=torch.float32, device=x.device)
+        rc = _build.library().glt_planar_scatter_pred(
+            *self._stream_ptrs(a), xs.data_ptr(), stream.data_ptr(),
+            act.data_ptr(), self.nsteps, self.cb, self.rstep, self.dstep,
+            self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
+        self._raise_on(rc, "glt_planar_scatter_pred")
+        self.launches["scatter_pred"] += 1
+        return stream.view(self.nsteps, self.f, S, L)
+
+    def fused_predicated(self, x: torch.Tensor, act: torch.Tensor,
+                         arrays: PlanarArrays | None = None) -> torch.Tensor:
+        """K4 fused over the pieces of active tiles only:
+        (nregions*region_rows,) rows."""
+        a = self.arrays if arrays is None else arrays
+        x = x.reshape(-1)
+        if not self._check(x, self.num_cols, "x"):
+            return self.fused_plain(x, a, act)
+        self._check_flags(act, self.num_act, "act")
+        xs = self._gather_source(x, a)
+        y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
+        rc = _build.library().glt_planar_fused_pred(
+            *self._stream_ptrs(a), a.c_code.data_ptr(), a.c_hi.data_ptr(),
+            a.c_lo.data_ptr(), xs.data_ptr(), y.data_ptr(), act.data_ptr(),
+            self.nsteps, self.cb, self.rstep, self.dstep, self.region_rows,
+            self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
+        self._raise_on(rc, "glt_planar_fused_pred")
+        self.launches["fused_pred"] += 1
+        return y
+
     @staticmethod
     def _stream_ptrs(a: PlanarArrays) -> list:
         """K4's leading pointer arguments; a null a_sub selects the
@@ -177,9 +235,11 @@ class PlanarSpMV(RouterSpMV):
         from the descriptor words, triple-run words and targets: `src`
         (A-stream element of each deposited nnz), `col` (its index into
         x, or into x2 for "bucket" layouts), `dst` (its flush-stream
-        position) and `row` (output row of every flush-stream position;
-        positions of unused chunks point one past the end)."""
-        if a is None and self._plain_index is not None:
+        position), `unit` (its chunk's tile, the activity flag) and `row`
+        (output row of every flush-stream position; positions of unused
+        chunks point one past the end)."""
+        own = a is None or a is self.arrays
+        if own and self._plain_index is not None:
             return self._plain_index
         arr = self.arrays if a is None else a
         w1 = arr.rg[:, :self.dstep, 0].reshape(-1).long()
@@ -204,8 +264,9 @@ class PlanarSpMV(RouterSpMV):
         sub = arr.a_sub[base + r].long() if self.chained else s
         el_col = arr.a_page.long()[chunk[piece]] * CHUNK + sub * L + r
         el_dst = tgt[piece] * CHUNK + s * L + d0[run] + off
-        idx = dict(src=el_src, col=el_col, dst=el_dst, row=self._rows(arr))
-        if a is None:
+        idx = dict(src=el_src, col=el_col, dst=el_dst,
+                   unit=arr.a_page.long()[chunk[piece]], row=self._rows(arr))
+        if own:
             self._plain_index = idx
         return idx
 
@@ -225,10 +286,11 @@ class PlanarSpMV(RouterSpMV):
             x2 = torch.where(pv[:, s] < 0, g, x2)
         return x2.reshape(-1)
 
-    def scatter_plain(self, x: torch.Tensor,
-                      a: PlanarArrays | None = None) -> torch.Tensor:
+    def scatter_plain(self, x: torch.Tensor, a: PlanarArrays | None = None,
+                      act: torch.Tensor | None = None) -> torch.Tensor:
         """K4 scatter's plain version: (x2 for "bucket" layouts), gather,
-        then index_copy_ into a zeroed flush stream through the targets."""
+        then index_copy_ into a zeroed flush stream through the targets.
+        With `act` (per tile), K4p scatter's: active tiles' pieces only."""
         x = x.reshape(-1)
         xs = x if self.chained else self.xperm_plain(x, a)
-        return super().scatter_plain(xs, a)
+        return super().scatter_plain(xs, a, act)

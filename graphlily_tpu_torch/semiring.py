@@ -105,10 +105,12 @@ def apply_mask(results: torch.Tensor, mask: torch.Tensor,
 def apply_mask_sparse_style(results: torch.Tensor, mask: torch.Tensor,
                             mask_type: MaskType, zero) -> torch.Tensor:
     """Masked write-back, SpMSpV flavor: masked-off entries become the
-    semiring zero, and the mask is compared against the semiring zero."""
+    semiring zero, and the mask is compared against the semiring zero. The
+    zero stays a Python number: a device tensor made from it would be a
+    host-to-device copy, which waits for the device, on every push step."""
     if mask_type == MaskType.NO_MASK:
         return results
-    z = torch.tensor(zero, dtype=results.dtype, device=results.device)
+    z = float(torch.tensor(zero, dtype=results.dtype))   # rounded to dtype
     if mask_type == MaskType.WRITE_TO_ONE:
         return torch.where(mask == z, z, results)
     if mask_type == MaskType.WRITE_TO_ZERO:

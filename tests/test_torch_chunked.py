@@ -81,7 +81,7 @@ def _run(fixture, name, mask_type, chunk_order="row"):
     eng = ChunkedSpMV(lay, tg.SEMIRINGS[name], CPU, mask_type)
     x, mask = _vectors(lay, name)
     y = eng(torch.from_numpy(x), torch.from_numpy(mask))
-    assert eng.launches == {"chunked": 0}
+    assert eng.launches == {"chunked": 0, "chunked_pred": 0}
     assert y.shape == (lay.num_rows,) and y.dtype == torch.float32
     return csr, y.numpy(), x, mask
 
@@ -213,8 +213,6 @@ def test_wrappers_check_arguments():
         ChunkedSpMV(lay, tg.TropicalSemiring, CPU)
     with pytest.raises(ValueError, match="pad value"):
         ChunkedSpMV(_pack("rmat", "tropical")[1], tg.LogicalSemiring, CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.call_predicated(torch.zeros(lay.num_cols), None, None)
 
 
 @pytest.mark.slow

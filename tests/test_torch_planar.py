@@ -33,7 +33,8 @@ from test_torch_router import (CPU, MASKS, _assert_matches, _references,
                                _vectors)
 
 DEALS = ["free", "bucket"]
-NO_LAUNCHES = {"fused": 0, "scatter": 0, "reduce": 0, "xperm": 0}
+NO_LAUNCHES = {"fused": 0, "scatter": 0, "reduce": 0, "xperm": 0,
+               "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0}
 
 
 def _pack(name, deal, **kw):

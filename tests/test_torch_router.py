@@ -69,7 +69,9 @@ def _run(csr, name, mask_type, fused, region_rows=None):
     eng.fused = fused
     x, mask = _vectors(lay)
     y = eng(torch.from_numpy(x), torch.from_numpy(mask))
-    assert eng.launches == {"fused": 0, "scatter": 0, "reduce": 0}
+    assert eng.launches == {"fused": 0, "scatter": 0, "reduce": 0,
+                            "fused_pred": 0, "scatter_pred": 0,
+                            "reduce_pred": 0}
     return y, x, mask, lay
 
 
