@@ -8,14 +8,20 @@ calls, and checks every result against the float64 oracles:
     seed 0, degree-sorted) through the roll router (K1, K2, K3);
   * the pokec stand-in (RMAT, 1,632,803 vertices, 30,622,564 edges,
     seed 0, degree-sorted) through the planar router (K4 fused, K4
-    scatter -> K3, and K5 under planar_deal="bucket");
+    scatter -> K3, and K5 under planar_deal="bucket" on a quarter of
+    it);
   * SSSP on the googleplus stand-in (self edges added: 13,780,368 nnz),
     through the chunked engine (the K6/K7 kernel), and PageRank and BFS
     on the googleplus stand-in at scale 0.1, which the ladder also sends
     to the chunked engine;
   * push and pull_push (SpMSpV) of BFS on both stand-ins and of SSSP on
     googleplus, through the frontier-predicated kernels: K1p, K2p -> K3p
-    (roll), K4p fused and K4p scatter -> K3p (planar), K7p (chunked).
+    (roll), K4p fused and K4p scatter -> K3p (planar), K7p (chunked);
+  * SSSP pull, push and pull_push on the pokec stand-in (self edges
+    added: 32,254,873 nnz), which the ladder sends to the tropical engine
+    (K4 scatter and K4p scatter in ADDMIN mode, K8 split, K10 window
+    reduce), and SSSP on googleplus through the tropical engine by name
+    in the "triples" split format (K9).
 
 Phases, one or more lines each:
 
@@ -33,7 +39,8 @@ Phases, one or more lines each:
   7. pokec     the graph, then PageRank and BFS formatted through
                EngineConfig(sort_rows_by_degree=True) (engine "auto" ->
                planar, deal "free"), layout facts and pack seconds; a
-               third BFS packs the "bucket" deal
+               third BFS packs the "bucket" deal on the stand-in at
+               scale 0.25 (BUCKET_SCALE)
   8. apps      pokec PageRank.pull(0.9, 10) and BFS.pull(0, 11) fused and
                split, and BFS.pull(0, 11) on the bucket layout (K5)
   9. kernels   pokec, on the apps' engines: K4 fused and K4 scatter -> K3
@@ -69,15 +76,34 @@ Phases, one or more lines each:
                5% of the columns), and their times (CUDA events, min over
                5 reps of 100 calls); push and pull_push ms of each app with
                the pull_push_time_breakdown phase split
+  18. sssp     pokec SSSP(EngineConfig(sort_rows_by_degree=True)): engine
+               "auto" -> tropical, SpMSpV sharing it; layout facts, load
+               and pack seconds; pull(0, 11), push(0, 11) and
+               pull_push(0, 11, 0.05) bit-equal to the oracle
+  19. kernels  pokec: K4 scatter ADDMIN's stream, K8's window stream and
+               K10's maxima bit-equal to their plain versions; K4p scatter
+               ADDMIN against its plain version and the unpredicated
+               scatter at empty, 1-vertex and 5% frontiers; googleplus
+               SSSP with engine="router", tropical_split_format="triples":
+               pull(0, 7) and push(0, 7) against the oracle, K9 bit-equal
+               to its plain version
+  20. times    the new kernels and their plain versions, bounds, the pokec
+               tropical engine call, the googleplus tropical (triples)
+               engine call against the chunked engine call on the same
+               matrix, pokec SSSP pull, push and pull_push ms and the
+               pull_push_time_breakdown phase split
 
 The launch counters are set to 0 right before each path's app runs
-(phases 4-5, 8, 11, 12 and 14-16) and read right after; every kernel of
+(phases 4-5, 8, 11, 12, 14-16, 18 and 19's googleplus SSSP) and read
+right after; every kernel of
 the path must have run there. Then it prints the kernels' JSON line: per
 kernel its launches on the app paths, its largest difference from its
 plain version, its time, its plain version's, its bound (the larger of
 the bytes it must move over 3.35 TB/s and its fp32 operations over
 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's
-inputs; a predicated kernel's from its 5% frontier) and, for the MULADD
+inputs; a predicated kernel's from its 5% frontier; the tropical
+kernels' max_abs_err on their int32 encodings decoded to floats) and, for
+the MULADD
 SpMVs, the time of `torch.mv` on a CSR tensor of the same matrix (cuSPARSE;
 timed here, never used by the port). Last comes {"ok": true, "device":
 {...}}. Any failure raises: the exit code is not 0 and the ok line is not
@@ -101,6 +127,7 @@ ROOT = Path(__file__).resolve().parent
 ROUTER_SRC = "graphlily_tpu_torch/csrc/router_spmv.cu"
 PLANAR_SRC = "graphlily_tpu_torch/csrc/planar_spmv.cu"
 CHUNKED_SRC = "graphlily_tpu_torch/csrc/chunked_spmv.cu"
+TROPICAL_SRC = "graphlily_tpu_torch/csrc/tropical_spmv.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K1_router_fused": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:419"),
     "K2_router_scatter": (ROUTER_SRC,
@@ -126,7 +153,20 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                               "graphlily_tpu/ops/router_pallas.py:1459"),
     "K4p_planar_scatter_pred": (PLANAR_SRC,
                                 "graphlily_tpu/ops/router_pallas.py:1398"),
+    # the tropical engine: K4 scatter's and K4p scatter's ADDMIN instances
+    # (int32 encodings), the split in its two formats, the window reduce
+    "K4_planar_scatter_addmin": (PLANAR_SRC,
+                                 "graphlily_tpu/ops/router_pallas.py:1398"),
+    "K4p_planar_scatter_pred_addmin": (
+        PLANAR_SRC, "graphlily_tpu/ops/router_pallas.py:1398"),
+    "K8_tropical_split": (TROPICAL_SRC,
+                          "graphlily_tpu/ops/tropical_pallas.py:137"),
+    "K9_tropical_split_triples": (TROPICAL_SRC,
+                                  "graphlily_tpu/ops/tropical_pallas.py:301"),
+    "K10_tropical_window_reduce": (TROPICAL_SRC,
+                                   "graphlily_tpu/ops/tropical_pallas.py:392"),
 }
+BUCKET_SCALE = 0.25  # the pokec stand-in's cut for the "bucket" deal (K5)
 MULADD_RTOL = 1e-4   # fp32 atomics in any order over hub rows of ~1e5 terms
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks at 700 W
 FP32_OPS_PER_S = 67e12
@@ -179,8 +219,11 @@ def bit_equal(torch, label: str, a, b) -> None:
 
 
 def reset(engines) -> None:
+    """Launch counters to 0, in place: the tropical engine shares its dict
+    with its pass-1 planar engine."""
     for eng in engines:
-        eng.launches = dict.fromkeys(eng.launches, 0)
+        for key in eng.launches:
+            eng.launches[key] = 0
 
 
 def gteps(nnz: int, ms: float) -> str:
@@ -290,6 +333,7 @@ def main(argv=None) -> int:
     ch = chunked(torch, args, rec, card, gp)
     push_paths(torch, args, gp, pk, ch, rec)
     predicated_kernels(torch, rec, card, gp, pk, ch)
+    tropical(torch, args, rec, card, gp, pk, ch)
 
     for name, r in rec.items():
         if r.get("launches", 0) == 0:
@@ -479,17 +523,23 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     # epg < 200); a shrunken graph is denser per page and asks for it by
     # name
     engine = "auto" if args.scale >= 1 else "planar"
+    # the "bucket" deal (K5) runs on a quarter of the stand-in, to keep the
+    # whole run near 600 s once the tropical pack joined it; the planar
+    # engine is asked for by name there
+    gb = iccad_standin("pokec", scale=BUCKET_SCALE * args.scale, seed=0)
     apps = {}
-    for key, app_cls, deal in (("pagerank", PageRank, "free"),
-                               ("bfs", BFS, "free"),
-                               ("bfs_bucket", BFS, "bucket")):
+    for key, app_cls, deal, graph, eng_name, scale in (
+            ("pagerank", PageRank, "free", g, engine, args.scale),
+            ("bfs", BFS, "free", g, engine, args.scale),
+            ("bfs_bucket", BFS, "bucket", gb, "planar",
+             BUCKET_SCALE * args.scale)):
         t0 = time.perf_counter()
-        app = app_cls(EngineConfig(sort_rows_by_degree=True, engine=engine,
+        app = app_cls(EngineConfig(sort_rows_by_degree=True, engine=eng_name,
                                    planar_deal=deal))
         if app_cls is PageRank:
-            app.load_and_format_matrix(g, 0.9)
+            app.load_and_format_matrix(graph, 0.9)
         else:
-            app.load_and_format_matrix(g)
+            app.load_and_format_matrix(graph)
         secs = time.perf_counter() - t0
         mod = app.SpMV_
         eng = mod.engine
@@ -498,7 +548,8 @@ def pokec(torch, args, rec: dict, card: str) -> None:
                                  f" (fused={getattr(eng, 'fused', None)}), "
                                  "not fused planar")
         w2 = eng.arrays.rg[..., 1]
-        log(f"phase 7 pokec {key} layout (deal={deal}, scale={args.scale}): "
+        log(f"phase 7 pokec {key} layout (deal={deal}, scale={scale:g}, "
+            f"{graph.nnz} edges): "
             f"relabel+pack+init {secs:.1f} s region_rows={eng.region_rows} "
             f"regions={eng.num_regions} cb={eng.cb} dstep={eng.dstep} "
             f"f={eng.f} nsteps={eng.nsteps} slots={eng.num_slots} "
@@ -537,9 +588,11 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     check_close("pokec bfs split", dist_split, want, exact=True)
     log(f"phase 8 bfs pull(0, {iters}): fused and split equal the oracle "
         f"({int((want > 0).sum())} reached) ok")
-    check_close("pokec bfs bucket", dist_bucket, want, exact=True)
-    log(f"phase 8 bfs pull(0, {iters}) deal=bucket: equal to the oracle "
-        f"({int((want > 0).sum())} reached) ok")
+    want_b = bfsb.compute_reference_results(0, iters)
+    check_close("pokec bfs bucket", dist_bucket, want_b, exact=True)
+    log(f"phase 8 bfs pull(0, {iters}) deal=bucket (scale "
+        f"{BUCKET_SCALE * args.scale:g}): equal to the oracle "
+        f"({int((want_b > 0).sum())} reached) ok")
 
     # ---- 9. kernels vs plain versions, on the apps' engines ---------------
     rng = np.random.default_rng(1)
@@ -637,7 +690,7 @@ def pokec(torch, args, rec: dict, card: str) -> None:
         f"MULADD SpMV: {rec['K4_planar_fused']['library_ms']:.4f} ms")
     log(f"phase 10 pokec pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
         f"{bfs_ms:.4f} ms; card {card}")
-    return {"bfs": bfs, "bfsb": bfsb}
+    return {"g": g, "bfs": bfs, "bfsb": bfsb}
 
 
 def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
@@ -785,7 +838,7 @@ def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
         f" ms")
     log(f"phase 13 sssp pull(0, {iters}): {sssp_ms:.4f} ms; ADDMIN engine "
         f"call {time_ms(torch, lambda: eng(xt_min)):.4f} ms; card {card}")
-    return {"sssp": sssp, "bfs_small": bfs}
+    return {"sssp": sssp, "bfs_small": bfs, "x_min": xt_min}
 
 
 def chunked_bytes(eng, chunks: int, real: int,
@@ -855,7 +908,7 @@ def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict) -> None:
     runs["push split"] = bfs.push(0, iters)
     runs["pull_push split"] = bfs.pull_push(0, iters, threshold=0.05)
     eng.fused = True
-    runs["push bucket"] = bfsb.push(0, iters)
+    dist_bucket = bfsb.push(0, iters)
     torch.cuda.synchronize()
     rec["K4p_planar_fused_pred"]["launches"] = (eng.launches["fused_pred"]
                                                 + engb.launches["fused_pred"])
@@ -865,8 +918,11 @@ def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict) -> None:
         f"{engb.launches}")
     for label, dist in runs.items():
         check_close(f"pokec bfs {label}", dist, want, exact=True)
+    check_close("pokec bfs push bucket", dist_bucket,
+                bfsb.compute_reference_results(0, iters), exact=True)
     log(f"phase 15 pokec bfs push(0, {iters}) and pull_push(0, {iters}, "
-        f"0.05), fused, split and bucket: equal to the oracle "
+        f"0.05), fused and split, and push on the bucket deal (scale "
+        f"{BUCKET_SCALE * args.scale:g}): equal to the oracle "
         f"({int((want > 0).sum())} reached) ok")
 
     # ---- 16. googleplus SSSP push and pull_push (chunked: K7p) --------------
@@ -1068,6 +1124,247 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
             f"{bd['dispatch_floor_ms']:.4f} ms x {sum(bd['calls'].values())} "
             f"calls; card {card}")
 
+
+def tropical_bounds(eng) -> dict:
+    """(bytes, ops) of the tropical split (K8 or K9) and window reduce
+    (K10) on this layout: every entry passes each once. The split reads
+    its g1 element and its source byte (K8: the plane entry; K9: the sort
+    plane's int32), every descriptor slot's words (rg2, target; K9 also 32
+    B of run words) and in_order, and writes the whole window stream g2;
+    plane bytes of empty lanes are not counted. K10 reads each entry's g2
+    value, sort and row bytes and c_win, writes out, and does one max an
+    entry."""
+    nel = eng.nnz
+    slots = eng.nsteps2 * eng.dstep2
+    desc = slots * (12 + (32 if eng.triples else 0)) + 4 * eng.nsteps2 * eng.kb
+    split = nel * (8 if eng.triples else 5) + desc + 4 * eng.nchunks2 * 1024
+    reduce = 6 * nel + 4 * eng.nchunks2 + 4 * eng.num_windows * 128
+    return {"split": (split, 0), "window_reduce": (reduce, nel)}
+
+
+def tropical_facts(eng) -> str:
+    """The layout facts of a tropical engine, for the log."""
+    p = eng.planar
+    a = eng.arrays
+    deposit = (a.xsort2.numel() * 4 + a.tri2.numel() * 4 if eng.triples
+               else a.planes2.numel())
+    live = int((a.rg2[:, :eng.dstep2, 1] > 0).sum())
+    return (f"region_rows={p.region_rows} digits={p.region_rows // 128} "
+            f"regions={p.num_regions} pass1 nsteps={p.nsteps} f={p.f} "
+            f"g1_MB={p.nsteps * p.f * 4096 / 1e6:.1f} split "
+            f"format={'triples' if eng.triples else 'planes'} "
+            f"nsteps2={eng.nsteps2} kb={eng.kb} rstep2={eng.rstep2} "
+            f"dstep2={eng.dstep2} f2={eng.f2} "
+            f"nblocks2={eng.nchunks2 // eng.f2} pieces={live} "
+            f"fill2={eng.nnz / (eng.nchunks2 * 1024):.3f} "
+            f"split_deposit_MB={deposit / 1e6:.1f} "
+            f"g2_MB={eng.nchunks2 * 4096 / 1e6:.1f}")
+
+
+def decoded_err(a, b) -> float:
+    """max |a - b| of two int32 encoding tensors, decoded to float32."""
+    from graphlily_tpu_torch.semiring import tropical_decode
+    return float((tropical_decode(a) - tropical_decode(b)).abs().max())
+
+
+def tropical(torch, args, rec: dict, card: str, gp: dict, pk: dict,
+             ch: dict) -> None:
+    """Phases 18-20: SSSP on the tropical engine (pokec, planes; googleplus,
+    triples), each kernel against its plain version, and times."""
+    from graphlily_tpu_torch import EngineConfig, FLOAT_INF
+    from graphlily_tpu_torch.apps import SSSP
+    from graphlily_tpu_torch.io import ICCAD_GRAPHS
+    dev = torch.device("cuda")
+    inf = float(FLOAT_INF)
+    iters = ICCAD_GRAPHS["pokec"]["iters"]
+
+    def load(graph, cfg):
+        """An SSSP app formatted for `graph`, its SpMV module's formatting
+        (pack + engine init) timed apart from the whole load."""
+        app = SSSP(cfg)
+        inner, secs = app.SpMV_.load_and_format_matrix, {}
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            inner(*a, **kw)
+            secs["pack"] = time.perf_counter() - t
+        app.SpMV_.load_and_format_matrix = timed
+        t0 = time.perf_counter()
+        app.load_and_format_matrix(graph)
+        secs["load"] = time.perf_counter() - t0
+        eng = app.SpMV_.engine
+        if app.SpMV_.engine_name != "tropical":
+            raise AssertionError(f"SSSP resolved {app.SpMV_.engine_name!r}, "
+                                 "not tropical")
+        if app.SpMSpV_.engine is not eng:
+            raise AssertionError("SSSP's SpMSpV does not share the tropical "
+                                 "engine")
+        return app, eng, secs
+
+    # ---- 18. main path: pokec SSSP pull, push and pull_push -----------------
+    # the ladder picks the tropical engine at full size (1.63M rows > 700k);
+    # a shrunken graph asks for it by name
+    engine = "auto" if args.scale >= 1 else "router"
+    sssp, eng, secs = load(pk["g"], EngineConfig(sort_rows_by_degree=True,
+                                                 engine=engine))
+    log(f"phase 18 pokec sssp (scale={args.scale}): engine={engine} -> "
+        f"tropical, SpMSpV shares it; relabel+self edges+pack+init "
+        f"{secs['load']:.1f} s, of which pack+init {secs['pack']:.1f} s; "
+        f"nnz={eng.nnz} {tropical_facts(eng)}")
+    reset((eng,))
+    runs = {"pull": sssp.pull(0, iters), "push": sssp.push(0, iters),
+            "pull_push": sssp.pull_push(0, iters, threshold=0.05)}
+    torch.cuda.synchronize()
+    launches = dict(eng.launches)
+    rec["K4_planar_scatter_addmin"]["launches"] = launches["scatter"]
+    rec["K4p_planar_scatter_pred_addmin"]["launches"] = launches[
+        "scatter_pred"]
+    rec["K8_tropical_split"]["launches"] = launches["split"]
+    rec["K10_tropical_window_reduce"]["launches"] = launches["window_reduce"]
+    log(f"phase 18 launches: pokec sssp {launches}")
+    t0 = time.perf_counter()
+    want = sssp.compute_reference_results(0, iters)
+    oracle_s = time.perf_counter() - t0
+    for label, dist in runs.items():
+        check_close(f"pokec sssp {label}", dist, want, exact=True)
+    log(f"phase 18 pokec sssp pull(0, {iters}), push(0, {iters}) and "
+        f"pull_push(0, {iters}, 0.05): equal to the float64 oracle "
+        f"({int((want < inf).sum())} reached, oracle {oracle_s:.1f} s) ok")
+
+    # ---- 19. each kernel against its plain version --------------------------
+    rng = np.random.default_rng(19)
+    x = rng.integers(0, 1000, eng.num_cols).astype(np.float32)
+    x[rng.random(eng.num_cols) < 0.5] = inf    # integers: exact fp32 sums
+    xt = torch.from_numpy(x).to(dev)
+    g1, g1p = eng.scatter(xt), eng.scatter_plain(xt)
+    g2, g2p = eng.split(g1), eng.split_plain(g1)
+    out, outp = eng.window_reduce(g2), eng.window_reduce_plain(g2)
+    torch.cuda.synchronize()
+    bit_equal(torch, "pokec K4 scatter ADDMIN stream", g1, g1p)
+    bit_equal(torch, "pokec K8 window stream", g2, g2p)
+    bit_equal(torch, "pokec K10 out", out, outp)
+    rec["K4_planar_scatter_addmin"]["err"] = decoded_err(g1, g1p)
+    rec["K8_tropical_split"]["err"] = decoded_err(g2, g2p)
+    rec["K10_tropical_window_reduce"]["err"] = decoded_err(out, outp)
+    check_close("pokec tropical engine call", eng(xt).cpu().numpy(),
+                sssp.SpMV_.compute_reference_results(x), exact=True)
+    log("phase 19 pokec: K4 scatter ADDMIN stream, K8 window stream and K10 "
+        "out bit-equal to their plain versions; engine call equal to the "
+        "oracle ok")
+    times = {}
+    for kind in ("empty", "one", "5pct"):
+        xf = frontier_x(torch, eng.num_cols, kind, inf, rng)
+        act = eng.activity(xf)
+        s, sp, full = (eng.scatter_predicated(xf, act),
+                       eng.scatter_plain(xf, act), eng.scatter(xf))
+        y, yfull = eng.call_predicated(xf), eng(xf)
+        torch.cuda.synchronize()
+        bit_equal(torch, f"pokec K4p ADDMIN {kind}", s, sp)
+        bit_equal(torch, f"pokec K4p ADDMIN {kind} vs unpredicated", s, full)
+        bit_equal(torch, f"pokec tropical SpMSpV {kind} vs SpMV", y, yfull)
+        ms = time_ms(torch, lambda: eng.scatter_predicated(xf, act))
+        call_ms = time_ms(torch, lambda: eng.call_predicated(xf))
+        nbytes, nops = router_bounds(eng.planar, act)["scatter"]
+        log(f"phase 19 pokec K4p scatter ADDMIN {kind}: active tiles "
+            f"{int(act.sum())}/{eng.num_col_tiles}; K4p {ms:.4f} ms (bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f}), SpMSpV call "
+            f"{call_ms:.4f} ms; bit-equal to plain and to unpredicated ok")
+        times[kind] = (ms, s, sp)
+    r = rec["K4p_planar_scatter_pred_addmin"]
+    r["ms"], r["err"] = times["5pct"][0], decoded_err(*times["5pct"][1:])
+    r["plain_ms"] = time_ms(torch, lambda: eng.scatter_plain(xf, act),
+                            iters=10)
+    set_bound(r, nbytes, nops)
+
+    # K9 on the googleplus SSSP graph (pass-1 triples too)
+    giters = ICCAD_GRAPHS["googleplus"]["iters"]
+    gsssp, geng, gsecs = load(gp["g"], EngineConfig(
+        sort_rows_by_degree=True, engine="router",
+        tropical_split_format="triples"))
+    if not geng.triples:
+        raise AssertionError("the googleplus layout is not in triples format")
+    log(f"phase 19 googleplus sssp, engine=router, split format triples: "
+        f"relabel+self edges+pack+init {gsecs['load']:.1f} s, of which "
+        f"pack+init {gsecs['pack']:.1f} s; nnz={geng.nnz} "
+        f"{tropical_facts(geng)}")
+    reset((geng,))
+    gruns = {"pull": gsssp.pull(0, giters), "push": gsssp.push(0, giters)}
+    torch.cuda.synchronize()
+    rec["K9_tropical_split_triples"]["launches"] = geng.launches[
+        "split_triples"]
+    log(f"phase 19 launches: googleplus sssp (triples) {geng.launches}")
+    gwant = gsssp.compute_reference_results(0, giters)
+    for label, dist in gruns.items():
+        check_close(f"googleplus triples sssp {label}", dist, gwant,
+                    exact=True)
+    xg = ch["x_min"]
+    if xg.numel() != geng.num_cols:
+        raise AssertionError("the chunked and tropical googleplus layouts "
+                             "differ in width")
+    h1 = geng.scatter(xg)
+    h2, h2p = geng.split(h1), geng.split_plain(h1)
+    hout = geng.window_reduce(h2)
+    torch.cuda.synchronize()
+    bit_equal(torch, "googleplus K4 scatter ADDMIN (triples)", h1,
+              geng.scatter_plain(xg))
+    bit_equal(torch, "googleplus K9 window stream", h2, h2p)
+    bit_equal(torch, "googleplus K10 out", hout, geng.window_reduce_plain(h2))
+    rec["K9_tropical_split_triples"]["err"] = decoded_err(h2, h2p)
+    log(f"phase 19 googleplus: sssp pull(0, {giters}) and push(0, {giters}) "
+        f"equal to the oracle; K4 scatter ADDMIN, K9 and K10 bit-equal to "
+        f"their plain versions ok")
+
+    # ---- 20. times ------------------------------------------------------------
+    bounds = tropical_bounds(eng)
+    timed = {
+        "K4_planar_scatter_addmin": (lambda: eng.scatter(xt),
+                                     lambda: eng.scatter_plain(xt),
+                                     router_bounds(eng.planar)["scatter"]),
+        "K8_tropical_split": (lambda: eng.split(g1),
+                              lambda: eng.split_plain(g1), bounds["split"]),
+        "K10_tropical_window_reduce": (lambda: eng.window_reduce(g2),
+                                       lambda: eng.window_reduce_plain(g2),
+                                       bounds["window_reduce"]),
+        "K9_tropical_split_triples": (lambda: geng.split(h1),
+                                      lambda: geng.split_plain(h1),
+                                      tropical_bounds(geng)["split"]),
+    }
+    for name, (kernel, plain, (nbytes, nops)) in timed.items():
+        r = rec[name]
+        r["ms"] = time_ms(torch, kernel)
+        r["plain_ms"] = time_ms(torch, plain, iters=10)
+        set_bound(r, nbytes, nops)
+        log(f"phase 20 {name}: {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
+            f"ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{nbytes / 1e6:.1f} MB)")
+    live = int((eng.arrays.rg2[:, :eng.dstep2, 1] > 0).sum())
+    log(f"phase 20 K8 reads its planes whole: {live} pieces x 1 KB = "
+        f"{live * 1024 / 1e6:.1f} MB of planes, "
+        f"{live * 1024 / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, against "
+        f"{eng.nnz / 1e6:.1f} MB for the entries' plane bytes")
+    call_ms = time_ms(torch, lambda: eng(xt))
+    log(f"phase 20 pokec tropical engine call (K4 scatter -> K8 -> K10 + "
+        f"decode): {call_ms:.4f} ms ({gteps(eng.nnz, call_ms)})")
+    chunked = ch["sssp"].SpMV_.engine
+    t_ms = time_ms(torch, lambda: geng(xg))
+    c_ms = time_ms(torch, lambda: chunked(xg))
+    log(f"phase 20 googleplus SSSP matrix ({geng.nnz} nnz, "
+        f"{geng.num_rows} rows): tropical engine call (triples) {t_ms:.4f} "
+        f"ms ({gteps(geng.nnz, t_ms)}) against the chunked engine call "
+        f"{c_ms:.4f} ms ({gteps(chunked.nnz, c_ms)})")
+    ms = {name: time_ms(torch, lambda: fn(0, iters, device_output=True),
+                        iters=5, reps=3)
+          for name, fn in (("pull", sssp.pull), ("push", sssp.push),
+                           ("pull_push", sssp.pull_push))}
+    bd = sssp.pull_push_time_breakdown(0, iters)
+    phases = ", ".join(f"{k} {v:.4f}" for k, v in bd["phases_ms"].items())
+    log(f"phase 20 pokec sssp({iters}): pull {ms['pull']:.4f} ms, push "
+        f"{ms['push']:.4f} ms, pull_push {ms['pull_push']:.4f} ms; "
+        f"breakdown: {bd['push_iterations']} push + "
+        f"{bd['pull_iterations']} pull iterations, total "
+        f"{bd['total_ms']:.4f} ms, phases ms: {phases}; dispatch floor "
+        f"{bd['dispatch_floor_ms']:.4f} ms x {sum(bd['calls'].values())} "
+        f"calls; card {card}")
 
 if __name__ == "__main__":
     sys.exit(main())

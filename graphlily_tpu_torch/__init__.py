@@ -3,16 +3,16 @@
 A second package beside the JAX one, with the same layout so each module
 has a counterpart there. It imports torch and never jax: its host layer
 (io/) is its own numpy copy, and the JAX package's tests hold the two
-equal. The chunked, roll-router and planar-router SpMV engines run as
-hand-written CUDA kernels for Hopper (csrc/, built at first use by
+equal. The chunked, roll-router, planar-router and tropical SpMV engines
+run as hand-written CUDA kernels for Hopper (csrc/, built at first use by
 ops/_build.py).
 
 Layer map:
-  io/       containers, generators, formatter, chunked and router layouts
-            (numpy)
+  io/       containers, generators, formatter, chunked, router, planar
+            and tropical layouts (numpy)
   ops/      CUDA kernel wrappers + plain PyTorch reference engine
-  module/   SpMV, eWiseAdd and dense-assign modules
-  apps/     PageRank, BFS and SSSP (pull)
+  module/   SpMV, SpMSpV, eWiseAdd and assign modules
+  apps/     PageRank, BFS and SSSP (pull, push, pull_push)
 """
 
 from .config import EngineConfig, DEFAULT_CONFIG

@@ -2,8 +2,13 @@
 
 Counterpart of `graphlily_tpu/apps/sssp.py`: tropical (+, min) semiring,
 no mask. Preprocessing inserts zero-weight self edges so distances stay
-monotone under relaxation. Pull is distance = A (min,+) distance. Push
-relaxes through the SpMSpV module (K7p on the chunked engine): with
+monotone under relaxation. The ladder formats the matrix for the chunked
+engine while its layout is feasible (up to 700,000 rows and 2 GB) and
+for the tropical engine past that (ops/tropical.py: the pokec stand-in
+and larger); the SpMSpV module packs its own chunked twin or shares the
+tropical engine. Pull is distance = A (min,+) distance. Push relaxes
+through the SpMSpV module (K7p on the chunked engine, K4p scatter ->
+K8/K9 -> K10 on the tropical one): with
 y = A (min,+) frontier, improved = y < distance, the distance takes y
 where improved, the new frontier is y there and INF elsewhere, and its
 nnz is the improved count. pull_push pushes while the frontier is sparse

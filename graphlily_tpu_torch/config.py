@@ -22,9 +22,9 @@ class EngineConfig:
                                      # | "roll" | "planar" (same ladder as
                                      # the JAX package; "pallas" names the
                                      # chunked engine; the chunked, roll
-                                     # and planar engines and the reference
-                                     # "xla" engine are ported, the
-                                     # tropical engine is not)
+                                     # and planar engines, the tropical
+                                     # engine and the reference "xla"
+                                     # engine are all ported)
     sort_rows_by_degree: bool = False  # symmetric degree-sort relabel
     mxu_precision: str = "highest"   # accepted, ignored (always fp32)
     device: Optional[str] = None     # None: "cuda" when a card is present,
@@ -32,6 +32,13 @@ class EngineConfig:
     planar_deal: str = "free"        # planar layout deal: "free" (chained
                                      # gather) or "bucket" (x re-laid by
                                      # K5)
+    tropical_split_format: str = "auto"  # tropical split-pass deposits:
+                                     # "planes" (1 KB int8 gather plane a
+                                     # piece, K8), "triples" (a digit sort
+                                     # plane a chunk + 32 B of run words a
+                                     # piece, K9) or "auto" (triples from
+                                     # ~67M nnz; io/tropical_format.
+                                     # resolve_tropical_split_format)
     frontier_capacity: Optional[int] = None  # SpMSpV sparse-vector capacity;
                                              # None: the matrix's row count
 
@@ -42,6 +49,9 @@ class EngineConfig:
                 "(ROADMAP queue 1, item 11)")
         if self.planar_deal not in ("free", "bucket"):
             raise ValueError(f"unknown planar_deal {self.planar_deal!r}")
+        if self.tropical_split_format not in ("auto", "planes", "triples"):
+            raise ValueError(f"unknown tropical_split_format "
+                             f"{self.tropical_split_format!r}")
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -1,9 +1,12 @@
 // Planar-router SpMV kernels for Hopper (sm_90a): K4 scatter, K4 fused,
 // K5 xperm, and the frontier-predicated K4p scatter and K4p fused (SpMSpV,
-// the `sm`/`na` launches of router_pallas.py:1747-1774). Built by graphlily_tpu_torch/ops/_build.py with nvcc into a
-// shared library with a plain C interface; ops/planar.py binds it with
-// ctypes and holds each kernel against its plain PyTorch version. The
-// split branch reduces K4's flush stream with K3 (router_spmv.cu).
+// the `sm`/`na` launches of router_pallas.py:1747-1774). Built by
+// graphlily_tpu_torch/ops/_build.py with nvcc into a shared library with a
+// plain C interface; ops/planar.py binds it with ctypes and holds each
+// kernel against its plain PyTorch version. The split branch reduces K4's
+// flush stream with K3 (router_spmv.cu); the tropical engine
+// (ops/tropical.py) runs K4 scatter and K4p scatter in ADDMIN mode and
+// reduces their int32 stream with K8 or K9 and K10 (tropical_spmv.cu).
 //
 // All three read the PlanarSpMVLayout arrays of their Pallas twins in
 // graphlily_tpu/ops/router_pallas.py (io/planar_format.py documents the
@@ -17,7 +20,8 @@
 //                     (a_sub is indexed by the SOURCE lane r, not by l);
 //                     for the "bucket" deal the column tiles of x are first
 //                     re-laid by K5 and col = a_page[c]*1024 + s*128 + r.
-//                     ANDOR: g = (val != 0 && x != 0) as 0/1.
+//                     ANDOR: g = (val != 0 && x != 0) as 0/1; ADDMIN:
+//                     g = INF_BITS - bits(min(val + x, FLOAT_INF)), int32.
 //   deposit piece     rg[t, j] = (w1, w2), w2 > 0: chunk k = w1 & 0xFF,
 //   (t, j)            word p = w1 >> 8 (== j). Sublane s's word
 //                     a0 | d0<<7 | n<<14 moves g[t*cb + k, s, (a0+i) & 127]
@@ -43,18 +47,26 @@
 // Predication (kPred). A planar A-chunk mixes the 8 pages of its column
 // tile, so activity is per 1024-column tile (act[a_page[c]],
 // PlanarSpMV._normalize_act). A piece of an inactive tile gathers only
-// zero products: K4p skips it (its stream elements stay zero; the split
-// branch's K3p skips the flush chunks no live piece targets). The grid is
-// the full one; a dead warp exits after its descriptor word and the
-// chunk's tile. K5 is unchanged.
+// the semiring zero's products (for ADDMIN x = FLOAT_INF, encoded 0): K4p
+// skips it, so its stream elements stay zero, and the split branch's K3p
+// skips the flush chunks no live piece targets. The grid is the full one;
+// a dead warp exits after its descriptor word and the chunk's tile. K5 is
+// unchanged.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
+#include "piece_runs.cuh"
 #include "warp_rows.cuh"
 
 namespace {
 
+using glt::Elem;
+using glt::locate;
+using glt::load_runs;
+using glt::Runs;
 using glt::warp_add_rows;
 
 constexpr int kChunk = 1024;
@@ -64,66 +76,39 @@ constexpr int kWarps = 8;                 // deposit pieces per block
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kAll = 0xffffffffu;
 
-// The semiring's (x). ADDMIN (the tropical int32 encoding of
-// router_pallas.py:_tropical_encode) joins with the tropical engine.
-enum class Op { kMulAdd, kAndOr };
+// The semiring's (x), numbered as the wrappers pass it (semiring.OpType).
+// ADDMIN is the tropical engine's: its product is stored as the exact int32
+// encoding of router_pallas.py:_tropical_encode (semiring.tropical_encode),
+// E = INF_BITS - bits(min(v + x, FLOAT_INF)), order-reversing on
+// non-negative floats with E(FLOAT_INF) = 0. It runs in K4 scatter only:
+// K4 fused adds floats into y, and the tropical engine never fuses.
+enum class Op { kMulAdd = 0, kAndOr = 1, kAddMin = 2 };
+
+constexpr float kFloatInf = 999999999.0f;     // semiring.FLOAT_INF (1e9f)
+constexpr int kInfBits = 0x4E6E6B28;          // its bits, semiring.INF_BITS
+
+// What a stream element holds: float, or the int32 encoding for ADDMIN.
+template <Op kOp>
+using Stored = typename std::conditional<kOp == Op::kAddMin, int,
+                                         float>::type;
 
 template <Op kOp>
-__device__ __forceinline__ float product(float v, float xv) {
-  if (kOp == Op::kAndOr) return (v != 0.f && xv != 0.f) ? 1.f : 0.f;
-  return __fmul_rn(v, xv);   // one rounding, never fused with an add
-}
-
-// The 8 runs of one deposit piece, spread over a warp: lane s < 8 decodes
-// sublane s's word; every lane keeps the inclusive prefix sums of the run
-// lengths, so element e of the piece (0 <= e < end[7], sublane-major)
-// finds its sublane with 7 compares.
-struct Runs {
-  int a0, d0, excl;      // own sublane's run (lanes 0..7)
-  int end[kSub];         // inclusive prefix of run lengths (all lanes)
-};
-
-__device__ __forceinline__ Runs load_runs(const int* __restrict__ words,
-                                          unsigned lane) {
-  const int w = lane < kSub ? __ldg(words + lane) : 0;
-  Runs r;
-  r.a0 = w & 127;
-  r.d0 = (w >> 7) & 127;
-  const int n = (w >> 14) & 255;
-  int incl = n;
-#pragma unroll
-  for (int off = 1; off < kSub; off <<= 1) {
-    const int o = __shfl_up_sync(kAll, incl, off);
-    if (lane >= static_cast<unsigned>(off)) incl += o;
+__device__ __forceinline__ Stored<kOp> product(float v, float xv) {
+  if constexpr (kOp == Op::kAndOr) {
+    return (v != 0.f && xv != 0.f) ? 1.f : 0.f;
+  } else if constexpr (kOp == Op::kAddMin) {
+    // one rounding, as XLA's add; no fast-math anywhere in the build
+    const float p = fminf(__fadd_rn(v, xv), kFloatInf);
+    return kInfBits - __float_as_int(p);
+  } else {
+    return __fmul_rn(v, xv);   // one rounding, never fused with an add
   }
-  r.excl = incl - n;
-#pragma unroll
-  for (int s = 0; s < kSub; ++s) r.end[s] = __shfl_sync(kAll, incl, s);
-  return r;
-}
-
-struct Elem {
-  int s;       // sublane
-  int src;     // source lane in the A-chunk
-  int dst;     // element within the flushed chunk
-};
-
-// Element e of the piece. All 32 lanes must call it together (shuffles);
-// the result means nothing for e >= end[7].
-__device__ __forceinline__ Elem locate(const Runs& r, int e) {
-  int s = 0;
-#pragma unroll
-  for (int q = 0; q < kSub - 1; ++q) s += e >= r.end[q];
-  const int a0 = __shfl_sync(kAll, r.a0, s);
-  const int d0 = __shfl_sync(kAll, r.d0, s);
-  const int off = e - __shfl_sync(kAll, r.excl, s);
-  return Elem{s, (a0 + off) & (kLanes - 1), s * kLanes + d0 + off};
 }
 
 // Gathered product of A-chunk element (s, src); `chunk` is the element
 // offset of the chunk, `page` its column tile.
 template <Op kOp, bool kChained>
-__device__ __forceinline__ float gathered(
+__device__ __forceinline__ Stored<kOp> gathered(
     const int8_t* __restrict__ a_r, const int8_t* __restrict__ a_sub,
     const float* __restrict__ a_vals, const float* __restrict__ x,
     long long chunk, int page, int s, int src) {
@@ -156,14 +141,17 @@ __device__ __forceinline__ float gathered(
 // stand-in, 22 per run, so the warp walks the piece's elements flattened
 // across sublanes (32 per pass, no lane idles on a short run) rather than
 // one run at a time; inactive slots cost one 8-byte descriptor read.
+// ADDMIN (the tropical pass 1, _planar_scatter_call with op=ADDMIN,
+// router_pallas.py:1403-1405) moves the same bytes: its 4-byte elements are
+// int32 encodings, and the one float add rounds as XLA's does.
 template <Op kOp, bool kChained, bool kPred>
 __global__ void __launch_bounds__(kThreads) planar_scatter_kernel(
     const int* __restrict__ a_page, const int8_t* __restrict__ a_r,
     const int8_t* __restrict__ a_sub, const float* __restrict__ a_vals,
     const int2* __restrict__ rg, const int* __restrict__ tri,
     const int* __restrict__ target, const float* __restrict__ x,
-    float* __restrict__ stream, const uint8_t* __restrict__ act, int cb,
-    int rstep, int dstep, long long npieces) {
+    Stored<kOp>* __restrict__ stream, const uint8_t* __restrict__ act,
+    int cb, int rstep, int dstep, long long npieces) {
   const unsigned lane = threadIdx.x & 31;
   const long long gp = static_cast<long long>(blockIdx.x) * kWarps
       + (threadIdx.x >> 5);
@@ -177,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) planar_scatter_kernel(
   if (kPred && !act[page]) return;               // whole warp
   const Runs r = load_runs(tri + (t * dstep + (w.x >> 8)) * kSub, lane);
   const long long chunk = c * kChunk;
-  float* out = stream + static_cast<long long>(target[gp]) * kChunk;
+  Stored<kOp>* out = stream + static_cast<long long>(target[gp]) * kChunk;
   const int n = r.end[kSub - 1];
   for (int base = 0; base < n; base += 32) {
     const int e = base + static_cast<int>(lane);
@@ -294,8 +282,8 @@ void launch_scatter(const void* a_page, const void* a_r, const void* a_sub,
           static_cast<const int8_t*>(a_sub), static_cast<const float*>(a_vals),
           static_cast<const int2*>(rg), static_cast<const int*>(tri),
           static_cast<const int*>(target), static_cast<const float*>(x),
-          static_cast<float*>(stream_out), static_cast<const uint8_t*>(act),
-          cb, rstep, dstep, npieces);
+          static_cast<Stored<kOp>*>(stream_out),
+          static_cast<const uint8_t*>(act), cb, rstep, dstep, npieces);
 }
 
 template <Op kOp, bool kChained, bool kPred>
@@ -317,27 +305,33 @@ void launch_fused(const void* a_page, const void* a_r, const void* a_sub,
           npieces);
 }
 
+template <Op kOp, bool kPred>
+auto scatter_launcher(bool chained) {
+  return chained ? launch_scatter<kOp, true, kPred>
+                 : launch_scatter<kOp, false, kPred>;
+}
+
 template <bool kPred>
 int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
                 const void* a_vals, const void* rg, const void* tri,
                 const void* target, const void* x, void* stream_out,
                 const void* act, int nsteps, int cb, int rstep, int dstep,
-                int and_or, void* cuda_stream) {
+                int op, void* cuda_stream) {
+  if (op < 0 || op > 2) return static_cast<int>(cudaErrorInvalidValue);
   const long long npieces = static_cast<long long>(nsteps) * dstep;
   if (npieces > 0) {
     auto st = static_cast<cudaStream_t>(cuda_stream);
     const bool chained = a_sub != nullptr;
-    auto launch = and_or
-        ? (chained ? launch_scatter<Op::kAndOr, true, kPred>
-                   : launch_scatter<Op::kAndOr, false, kPred>)
-        : (chained ? launch_scatter<Op::kMulAdd, true, kPred>
-                   : launch_scatter<Op::kMulAdd, false, kPred>);
+    auto launch = op == 2 ? scatter_launcher<Op::kAddMin, kPred>(chained)
+        : op == 1 ? scatter_launcher<Op::kAndOr, kPred>(chained)
+                  : scatter_launcher<Op::kMulAdd, kPred>(chained);
     launch(a_page, a_r, a_sub, a_vals, rg, tri, target, x, stream_out, act,
            npieces, cb, rstep, dstep, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// and_or: 0 MULADD, 1 ANDOR; there is no ADDMIN instance.
 template <bool kPred>
 int run_fused(const void* a_page, const void* a_r, const void* a_sub,
               const void* a_vals, const void* rg, const void* tri,
@@ -345,6 +339,8 @@ int run_fused(const void* a_page, const void* a_r, const void* a_sub,
               const void* c_lo, const void* x, void* y, const void* act,
               int nsteps, int cb, int rstep, int dstep, int region_rows,
               int and_or, void* cuda_stream) {
+  if (and_or < 0 || and_or > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long npieces = static_cast<long long>(nsteps) * dstep;
   if (npieces > 0) {
     auto st = static_cast<cudaStream_t>(cuda_stream);
@@ -367,15 +363,17 @@ int run_fused(const void* a_page, const void* a_r, const void* a_sub,
 // does not synchronise, and returns cudaGetLastError() (0 = launched).
 // Outputs of K4 must be zeroed by the caller. a_sub == nullptr selects the
 // "bucket" gather (x is then K5's x2); otherwise the chained "free" gather.
+// K4 scatter's `op` is semiring.OpType (0 MULADD, 1 ANDOR: a float stream;
+// 2 ADDMIN: an int32 stream of encodings); K4 fused takes and_or (0 or 1).
 
 extern "C" int glt_planar_scatter(
     const void* a_page, const void* a_r, const void* a_sub,
     const void* a_vals, const void* rg, const void* tri, const void* target,
     const void* x, void* stream_out, int nsteps, int cb, int rstep,
-    int dstep, int and_or, void* cuda_stream) {
+    int dstep, int op, void* cuda_stream) {
   return run_scatter<false>(a_page, a_r, a_sub, a_vals, rg, tri, target, x,
                             stream_out, nullptr, nsteps, cb, rstep, dstep,
-                            and_or, cuda_stream);
+                            op, cuda_stream);
 }
 
 // K4p scatter: act is the (num_col_tiles,) uint8 tile activity.
@@ -383,9 +381,9 @@ extern "C" int glt_planar_scatter_pred(
     const void* a_page, const void* a_r, const void* a_sub,
     const void* a_vals, const void* rg, const void* tri, const void* target,
     const void* x, void* stream_out, const void* act, int nsteps, int cb,
-    int rstep, int dstep, int and_or, void* cuda_stream) {
+    int rstep, int dstep, int op, void* cuda_stream) {
   return run_scatter<true>(a_page, a_r, a_sub, a_vals, rg, tri, target, x,
-                           stream_out, act, nsteps, cb, rstep, dstep, and_or,
+                           stream_out, act, nsteps, cb, rstep, dstep, op,
                            cuda_stream);
 }
 

@@ -11,3 +11,6 @@ from .router_format import (RouterSpMVLayout, choose_region_rows,
                             pack_router, deposit_targets)
 from .planar_format import (PlanarSpMVLayout, choose_planar_region_rows,
                             pack_planar, planes_to_triples)
+from .tropical_format import (TropicalSpMVLayout, pack_tropical,
+                              choose_tropical_region_rows,
+                              resolve_tropical_split_format)

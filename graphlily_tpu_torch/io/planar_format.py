@@ -4,9 +4,11 @@ The port's copy of the numpy path of `graphlily_tpu/io/planar_format.py`:
 for every input it builds the same arrays bit for bit (the tests hold the
 two equal), so either package's layout drives the port's `PlanarSpMV`.
 The JAX package's native C++ packer and its PERM-C branch are not copied
-(ROADMAP queue 1, items 5a and 11). `planes_to_triples` works through the
-steps in blocks, so it stays within a few hundred MB on the full pokec
-stand-in, where one pass would allocate several GB.
+(ROADMAP queue 1, items 5a and 11). The tropical packer
+(io/tropical_format.py) packs with `hi_pad=-1` and `pad_val=FLOAT_INF`.
+`planes_to_triples` works through the steps in blocks, so it stays within
+a few hundred MB on the full pokec stand-in, where one pass would allocate
+several GB.
 
 What the layout means (S = 8 sublanes, L = 128 lanes, CHUNK = S * L):
   * A-chunk c holds up to 1024 nnz of one 1024-column tile a_page[c].
@@ -83,6 +85,9 @@ class PlanarSpMVLayout:
                                          # slot (keep_el_stream=True only)
     a_sub: np.ndarray | None = None      # deal "free": (NSTEPS*CB, 8, 128)
                                          # int8 source-sublane table
+    triples: np.ndarray | None = None    # planes_to_triples(self), where
+                                         # it replaced `planes` (the
+                                         # tropical "triples" format)
 
     @property
     def mem_bytes(self) -> int:
@@ -310,11 +315,13 @@ def choose_planar_region_rows(nrows: int, ncols: int, nnz: int) -> int:
 def pack_planar(csr: CSRMatrix, config=None, cb: int | None = None,
                 region_rows: int | None = None,
                 keep_el_stream: bool = False,
-                deal: str = "bucket") -> PlanarSpMVLayout:
+                deal: str = "bucket", hi_pad: int = 0,
+                pad_val: float = 0.0) -> PlanarSpMVLayout:
     """Build the planar layout and schedules (the JAX package's numpy
-    path, with its MULADD/ANDOR pads: empty A-value slots and unoccupied
-    c_hi slots hold 0; the tropical builder's pads come with the tropical
-    port). `deal`: "bucket" (sublane = the column's bucket after a
+    path). `pad_val` fills empty A-value slots (the (x) annihilator: 0 for
+    MULADD/ANDOR, FLOAT_INF for the tropical engine), `hi_pad` unoccupied
+    c_hi slots (0 for the reduce; -1 marks them for the tropical split
+    builder). `deal`: "bucket" (sublane = the column's bucket after a
     per-tile degree-sorted snake re-layout of the columns, read through
     the xperm planes) or "free" (dest sublanes quota-dealt per class,
     chained gather through a_sub, no xperm). `keep_el_stream` records
@@ -349,7 +356,8 @@ def pack_planar(csr: CSRMatrix, config=None, cb: int | None = None,
         return _pack_planar_tail(
             rr, cc, vv, order, a_chunk, bucket, lane, chunk_tile, nca,
             xperm, (cc & 127).astype(np.int8), nrows, ncols, nnz,
-            region_rows, nregions, cb, keep_el_stream, with_sub=True)
+            region_rows, nregions, cb, keep_el_stream, hi_pad, pad_val,
+            with_sub=True)
     tile = cc >> 10
 
     # ---- per-tile column re-layout: balance bucket loads -------------------
@@ -402,12 +410,14 @@ def pack_planar(csr: CSRMatrix, config=None, cb: int | None = None,
     return _pack_planar_tail(
         rr, cc, vv, order, a_chunk, bucket, lane, chunk_tile, nca,
         xperm, col_lane[cc].astype(np.int8), nrows, ncols, nnz,
-        region_rows, nregions, cb, keep_el_stream, with_sub=False)
+        region_rows, nregions, cb, keep_el_stream, hi_pad, pad_val,
+        with_sub=False)
 
 
 def _pack_planar_tail(rr, cc, vv, order, a_chunk, bucket, lane, chunk_tile,
                       nca, xperm, a_r_val, nrows, ncols, nnz, region_rows,
-                      nregions, cb, keep_el_stream, with_sub):
+                      nregions, cb, keep_el_stream, hi_pad, pad_val,
+                      with_sub):
     """Shared back half of pack_planar: subruns -> deposits -> cursor
     simulation -> step balancing -> descriptor, plane and reduce-side
     streams. `bucket` is the element's dest sublane, `a_r_val` its
@@ -586,7 +596,7 @@ def _pack_planar_tail(rr, cc, vv, order, a_chunk, bucket, lane, chunk_tile,
 
     # ---- deposit planes + reduce-side streams ------------------------------
     planes = np.zeros((nsteps, dmax, S, L), np.int8)
-    c_hi = np.zeros((nsteps * f, S, L), np.int8)
+    c_hi = np.full((nsteps * f, S, L), hi_pad, np.int8)
     c_lo = np.zeros((nsteps * f, S, L), np.int8)
     el_stream_orig = None
     if nsub:
@@ -641,7 +651,7 @@ def _pack_planar_tail(rr, cc, vv, order, a_chunk, bucket, lane, chunk_tile,
     # ---- A streams ----------------------------------------------------------
     ncap = nsteps * cb
     a_r = np.zeros((ncap, S, L), np.int8)
-    a_vals = np.zeros((ncap, S, L), np.float32)
+    a_vals = np.full((ncap, S, L), pad_val, np.float32)
     a_page = np.zeros(ncap, np.int32)
     a_r[a_chunk, bucket, lane] = a_r_val
     a_vals[a_chunk, bucket, lane] = vv
@@ -670,7 +680,7 @@ def _pack_planar_tail(rr, cc, vv, order, a_chunk, bucket, lane, chunk_tile,
 
 
 def _run_offsets(lens: np.ndarray) -> np.ndarray:
-    """0..len-1 for each run, concatenated."""
+    """0..len-1 for each run, concatenated (empty for no runs)."""
     tot = int(lens.sum())
     return np.arange(tot, dtype=np.int64) - np.repeat(
-        np.concatenate([[0], np.cumsum(lens)[:-1]]), lens)
+        np.cumsum(lens) - lens, lens)

@@ -396,16 +396,21 @@ def pack_router(csr: CSRMatrix, config=None, pad_val: float = 0.0,
     )
 
 
-def deposit_targets(rg: np.ndarray, dstep: int, f: int) -> np.ndarray:
+def deposit_targets(rg: np.ndarray, dstep: int, f: int,
+                    block: np.ndarray | None = None) -> np.ndarray:
     """Flush-stream chunk each deposit lands in: (nsteps, dstep) int32,
     -1 for inactive slots.
 
     The descriptor stream reuses accumulator slots in stream order (step
     by step; within a step all deposits precede all flushes). A deposit's
     elements leave its slot at the first flush of the same slot after it,
-    so target[t, j] = t_f * f + q_f of that flush. With the target known,
-    every deposit is an independent copy and the stream can run in any
-    order. Raises if a deposit is never flushed (a malformed layout)."""
+    so target[t, j] = t_f * f + q_f of that flush. `block` (nsteps,) maps
+    a step to the stream block its flushes land in, f chunks each: the
+    tropical compact window stream, whose flush q of step t lands in chunk
+    block[t] * f + q (io/tropical_format.compact_window_stream). With the
+    target known, every deposit is an independent copy and the stream can
+    run in any order. Raises if a deposit is never flushed (a malformed
+    layout)."""
     rg = np.asarray(rg)
     nsteps, rstep, _ = rg.shape
     w2 = rg[..., 1].astype(np.int64)
@@ -430,5 +435,6 @@ def deposit_targets(rg: np.ndarray, dstep: int, f: int) -> np.ndarray:
         raise ValueError(f"{int((~ok).sum())} deposits have no later flush "
                          "of their slot")
     fo = order[hit]
-    target[dt, dj] = (ft[fo] * f + f_q[fo]).astype(np.int32)
+    blk = ft[fo] if block is None else np.asarray(block, np.int64)[ft[fo]]
+    target[dt, dj] = (blk * f + f_q[fo]).astype(np.int32)
     return target

@@ -10,8 +10,10 @@ their frontier-predicated kernels, so its work follows the frontier's
 footprint: K7p over the chunks of active column tiles (chunked engine,
 chunk_order="col" layout), K1p/K2p -> K3p over the live
 deposits of active pages (roll router), K4p -> K3p over the pieces of
-active tiles (planar router). The COO engine ("xla") compacts the frontier
-and runs `spmspv_coo`. JAX's `simulate_ufixed` branch (the reference's
+active tiles (planar router), K4p scatter (ADDMIN) -> K8/K9 -> K10 over the
+pieces of active tiles (tropical engine: a tile is active where some x
+differs from FLOAT_INF). The COO engine ("xla") compacts the frontier and
+runs `spmspv_coo`. JAX's `simulate_ufixed` branch (the reference's
 fixed-point value type) waits for ROADMAP queue 1, item 10: the port's
 `EngineConfig` has no such field.
 """
@@ -28,12 +30,14 @@ from ..io.matrix import CSCMatrix, csc2csr
 from ..io.formatter import estimate_chunk_layout_gb, pack_csr_chunks
 from ..io.router_format import pack_router
 from ..io.planar_format import pack_planar
+from ..io.tropical_format import pack_tropical
 from ..ops.reference import coo_from_csc, spmspv_coo
 from ..ops.vector import (SparseVector, sparse_from_entries, sparse_to_dense,
                           dense_to_sparse)
 from ..ops.chunked import ChunkedSpMV
 from ..ops.router import RouterSpMV
 from ..ops.planar import PlanarSpMV
+from ..ops.tropical import TropicalSpMV
 from .base import BaseModule, DeviceBuffer
 from .spmv_module import resolve_router_flavor
 
@@ -47,8 +51,9 @@ class SpMSpVModule(BaseModule):
         self.vector_buf = DeviceBuffer()   # SparseVector
         self.mask_buf = DeviceBuffer()     # dense
         self.results_buf = DeviceBuffer()  # SparseVector
-        # ChunkedSpMV (col layout), RouterSpMV or PlanarSpMV; None for "xla"
-        self.engine: Optional[RouterSpMV | ChunkedSpMV] = None
+        # ChunkedSpMV (col layout), RouterSpMV, PlanarSpMV or TropicalSpMV;
+        # None for "xla"
+        self.engine: Optional[RouterSpMV | ChunkedSpMV | TropicalSpMV] = None
         self.engine_name = ""
         self._coo = None
         self.num_rows_ = 0
@@ -59,9 +64,9 @@ class SpMSpVModule(BaseModule):
                                reuse_from=None) -> None:
         """Format for the engine JAX's ladder picks. `reuse_from`: an
         SpMVModule formatted with the matrix this CSC is the twin of; its
-        roll or planar engine is shared, not packed again (the twin's
-        layout would be identical). The chunked engine is not shared:
-        SpMSpV needs the chunk_order="col" layout."""
+        roll, planar or tropical engine is shared, not packed again (the
+        twin's layout would be identical). The chunked engine is not
+        shared: SpMSpV needs the chunk_order="col" layout."""
         assert self.semiring_ is not None, "set_semiring before formatting"
         self.csc_matrix_ = CSCMatrix(csc_matrix.num_rows, csc_matrix.num_cols,
                                      csc_matrix.adj_data.copy(),
@@ -70,8 +75,8 @@ class SpMSpVModule(BaseModule):
         self.num_rows_ = csc_matrix.num_rows
         self.num_cols_ = csc_matrix.num_cols
         self.engine, self.engine_name, self._coo = None, "", None
-        if reuse_from is not None and isinstance(reuse_from.engine,
-                                                 RouterSpMV):
+        if reuse_from is not None and isinstance(
+                reuse_from.engine, (RouterSpMV, TropicalSpMV)):
             self.engine = reuse_from.engine   # PlanarSpMV is a RouterSpMV
             self.engine_name = reuse_from.engine_name
             return
@@ -85,10 +90,11 @@ class SpMSpVModule(BaseModule):
                         and csr_twin.num_rows <= 700_000)
             use_chunked = engine == "pallas" or feasible
             if tropical and not use_chunked:
-                raise NotImplementedError(
-                    "engine 'tropical' is not ported yet: the tropical "
-                    "engine TropicalSpMV (ROADMAP queue 1, item 9)")
-            if use_chunked:
+                self.engine_name = "tropical"
+                self.engine = TropicalSpMV(
+                    pack_tropical(csr_twin, self.config), self.semiring_,
+                    self.config, MaskType.NO_MASK)
+            elif use_chunked:
                 self.engine_name = "chunked"
                 self.engine = ChunkedSpMV(
                     pack_csr_chunks(csr_twin,

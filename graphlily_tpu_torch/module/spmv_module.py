@@ -4,13 +4,12 @@ Counterpart of `graphlily_tpu/module/spmv_module.py`: owns the formatted
 matrix, the vector/mask/results buffers, a `run()` that executes one
 masked semiring SpMV on the module's device, and a float64 CPU oracle.
 
-Engine selection keeps the JAX package's ladder. Four engines are
-ported: the chunked engine (ops/chunked.py, packed with the semiring zero
-as pad value), the roll router (ops/router.py), the planar router
-(ops/planar.py, packed with `config.planar_deal`) and the reference COO
-engine ("xla", ops/reference.py). A branch that resolves to an engine not
-ported yet (the tropical engine) raises NotImplementedError naming its
-ROADMAP queue-1 item; it never substitutes another engine.
+Engine selection keeps the JAX package's ladder, and every engine it
+names is ported: the chunked engine (ops/chunked.py, packed with the
+semiring zero as pad value), the roll router (ops/router.py), the planar
+router (ops/planar.py, packed with `config.planar_deal`), the tropical
+engine (ops/tropical.py, SSSP where the chunked layout is infeasible) and
+the reference COO engine ("xla", ops/reference.py).
 """
 from __future__ import annotations
 
@@ -26,15 +25,13 @@ from ..io.formatter import (util_round_csr_matrix_dim,
                             estimate_chunk_layout_gb, pack_csr_chunks)
 from ..io.router_format import choose_region_rows, pack_router
 from ..io.planar_format import pack_planar
+from ..io.tropical_format import pack_tropical
 from ..ops.reference import coo_from_csr, spmv_coo
 from ..ops.chunked import ChunkedSpMV
 from ..ops.router import RouterSpMV
 from ..ops.planar import PlanarSpMV
+from ..ops.tropical import TropicalSpMV
 from .base import BaseModule, DeviceBuffer
-
-_NOT_PORTED = {
-    "tropical": "the tropical engine TropicalSpMV (ROADMAP queue 1, item 9)",
-}
 
 
 def resolve_router_flavor(csr) -> str:
@@ -77,8 +74,9 @@ class SpMVModule(BaseModule):
         self.vector_buf = DeviceBuffer()
         self.mask_buf = DeviceBuffer()
         self.results_buf = DeviceBuffer()
-        # RouterSpMV, its PlanarSpMV, or ChunkedSpMV; None for "xla"
-        self.engine: Optional[RouterSpMV | ChunkedSpMV] = None
+        # RouterSpMV, its PlanarSpMV, ChunkedSpMV or TropicalSpMV; None
+        # for "xla"
+        self.engine: Optional[RouterSpMV | ChunkedSpMV | TropicalSpMV] = None
         self.engine_name = ""
         self._coo = None
         self.num_rows_ = 0
@@ -95,9 +93,6 @@ class SpMVModule(BaseModule):
         self.engine, self._coo = None, None
         name = resolve_engine(csr_matrix, self.config.resolve_engine(),
                               self.semiring_.op == OpType.ADDMIN)
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"engine {name!r} is not ported yet: {_NOT_PORTED[name]}")
         self.engine_name = name
         if name == "chunked":
             self.engine = ChunkedSpMV(
@@ -110,6 +105,10 @@ class SpMVModule(BaseModule):
             self.engine = PlanarSpMV(
                 pack_planar(csr_matrix, deal=self.config.planar_deal),
                 self.semiring_, self.config, self.mask_type_)
+        elif name == "tropical":
+            self.engine = TropicalSpMV(
+                pack_tropical(csr_matrix, self.config), self.semiring_,
+                self.config, self.mask_type_)
         if self.engine is not None:
             self.num_rows_ = self.engine.num_rows
             self.num_cols_ = self.engine.num_cols
@@ -196,9 +195,13 @@ class SpMVModule(BaseModule):
             y = (np.bincount(rows, weights=c, minlength=n) != 0).astype(
                 np.float64)
         else:
+            # a min over each nonempty row's CSR segment
             y = np.full(n, self.semiring_.zero, np.float64)
             c = np.minimum(vals + contrib_x, float(FLOAT_INF))
-            np.minimum.at(y, rows, c)
+            ptr = csr.adj_indptr[:csr.num_rows + 1].astype(np.int64)
+            full = np.nonzero(np.diff(ptr))[0]
+            if len(full):
+                y[full] = np.minimum.reduceat(c, ptr[full])
         if mask is not None and self.mask_type_ != MaskType.NO_MASK:
             m = np.asarray(mask)
             if self.mask_type_ == MaskType.WRITE_TO_ZERO:

@@ -66,13 +66,22 @@ class PlanarArrays:
     xperm: torch.Tensor | None   # (ntiles*8*8*128,) int8; "bucket" only
 
 
-def piece_words(lay) -> np.ndarray:
-    """Triple-run words per deposit piece, (nsteps, dstep, 8) int32: word
-    [t, p, s] is `planes_to_triples(lay)[t, p >> 7, s, p & 127]`, laid out
+def run_words(tw: np.ndarray, nsteps: int, dstep: int) -> np.ndarray:
+    """Triple-run words (nsteps, dmax, 8, 128) regrouped per deposit piece,
+    (nsteps, dstep, 8) int32: word [t, p, s] is tw[t, p >> 7, s, p & 127],
     so one piece's 8 words are 32 contiguous bytes."""
-    tw = planes_to_triples(lay)
-    tri = tw.transpose(0, 1, 3, 2).reshape(lay.nsteps, -1, S)
-    return np.ascontiguousarray(tri[:, :lay.dstep])
+    tri = tw.transpose(0, 1, 3, 2).reshape(nsteps, -1, S)
+    return np.ascontiguousarray(tri[:, :dstep])
+
+
+def piece_words(lay) -> np.ndarray:
+    """`run_words` of a planar layout: `planes_to_triples(lay)`, or the
+    words that already replaced its planes (`lay.triples`, the tropical
+    "triples" format)."""
+    tw = getattr(lay, "triples", None)
+    if tw is None:
+        tw = planes_to_triples(lay)
+    return run_words(tw, lay.nsteps, lay.dstep)
 
 
 class PlanarSpMV(RouterSpMV):
@@ -130,6 +139,11 @@ class PlanarSpMV(RouterSpMV):
         return x if self.chained else self.xperm(x, a)
 
     # ---- K4 scatter ------------------------------------------------------------
+    @property
+    def _stream_dtype(self) -> torch.dtype:
+        """float32, or int32 for the tropical engine's ADDMIN encodings."""
+        return torch.int32 if self.TROPICAL else torch.float32
+
     def scatter(self, x: torch.Tensor,
                 arrays: PlanarArrays | None = None) -> torch.Tensor:
         """Gather and deposits only: the flush stream, (nsteps, f, 8, 128)."""
@@ -139,10 +153,10 @@ class PlanarSpMV(RouterSpMV):
             return self.scatter_plain(x, a)
         xs = self._gather_source(x, a)
         stream = torch.zeros(self.nsteps * self.f * CHUNK,
-                             dtype=torch.float32, device=x.device)
+                             dtype=self._stream_dtype, device=x.device)
         rc = _build.library().glt_planar_scatter(
             *self._stream_ptrs(a), xs.data_ptr(), stream.data_ptr(),
-            self.nsteps, self.cb, self.rstep, self.dstep, self._and_or,
+            self.nsteps, self.cb, self.rstep, self.dstep, self._op,
             torch.cuda.current_stream(x.device).cuda_stream)
         self._raise_on(rc, "glt_planar_scatter")
         self.launches["scatter"] += 1
@@ -191,11 +205,11 @@ class PlanarSpMV(RouterSpMV):
         self._check_flags(act, self.num_act, "act")
         xs = self._gather_source(x, a)
         stream = torch.zeros(self.nsteps * self.f * CHUNK,
-                             dtype=torch.float32, device=x.device)
+                             dtype=self._stream_dtype, device=x.device)
         rc = _build.library().glt_planar_scatter_pred(
             *self._stream_ptrs(a), xs.data_ptr(), stream.data_ptr(),
             act.data_ptr(), self.nsteps, self.cb, self.rstep, self.dstep,
-            self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
+            self._op, torch.cuda.current_stream(x.device).cuda_stream)
         self._raise_on(rc, "glt_planar_scatter_pred")
         self.launches["scatter_pred"] += 1
         return stream.view(self.nsteps, self.f, S, L)

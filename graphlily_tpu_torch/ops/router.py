@@ -44,7 +44,8 @@ import torch
 
 from ..config import EngineConfig, DEFAULT_CONFIG
 from ..io.router_format import CHUNK, deposit_targets
-from ..semiring import Semiring, OpType, MaskType, apply_mask
+from ..semiring import (Semiring, OpType, MaskType, apply_mask,
+                        tropical_encode)
 from . import _build
 
 # The fused rule for Hopper. K1 and the K2 -> K3 pair issue the same y
@@ -77,6 +78,8 @@ class RouterSpMV:
     """Router SpMV over a fixed layout. Same call surface as the JAX
     engine: `__call__(x, mask, mask_type, arrays)` and `scatter(x)`."""
 
+    TROPICAL = False   # the ADDMIN engine (ops/tropical.py) sets it
+
     def __init__(self, layout, semiring: Semiring,
                  config: EngineConfig = DEFAULT_CONFIG,
                  mask_type: MaskType = MaskType.NO_MASK):
@@ -97,8 +100,10 @@ class RouterSpMV:
                      mask_type: MaskType) -> None:
         """What every flush-stream engine shares: checks, sizes, the fused
         rule and the plain versions' index cache."""
-        if semiring.op == OpType.ADDMIN:
-            raise ValueError("router engine supports MULADD/ANDOR only")
+        if self.TROPICAL != (semiring.op == OpType.ADDMIN):
+            raise ValueError("the tropical engine runs ADDMIN only"
+                             if self.TROPICAL else
+                             "router engine supports MULADD/ANDOR only")
         if config.dtype != "float32":
             raise ValueError("the router kernels compute in float32 only")
         self.semiring = semiring
@@ -144,6 +149,12 @@ class RouterSpMV:
     @property
     def _and_or(self) -> int:
         return int(self.semiring.op == OpType.ANDOR)
+
+    @property
+    def _op(self) -> int:
+        """The semiring as K4 scatter takes it: 0 MULADD, 1 ANDOR, 2
+        ADDMIN."""
+        return int(self.semiring.op)
 
     @staticmethod
     def _raise_on(rc: int, name: str) -> None:
@@ -379,7 +390,8 @@ class RouterSpMV:
                       act: torch.Tensor | None = None) -> torch.Tensor:
         """K2's plain version: gather, then index_copy_ into a zeroed flush
         stream through the deposit targets. With `act`, K2p's: only the
-        elements of frontier-active chunks."""
+        elements of frontier-active chunks. ADDMIN (the tropical pass 1)
+        stores int32 encodings (semiring.tropical_encode)."""
         arr = self.arrays if a is None else a
         idx = self.plain_index(a)
         if act is not None:
@@ -387,12 +399,14 @@ class RouterSpMV:
             idx = {k: idx[k][keep] for k in ("src", "col", "dst")}
         vals = arr.a_vals[idx["src"]]
         xg = x.reshape(-1)[idx["col"]]
-        if self._and_or:
+        if self.semiring.op == OpType.ADDMIN:
+            g = tropical_encode(vals, xg)
+        elif self._and_or:
             g = torch.logical_and(vals != 0, xg != 0).to(torch.float32)
         else:
             g = vals * xg
-        stream = torch.zeros(self.nsteps * self.f * CHUNK,
-                             dtype=torch.float32, device=x.device)
+        stream = torch.zeros(self.nsteps * self.f * CHUNK, dtype=g.dtype,
+                             device=x.device)
         stream.index_copy_(0, idx["dst"], g)
         return stream.view(self.nsteps, self.f, 8, 128)
 

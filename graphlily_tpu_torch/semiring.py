@@ -3,7 +3,9 @@
 Counterpart of `graphlily_tpu/semiring.py`: three semirings (arithmetic,
 logical, tropical) as (mul, add, one, zero) and three mask modes. The
 tropical "infinity" is the finite sentinel FLOAT_INF with a saturating
-add, so results match the float64 oracles bit for bit.
+add, so results match the float64 oracles bit for bit. INF_BITS and
+tropical_encode/tropical_decode are the tropical engine's int32 encoding
+(graphlily_tpu/ops/router_pallas.py:65-75).
 """
 from __future__ import annotations
 
@@ -14,6 +16,23 @@ import numpy as np
 import torch
 
 FLOAT_INF = np.float32(999999999.0)
+# The tropical engine's exact int32 encoding: for v >= 0 the float32 bit
+# pattern orders as v does, so E(v) = INF_BITS - bits(min(v, FLOAT_INF))
+# reverses the order exactly, with E(FLOAT_INF) = 0. A min over products
+# becomes an int32 max whose identity, 0, is what a zeroed stream holds.
+INF_BITS = int(FLOAT_INF.view(np.int32))
+
+
+def tropical_encode(vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """E(min(vals + x, FLOAT_INF)) as int32 (one float32 add, rounded to
+    nearest, as the K4 kernel computes it)."""
+    p = torch.clamp_max(vals + x, float(FLOAT_INF))
+    return INF_BITS - p.view(torch.int32)
+
+
+def tropical_decode(e: torch.Tensor) -> torch.Tensor:
+    """The inverse of tropical_encode: float32 from int32 encodings."""
+    return (INF_BITS - e).view(torch.float32)
 
 
 class OpType(enum.IntEnum):

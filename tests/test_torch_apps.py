@@ -8,8 +8,9 @@ chunked engine, and the hypersparse RMAT 50000 / 150k, seed 5, which
 `engine="router"` resolves to the planar router (both deals). The port
 runs with and without the degree-sort relabel; JAX runs `engine="xla"`.
 PageRank must agree within rtol 1e-5 (fp32 sums in other orders), BFS and
-SSSP (unit weights: integer distances) exactly. Branches of the engine
-ladder whose engine is not ported must raise NotImplementedError.
+SSSP (unit weights: integer distances) exactly. The ladder branch that
+raised while its engine was not ported (the tropical engine) now builds
+it and matches the oracle.
 """
 import functools
 
@@ -143,10 +144,19 @@ def test_sssp_weighted_pull_matches():
     ("router", "tropical", _graph, "item 9"),
 ])
 def test_unported_engine_raises(engine, semiring, graph, item):
+    """The branch that raised naming its ROADMAP item until that item was
+    ported (item 9: engine="router" with the tropical semiring) builds the
+    tropical engine and equals the float64 oracle; nothing raises."""
+    del item
     mod = SpMVModule(tg.EngineConfig(engine=engine, device="cpu"))
     mod.set_semiring(tg.SEMIRINGS[semiring])
-    with pytest.raises(NotImplementedError, match=item):
-        mod.load_and_format_matrix(graph())
+    mod.load_and_format_matrix(graph())
+    assert mod.engine_name == "tropical"
+    x = np.random.default_rng(3).integers(0, 100, mod.get_num_cols()).astype(
+        np.float32)
+    np.testing.assert_array_equal(   # the oracle rounded to float32
+        mod.apply(torch.from_numpy(x)).numpy(),
+        mod.compute_reference_results(x).astype(np.float32))
 
 
 @pytest.mark.parametrize("engine,semiring", [

@@ -10,6 +10,9 @@ CHUNKED_FIXTURES are the JAX chunked-engine tests' graphs
 (tests/test_spmv_pallas.py): uniform, dense, mod-128 conflict, RMAT, a
 rectangular graph, empty window groups, empty rows and a hub row;
 `hub_window_csr` puts thousands of chunks in one window.
+TROPICAL_FIXTURES are the JAX tropical tests' graphs
+(tests/test_tropical.py): RMAT at the production kb, a multi-region RMAT
+with drains, a hub row and a graph with empty rows.
 The tests here check that each is a well-formed CSR matrix and is rebuilt
 identically.
 """
@@ -136,6 +139,39 @@ CHUNKED_FIXTURES = {
 }
 
 
+def hub_row_csr() -> CSRMatrix:
+    """Row 0 holds 5,000 entries among 20,000 random ones over 6,000 rows
+    (tests/test_tropical.py, the hub-row case): its window's digit cycles
+    split deposits, and its runs cross deposit boundaries."""
+    rng = np.random.default_rng(11)
+    rows = np.concatenate([np.zeros(5000, np.int64),
+                           rng.integers(0, 6000, 20000)])
+    cols = rng.integers(0, 6000, 25000)
+    vals = (rng.random(25000) * 10).astype(np.float32)
+    return csr_from_coo(rows, cols, vals, 6000, 6000)
+
+
+def empty_rows_csr() -> CSRMatrix:
+    """A uniform 4000-row graph with every third row emptied: those rows
+    have no entry and must come out as the tropical zero."""
+    base = uniform_csr(4000, 4000, 3, seed=5)
+    rows = base.row_ids()
+    keep = rows % 3 != 0
+    return csr_from_coo(rows[keep], base.adj_indices[:base.nnz][keep],
+                        np.abs(base.adj_data[:base.nnz][keep]), 4000, 4000)
+
+
+# the JAX tropical tests' graphs (tests/test_tropical.py): name -> (builder,
+# explicit region_rows or None, split-pass kb); kb=4 keeps the interpret-
+# mode kernels small, 16 is the production geometry
+TROPICAL_FIXTURES = {
+    "rmat": (lambda: rmat_csr(3000, 20000, seed=3), None, 16),
+    "multi_region": (lambda: rmat_csr(12000, 60000, seed=7), 2048, 4),
+    "hub_row": (hub_row_csr, 2048, 4),
+    "empty_rows": (empty_rows_csr, None, 4),
+}
+
+
 @pytest.mark.parametrize("name", list(FIXTURES))
 def test_fixture_is_well_formed_and_deterministic(name):
     _check_well_formed_and_deterministic(FIXTURES[name][0])
@@ -150,6 +186,11 @@ def test_planar_fixture_is_well_formed_and_deterministic(name):
 def test_chunked_fixture_is_well_formed_and_deterministic(name):
     _check_well_formed_and_deterministic(
         CHUNKED_FIXTURES.get(name, hub_window_csr))
+
+
+@pytest.mark.parametrize("name", list(TROPICAL_FIXTURES))
+def test_tropical_fixture_is_well_formed_and_deterministic(name):
+    _check_well_formed_and_deterministic(TROPICAL_FIXTURES[name][0])
 
 
 def _check_well_formed_and_deterministic(build):

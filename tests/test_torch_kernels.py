@@ -1,8 +1,10 @@
 """CUDA kernels K1 (fused), K2 (scatter), K3 (reduce) of the roll router,
 K4 (scatter, fused) and K5 (xperm) of the planar router, the chunked
-K6/K7 kernel, and the frontier-predicated forms K1p, K2p, K3p, K4p and K7p
-(SpMSpV, for empty, 1-vertex and 5% frontiers) against their plain
-PyTorch versions and the unpredicated kernels, on the card.
+K6/K7 kernel, the tropical engine's K4 scatter in ADDMIN mode, K8 and K9
+(split) and K10 (window reduce), and the frontier-predicated forms K1p,
+K2p, K3p, K4p and K7p (SpMSpV, for empty, 1-vertex and 5% frontiers)
+against their plain PyTorch versions and the unpredicated kernels, on the
+card.
 
 Needs a CUDA card and nvcc; every test skips without a card. Imports only
 torch and the port (no jax), so on a machine without jax it runs as
@@ -16,7 +18,10 @@ held to max|y - y64| <= 1e-5 * max|y64| against the float64 oracle at
 these sizes (the smoke test's googleplus bound is 1e-4, for hub rows of up
 to ~1e5 terms). The chunked kernel: ANDOR and ADDMIN bit-equal to the
 plain version, MULADD within 1e-4 * max|y64| (its atomics land in any
-order; hub windows fold thousands of chunks into 128 rows).
+order; hub windows fold thousands of chunks into 128 rows). The tropical
+kernels move or max int32 encodings and must equal their plain versions
+bit for bit; the engine's y equals the float64 oracle rounded to float32
+(rounding is monotone, so it commutes with the min).
 """
 import numpy as np
 import pytest
@@ -25,13 +30,14 @@ import torch
 from graphlily_tpu_torch import (ArithmeticSemiring, LogicalSemiring,
                                  TropicalSemiring, EngineConfig)
 from graphlily_tpu_torch.io import (rmat_csr, pack_router, pack_planar,
-                                    pack_csr_chunks,
+                                    pack_csr_chunks, pack_tropical,
                                     util_round_csr_matrix_dim)
 from graphlily_tpu_torch.module import SpMVModule
-from graphlily_tpu_torch.ops import RouterSpMV, PlanarSpMV, ChunkedSpMV
+from graphlily_tpu_torch.ops import (RouterSpMV, PlanarSpMV, ChunkedSpMV,
+                                     TropicalSpMV)
 
 from test_torch_fixtures import (FIXTURES, PLANAR_FIXTURES, CHUNKED_FIXTURES,
-                                 hub_window_csr)
+                                 TROPICAL_FIXTURES, hub_window_csr)
 
 pytestmark = pytest.mark.gpu
 
@@ -406,3 +412,109 @@ def test_spmspv_module_on_card(engine, cuda):
     np.testing.assert_array_equal(y.cpu().numpy(), want)
     launched = {k for k, v in mod.engine.launches.items() if v}
     assert launched and all(k.endswith("pred") for k in launched)
+
+
+# ---- tropical engine: K4 / K4p scatter (ADDMIN), K8, K9, K10 -----------------
+SPLIT_FORMATS = ["planes", "triples"]
+SPLIT_KEY = {"planes": "split", "triples": "split_triples"}
+
+
+def _tropical_engine(name, fmt, deal):
+    build, region_rows, kb = TROPICAL_FIXTURES[name]
+    csr = build()
+    lay = pack_tropical(csr, EngineConfig(planar_deal=deal),
+                        region_rows=region_rows, kb=kb, split_format=fmt)
+    return csr, TropicalSpMV(lay, TropicalSemiring,
+                             EngineConfig(device="cuda"))
+
+
+def _tropical_x(ncols, seed=7):
+    """x >= 0 (the engine's contract) with unreached FLOAT_INF entries."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random(ncols) * 100).astype(np.float32)
+    x[rng.random(ncols) < 0.3] = TropicalSemiring.zero
+    return x
+
+
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _tropical_launches(fmt, **counts):
+    out = {"xperm": 0, "scatter": 0, "scatter_pred": 0, "split": 0,
+           "split_triples": 0, "window_reduce": 0}
+    counts[SPLIT_KEY[fmt]] = counts.pop("split", 0)
+    return {**out, **counts}
+
+
+@pytest.mark.parametrize("deal", ["free", "bucket"])
+@pytest.mark.parametrize("fmt", SPLIT_FORMATS)
+@pytest.mark.parametrize("name", list(TROPICAL_FIXTURES))
+def test_tropical_kernels_match_plain(name, fmt, deal, cuda):
+    """K4 scatter (ADDMIN), K8 or K9 and K10, each on the stage before's
+    kernel output, bit-equal to its plain version; the engine call equals
+    the oracle."""
+    csr, eng = _tropical_engine(name, fmt, deal)
+    x = _tropical_x(eng.num_cols)
+    xt = torch.from_numpy(x).to(cuda)
+    g1 = eng.scatter(xt)
+    assert g1.dtype == torch.int32
+    assert _same_bits(g1, eng.scatter_plain(xt))
+    g2 = eng.split(g1)
+    assert _same_bits(g2, eng.split_plain(g1))
+    out = eng.window_reduce(g2)
+    assert _same_bits(out, eng.window_reduce_plain(g2))
+    y = eng(xt)
+    torch.cuda.synchronize()
+    xperms = 2 if deal == "bucket" else 0
+    assert eng.launches == _tropical_launches(
+        fmt, xperm=xperms, scatter=2, split=2, window_reduce=2)
+    want = _oracle(csr, TropicalSemiring, x).astype(np.float32)
+    np.testing.assert_array_equal(y.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("kind", FRONTIERS)
+@pytest.mark.parametrize("fmt", SPLIT_FORMATS)
+@pytest.mark.parametrize("name", ["multi_region", "hub_row"])
+def test_tropical_predicated_scatter_matches_plain(name, fmt, kind, cuda):
+    """K4p scatter (ADDMIN) bit-equal to its plain version and to the
+    unpredicated K4 scatter (skipped pieces hold 0, the encoding of
+    FLOAT_INF); the predicated call bit-equal to the unpredicated one. The
+    frontier holds a source at distance 0."""
+    _, eng = _tropical_engine(name, fmt, "free")
+    x = _frontier(eng.num_cols, kind, TropicalSemiring.zero)
+    if kind != "empty":
+        x[5] = 0.0
+    xt = torch.from_numpy(x).to(cuda)
+    act = eng.activity(xt)
+    g1 = eng.scatter_predicated(xt, act)
+    assert _same_bits(g1, eng.scatter_plain(xt, act))
+    assert _same_bits(g1, eng.scatter(xt))
+    y, full = eng.call_predicated(xt), eng(xt)
+    torch.cuda.synchronize()
+    assert _same_bits(y, full)
+    assert eng.launches == _tropical_launches(
+        fmt, scatter=2, scatter_pred=2, split=2, window_reduce=2)
+    if kind == "empty":
+        assert not act.any() and bool((y == TropicalSemiring.zero).all())
+    else:
+        assert bool(act[0])   # the source's tile, at distance 0
+
+
+def test_tropical_sssp_on_card(cuda):
+    """SSSP with engine="router" on the card: SpMV and SpMSpV share one
+    TropicalSpMV, pull, push and pull_push equal the oracle, and only the
+    kernels ran."""
+    from graphlily_tpu_torch.apps import SSSP
+    sssp = SSSP(EngineConfig(engine="router"))
+    sssp.load_and_format_matrix(rmat_csr(12000, 60000, seed=7))
+    eng = sssp.SpMV_.engine
+    assert sssp.SpMV_.engine_name == "tropical"
+    assert sssp.SpMSpV_.engine is eng
+    want = sssp.compute_reference_results(0, 6)
+    for run in (sssp.pull(0, 6), sssp.push(0, 6), sssp.pull_push(0, 6)):
+        np.testing.assert_array_equal(np.asarray(run, np.float64), want)
+    for key in ("scatter", "scatter_pred", "window_reduce"):
+        assert eng.launches[key] > 0, key
+    assert eng.launches[SPLIT_KEY["triples" if eng.triples else "planes"]] > 0

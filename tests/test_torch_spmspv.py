@@ -43,7 +43,7 @@ from graphlily_tpu_torch.io import (rmat_csr, csr2csc, pack_router,
 from graphlily_tpu_torch.module import SpMVModule, SpMSpVModule
 from graphlily_tpu_torch.module import spmspv_module as tspmspv
 from graphlily_tpu_torch.ops import (RouterSpMV, PlanarSpMV, ChunkedSpMV,
-                                     sparse_from_entries)
+                                     TropicalSpMV, sparse_from_entries)
 
 from test_torch_fixtures import FIXTURES, PLANAR_FIXTURES, CHUNKED_FIXTURES
 from test_torch_io import to_jax
@@ -349,7 +349,7 @@ def test_chunked_call_predicated_equals_call(fixture, name):
 def test_spmspv_ladder_branches(monkeypatch):
     """Unaligned CSC -> COO; an engine by name without a module to share
     -> COO (as in JAX); tropical whose chunked layout is not feasible
-    raises naming item 9; with reuse_from a chunked SpMV engine is not
+    -> the tropical engine; with reuse_from a chunked SpMV engine is not
     shared (SpMSpV packs its own col layout)."""
     g = rmat_csr(3000, 40000, seed=5)
     for engine, graph, want in (("auto", g, "xla"),
@@ -370,5 +370,6 @@ def test_spmspv_ladder_branches(monkeypatch):
     monkeypatch.setattr(tspmspv, "estimate_chunk_layout_gb", lambda c: 3.0)
     mod = SpMSpVModule(tg.EngineConfig(engine="router", device="cpu"))
     mod.set_semiring(tg.TropicalSemiring)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mod.load_and_format_matrix(csr2csc(_graph("rmat")))
+    mod.load_and_format_matrix(csr2csc(_graph("rmat")))
+    assert mod.engine_name == "tropical"
+    assert isinstance(mod.engine, TropicalSpMV)
