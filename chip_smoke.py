@@ -20,8 +20,12 @@ calls, and checks every result against the float64 oracles:
   * SSSP pull, push and pull_push on the pokec stand-in (self edges
     added: 32,254,873 nnz), which the ladder sends to the tropical engine
     (K4 scatter and K4p scatter in ADDMIN mode, K8 split, K10 window
-    reduce), and SSSP on googleplus through the tropical engine by name
-    in the "triples" split format (K9).
+    reduce), and SSSP on half of the googleplus stand-in through the
+    tropical engine by name in the "triples" split format (K9);
+  * BFS pull, push and pull_push on the full pokec stand-in and PageRank
+    on a quarter of it with planar_deal="permc" (PERM-C layouts, packed
+    by the C++ greedy): K4 fused and K4p fused on PERM-C rows, K4 scatter
+    -> K11 and K4p scatter -> K11p.
 
 Phases, one or more lines each:
 
@@ -84,19 +88,38 @@ Phases, one or more lines each:
                K10's maxima bit-equal to their plain versions; K4p scatter
                ADDMIN against its plain version and the unpredicated
                scatter at empty, 1-vertex and 5% frontiers; googleplus
-               SSSP with engine="router", tropical_split_format="triples":
-               pull(0, 7) and push(0, 7) against the oracle, K9 bit-equal
-               to its plain version
+               SSSP at scale 0.5 (TRIPLES_SCALE: cut from the full graph
+               to keep the whole run near 750 s) with
+               engine="router", tropical_split_format="triples": pull(0, 7)
+               and push(0, 7) against the oracle, K9 bit-equal to its plain
+               version, the tropical and a chunked engine call on its
+               matrix against the oracle
   20. times    the new kernels and their plain versions, bounds, the pokec
                tropical engine call, the googleplus tropical (triples)
                engine call against the chunked engine call on the same
                matrix, pokec SSSP pull, push and pull_push ms and the
                pull_push_time_breakdown phase split
+  21. permc    pokec BFS(EngineConfig(sort_rows_by_degree=True,
+               planar_deal="permc")) on the full graph (engine "auto" ->
+               planar; SpMSpV shares it): g++ build, C++ greedy, pack and
+               load seconds, layout facts (row runs, elements a run);
+               pull(0, 11) fused and split, push(0, 11) fused and split,
+               pull_push(0, 11, 0.05) bit-equal to the oracle; PageRank
+               pull(0.9, 10) on PERM-C on the quarter graph of phase 7; a
+               MULADD engine on BFS's layout: K4 fused PERM-C and K4
+               scatter -> K11 against their plain versions and the
+               float64 oracle; ANDOR K11 and K4 fused bit-equal to plain;
+               K11p and K4p fused PERM-C at empty, 1-vertex and 5%
+               frontiers bit-equal to plain and unpredicated, MULADD at 5%
+  22. times    K11, K11p, K4 fused and K4p fused PERM-C against their plain
+               versions and bounds; torch.mv on BFS's matrix; the PERM-C
+               engine call fused and split against the free deal's fused
+               call (phase 10's engine); BFS pull, push and pull_push ms,
+               PageRank ms/iter
 
 The launch counters are set to 0 right before each path's app runs
-(phases 4-5, 8, 11, 12, 14-16, 18 and 19's googleplus SSSP) and read
-right after; every kernel of
-the path must have run there. Then it prints the kernels' JSON line: per
+(phases 4-5, 8, 11, 12, 14-16, 18, 19's googleplus SSSP and 21) and read
+right after; every kernel of the path must have run there. Then it prints the kernels' JSON line: per
 kernel its launches on the app paths, its largest difference from its
 plain version, its time, its plain version's, its bound (the larger of
 the bytes it must move over 3.35 TB/s and its fp32 operations over
@@ -128,6 +151,7 @@ ROUTER_SRC = "graphlily_tpu_torch/csrc/router_spmv.cu"
 PLANAR_SRC = "graphlily_tpu_torch/csrc/planar_spmv.cu"
 CHUNKED_SRC = "graphlily_tpu_torch/csrc/chunked_spmv.cu"
 TROPICAL_SRC = "graphlily_tpu_torch/csrc/tropical_spmv.cu"
+PERMC_SRC = "graphlily_tpu_torch/csrc/permc_spmv.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K1_router_fused": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:419"),
     "K2_router_scatter": (ROUTER_SRC,
@@ -165,8 +189,18 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                                   "graphlily_tpu/ops/tropical_pallas.py:301"),
     "K10_tropical_window_reduce": (TROPICAL_SRC,
                                    "graphlily_tpu/ops/tropical_pallas.py:392"),
+    # PERM-C: the split branch's run-sum reduce and its predicated launch
+    # (sm/na), and K4 fused's PERM-C instance (permc=True, with beg)
+    "K11_permc_reduce": (PERMC_SRC, "graphlily_tpu/ops/router_pallas.py:851"),
+    "K11p_permc_reduce_pred": (PERMC_SRC,
+                               "graphlily_tpu/ops/router_pallas.py:851"),
+    "K4_planar_fused_permc": (PLANAR_SRC,
+                              "graphlily_tpu/ops/router_pallas.py:1459"),
+    "K4p_planar_fused_pred_permc": (
+        PLANAR_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
 }
 BUCKET_SCALE = 0.25  # the pokec stand-in's cut for the "bucket" deal (K5)
+TRIPLES_SCALE = 0.5  # the googleplus stand-in's cut for the "triples" SSSP
 MULADD_RTOL = 1e-4   # fp32 atomics in any order over hub rows of ~1e5 terms
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks at 700 W
 FP32_OPS_PER_S = 67e12
@@ -333,7 +367,8 @@ def main(argv=None) -> int:
     ch = chunked(torch, args, rec, card, gp)
     push_paths(torch, args, gp, pk, ch, rec)
     predicated_kernels(torch, rec, card, gp, pk, ch)
-    tropical(torch, args, rec, card, gp, pk, ch)
+    tropical(torch, args, rec, card, pk)
+    permc(torch, args, rec, card, pk)
 
     for name, r in rec.items():
         if r.get("launches", 0) == 0:
@@ -690,7 +725,8 @@ def pokec(torch, args, rec: dict, card: str) -> None:
         f"MULADD SpMV: {rec['K4_planar_fused']['library_ms']:.4f} ms")
     log(f"phase 10 pokec pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
         f"{bfs_ms:.4f} ms; card {card}")
-    return {"g": g, "bfs": bfs, "bfsb": bfsb}
+    return {"g": g, "gb": gb, "bfs": bfs, "bfsb": bfsb, "pr": pr,
+            "x": spmv_x}
 
 
 def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
@@ -838,7 +874,7 @@ def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
         f" ms")
     log(f"phase 13 sssp pull(0, {iters}): {sssp_ms:.4f} ms; ADDMIN engine "
         f"call {time_ms(torch, lambda: eng(xt_min)):.4f} ms; card {card}")
-    return {"sssp": sssp, "bfs_small": bfs, "x_min": xt_min}
+    return {"sssp": sssp, "bfs_small": bfs}
 
 
 def chunked_bytes(eng, chunks: int, real: int,
@@ -1167,13 +1203,15 @@ def decoded_err(a, b) -> float:
     return float((tropical_decode(a) - tropical_decode(b)).abs().max())
 
 
-def tropical(torch, args, rec: dict, card: str, gp: dict, pk: dict,
-             ch: dict) -> None:
-    """Phases 18-20: SSSP on the tropical engine (pokec, planes; googleplus,
-    triples), each kernel against its plain version, and times."""
-    from graphlily_tpu_torch import EngineConfig, FLOAT_INF
+def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
+    """Phases 18-20: SSSP on the tropical engine (pokec, planes; googleplus
+    at TRIPLES_SCALE, triples), each kernel against its plain version, and
+    times."""
+    from graphlily_tpu_torch import (EngineConfig, FLOAT_INF,
+                                     TropicalSemiring)
     from graphlily_tpu_torch.apps import SSSP
-    from graphlily_tpu_torch.io import ICCAD_GRAPHS
+    from graphlily_tpu_torch.io import ICCAD_GRAPHS, iccad_standin
+    from graphlily_tpu_torch.module import SpMVModule
     dev = torch.device("cuda")
     inf = float(FLOAT_INF)
     iters = ICCAD_GRAPHS["pokec"]["iters"]
@@ -1276,15 +1314,19 @@ def tropical(torch, args, rec: dict, card: str, gp: dict, pk: dict,
                             iters=10)
     set_bound(r, nbytes, nops)
 
-    # K9 on the googleplus SSSP graph (pass-1 triples too)
+    # K9 on the googleplus stand-in cut to TRIPLES_SCALE (pass-1 triples
+    # too), which keeps the whole run near 750 s since PERM-C joined it
     giters = ICCAD_GRAPHS["googleplus"]["iters"]
-    gsssp, geng, gsecs = load(gp["g"], EngineConfig(
-        sort_rows_by_degree=True, engine="router",
-        tropical_split_format="triples"))
+    gscale = TRIPLES_SCALE * args.scale
+    gsssp, geng, gsecs = load(
+        iccad_standin("googleplus", scale=gscale, seed=0),
+        EngineConfig(sort_rows_by_degree=True, engine="router",
+                     tropical_split_format="triples"))
     if not geng.triples:
         raise AssertionError("the googleplus layout is not in triples format")
-    log(f"phase 19 googleplus sssp, engine=router, split format triples: "
-        f"relabel+self edges+pack+init {gsecs['load']:.1f} s, of which "
+    log(f"phase 19 googleplus sssp (scale {gscale:g}), engine=router, split "
+        f"format triples: relabel+self edges+pack+init {gsecs['load']:.1f} s,"
+        f" of which "
         f"pack+init {gsecs['pack']:.1f} s; nnz={geng.nnz} "
         f"{tropical_facts(geng)}")
     reset((geng,))
@@ -1297,10 +1339,20 @@ def tropical(torch, args, rec: dict, card: str, gp: dict, pk: dict,
     for label, dist in gruns.items():
         check_close(f"googleplus triples sssp {label}", dist, gwant,
                     exact=True)
-    xg = ch["x_min"]
-    if xg.numel() != geng.num_cols:
+    # the chunked engine on the same matrix, for phase 20's comparison
+    gchunked = SpMVModule(EngineConfig(engine="pallas", device="cuda"))
+    gchunked.set_semiring(TropicalSemiring)
+    gchunked.load_and_format_matrix(gsssp.SpMV_.csr_matrix_)
+    if gchunked.engine.num_cols != geng.num_cols:
         raise AssertionError("the chunked and tropical googleplus layouts "
                              "differ in width")
+    x = rng.integers(0, 1000, geng.num_cols).astype(np.float32)
+    x[rng.random(geng.num_cols) < 0.5] = inf   # integers: exact fp32 sums
+    xg = torch.from_numpy(x).to(dev)
+    gwant = gsssp.SpMV_.compute_reference_results(x)
+    for label, y in (("tropical", geng(xg)), ("chunked", gchunked.apply(xg))):
+        check_close(f"googleplus {label} engine call", y.cpu().numpy(), gwant,
+                    exact=True)
     h1 = geng.scatter(xg)
     h2, h2p = geng.split(h1), geng.split_plain(h1)
     hout = geng.window_reduce(h2)
@@ -1311,8 +1363,9 @@ def tropical(torch, args, rec: dict, card: str, gp: dict, pk: dict,
     bit_equal(torch, "googleplus K10 out", hout, geng.window_reduce_plain(h2))
     rec["K9_tropical_split_triples"]["err"] = decoded_err(h2, h2p)
     log(f"phase 19 googleplus: sssp pull(0, {giters}) and push(0, {giters}) "
-        f"equal to the oracle; K4 scatter ADDMIN, K9 and K10 bit-equal to "
-        f"their plain versions ok")
+        f"equal to the oracle; the tropical and chunked engine calls equal "
+        f"to the oracle; K4 scatter ADDMIN, K9 and K10 bit-equal to their "
+        f"plain versions ok")
 
     # ---- 20. times ------------------------------------------------------------
     bounds = tropical_bounds(eng)
@@ -1345,7 +1398,7 @@ def tropical(torch, args, rec: dict, card: str, gp: dict, pk: dict,
     call_ms = time_ms(torch, lambda: eng(xt))
     log(f"phase 20 pokec tropical engine call (K4 scatter -> K8 -> K10 + "
         f"decode): {call_ms:.4f} ms ({gteps(eng.nnz, call_ms)})")
-    chunked = ch["sssp"].SpMV_.engine
+    chunked = gchunked.engine
     t_ms = time_ms(torch, lambda: geng(xg))
     c_ms = time_ms(torch, lambda: chunked(xg))
     log(f"phase 20 googleplus SSSP matrix ({geng.nnz} nnz, "
@@ -1365,6 +1418,276 @@ def tropical(torch, args, rec: dict, card: str, gp: dict, pk: dict,
         f"{bd['total_ms']:.4f} ms, phases ms: {phases}; dispatch floor "
         f"{bd['dispatch_floor_ms']:.4f} ms x {sum(bd['calls'].values())} "
         f"calls; card {card}")
+
+def muladd_oracle(csr, x: np.ndarray) -> np.ndarray:
+    """Float64 y = A x over the CSR matrix's rows."""
+    nnz = csr.nnz
+    return np.bincount(csr.row_ids(), minlength=csr.num_rows,
+                       weights=csr.adj_data[:nnz].astype(np.float64)
+                       * x[csr.adj_indices[:nnz]].astype(np.float64))
+
+
+def permc_bounds(eng, act=None) -> dict:
+    """(bytes, ops) of K11 or K11p and of K4 fused on a PERM-C layout. K11
+    reads, per live flushed chunk, its 4 KB of stream, its 3 KB of int8
+    destination-lane keys and its code, writes y once, and adds each
+    element of the live chunks once; K4 fused is router_bounds' count."""
+    t = router_traffic(eng, act)
+    return {"reduce": (t["live"] * (7 * 1024 + 4) + t["y"], t["elems"]),
+            "fused": router_bounds(eng, act)["fused"]}
+
+
+def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
+    """Phases 21-22: PERM-C (planar_deal="permc") on the pokec stand-in:
+    BFS on the full graph, a MULADD engine on BFS's layout, PageRank on
+    the quarter graph; each kernel against its plain version, and times."""
+    from graphlily_tpu_torch import (EngineConfig, ArithmeticSemiring,
+                                     native)
+    from graphlily_tpu_torch.apps import PageRank, BFS
+    from graphlily_tpu_torch.io import ICCAD_GRAPHS
+    from graphlily_tpu_torch.module import spmv_module
+    from graphlily_tpu_torch.ops import PlanarSpMV
+    dev = torch.device("cuda")
+    iters = ICCAD_GRAPHS["pokec"]["iters"]
+    engine = "auto" if args.scale >= 1 else "planar"
+
+    # ---- 21. the layout: relabel, C++ greedy + numpy tail, init ------------
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    secs, layouts = {"greedy": 0.0}, []
+    pack, greedy = spmv_module.pack_planar, native.permc_greedy
+
+    def timed_pack(*a, **kw):
+        t = time.perf_counter()
+        layouts.append(pack(*a, **kw))
+        secs["pack"] = time.perf_counter() - t
+        return layouts[-1]
+
+    def timed_greedy(*a, **kw):
+        t = time.perf_counter()
+        out = greedy(*a, **kw)
+        secs["greedy"] += time.perf_counter() - t
+        return out
+
+    spmv_module.pack_planar, native.permc_greedy = timed_pack, timed_greedy
+    try:
+        t0 = time.perf_counter()
+        bfs = BFS(EngineConfig(sort_rows_by_degree=True, engine=engine,
+                               planar_deal="permc"))
+        bfs.load_and_format_matrix(pk["g"])
+        load_s = time.perf_counter() - t0
+    finally:
+        spmv_module.pack_planar, native.permc_greedy = pack, greedy
+    eng = bfs.SpMV_.engine
+    if bfs.SpMV_.engine_name != "planar" or not eng.permc or not eng.fused:
+        raise AssertionError(f"pokec BFS with planar_deal='permc' resolved "
+                             f"{bfs.SpMV_.engine_name!r}, not fused PERM-C")
+    if bfs.SpMSpV_.engine is not eng:
+        raise AssertionError("the PERM-C BFS holds two copies of its engine")
+    a = eng.arrays
+    w2 = a.rg[..., 1]
+    runs = int((a.c_end > a.c_beg).sum())
+    log(f"phase 21 pokec bfs PERM-C layout (scale={args.scale}, "
+        f"{pk['g'].nnz} edges, engine={engine}): g++ build {build_s:.2f} s; "
+        f"relabel+pack+init {load_s:.1f} s, of which pack {secs['pack']:.1f}"
+        f" s (C++ greedy, two passes, {secs['greedy']:.1f} s); "
+        f"region_rows={eng.region_rows} regions={eng.num_regions} "
+        f"cb={eng.cb} f={eng.f} dstep={eng.dstep} nsteps={eng.nsteps} "
+        f"slots={eng.num_slots} pieces={int((w2[:, :eng.dstep] > 0).sum())} "
+        f"flushes={int((w2 < 0).sum())} "
+        f"stream_MB={eng.nsteps * eng.f * 4096 / 1e6:.1f} row_runs={runs} "
+        f"elements_per_run={eng.nnz / max(runs, 1):.3f} fused={eng.fused}")
+    t0 = time.perf_counter()
+    muladd = PlanarSpMV(layouts[-1], ArithmeticSemiring,
+                        EngineConfig(device="cuda"))
+    del layouts[:]
+    log(f"phase 21 MULADD engine on the same layout: init "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine="planar",
+                               planar_deal="permc"))
+    pr.load_and_format_matrix(pk["gb"], 0.9)
+    pr_eng = pr.SpMV_.engine
+    if not pr_eng.permc or not pr_eng.fused:
+        raise AssertionError("pokec PageRank did not pack a fused PERM-C "
+                             "layout")
+    log(f"phase 21 pokec pagerank PERM-C layout (scale "
+        f"{BUCKET_SCALE * args.scale:g}, {pk['gb'].nnz} edges): "
+        f"relabel+pack+init {time.perf_counter() - t0:.1f} s "
+        f"regions={pr_eng.num_regions} cb={pr_eng.cb} f={pr_eng.f} "
+        f"nsteps={pr_eng.nsteps} slots={pr_eng.num_slots}")
+
+    # ---- 21. main path: BFS and PageRank through the public API ------------
+    reset((eng, pr_eng))
+    dists = {"pull fused": bfs.pull(0, iters),
+             "push fused": bfs.push(0, iters),
+             "pull_push fused": bfs.pull_push(0, iters, threshold=0.05)}
+    eng.fused = False              # the split branch, through the same API
+    dists["pull split"] = bfs.pull(0, iters)
+    dists["push split"] = bfs.push(0, iters)
+    eng.fused = True
+    rank = pr.pull(0.9, 10)
+    torch.cuda.synchronize()
+    rec["K4_planar_fused_permc"]["launches"] = (eng.launches["fused"]
+                                                + pr_eng.launches["fused"])
+    rec["K4p_planar_fused_pred_permc"]["launches"] = eng.launches[
+        "fused_pred"]
+    rec["K11_permc_reduce"]["launches"] = eng.launches["permc_reduce"]
+    rec["K11p_permc_reduce_pred"]["launches"] = eng.launches[
+        "permc_reduce_pred"]
+    rec["K4_planar_scatter"]["launches"] += eng.launches["scatter"]
+    rec["K4p_planar_scatter_pred"]["launches"] += eng.launches[
+        "scatter_pred"]
+    log(f"phase 21 launches: pokec bfs {eng.launches} pagerank "
+        f"{pr_eng.launches}")
+    want = bfs.compute_reference_results(0, iters)
+    for label, dist in dists.items():
+        check_close(f"pokec PERM-C bfs {label}", dist, want, exact=True)
+    log(f"phase 21 bfs pull(0, {iters}) fused and split, push(0, {iters}) "
+        f"fused and split, pull_push(0, {iters}, 0.05) on PERM-C: equal to "
+        f"the oracle ({int((want > 0).sum())} reached) ok")
+    err = check_close("pokec PERM-C pagerank", rank,
+                      pr.compute_reference_results(0.9, 10), exact=False)
+    log(f"phase 21 pagerank pull(0.9, 10) on PERM-C (scale "
+        f"{BUCKET_SCALE * args.scale:g}): max|r-r64|={err:.3e} ok")
+
+    # ---- 21. each kernel against its plain version --------------------------
+    rng = np.random.default_rng(21)
+    x = rng.random(muladd.num_cols).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    want = muladd_oracle(bfs.SpMV_.csr_matrix_, x)
+    s, sp = muladd.scatter(xt), muladd.scatter_plain(xt)
+    y11, y11p = muladd.reduce(s), muladd.reduce_plain(s)
+    y4, y4p = muladd.fused_spmv(xt), muladd.fused_plain(xt)
+    torch.cuda.synchronize()
+    bit_equal(torch, "PERM-C MULADD K4 stream", s, sp)
+    for label, y in (("K4 scatter -> K11", y11), ("K11 plain", y11p),
+                     ("K4 fused PERM-C", y4), ("K4 fused plain", y4p),
+                     ("engine call", muladd(xt))):
+        err = check_close(f"PERM-C MULADD {label}", y.cpu().numpy(), want,
+                          exact=False)
+        log(f"phase 21 MULADD {label}: max|y-y64|={err:.3e} "
+            f"max|y64|={np.abs(want).max():.6e} ok")
+    rec["K11_permc_reduce"]["err"] = float((y11 - y11p).abs().max())
+    rec["K4_planar_fused_permc"]["err"] = float((y4 - y4p).abs().max())
+    xa = (rng.random(eng.num_cols) < 0.05).astype(np.float32)
+    xat = torch.from_numpy(xa).to(dev)
+    sa = eng.scatter(xat)
+    pairs = (("K11", eng.reduce(sa), eng.reduce_plain(sa)),
+             ("K4 fused PERM-C", eng.fused_spmv(xat), eng.fused_plain(xat)))
+    torch.cuda.synchronize()
+    want = bfs.SpMV_.compute_reference_results(xa)
+    for label, y, yp in pairs:
+        bit_equal(torch, f"PERM-C ANDOR {label}", y, yp)
+        check_close(f"PERM-C ANDOR {label}", (y != 0).cpu().numpy(), want,
+                    exact=True)
+    log("phase 21 ANDOR (5% x): K11 and K4 fused PERM-C bit-equal to their "
+        "plain versions and, clamped, to the oracle ok")
+    times = {}
+    for kind in ("empty", "one", "5pct"):
+        xf = frontier_x(torch, eng.num_cols, kind, 0.0, rng)
+        if kind == "one":          # BFS's first push frontier: a random
+            xf.zero_()             # column may lie in the edgeless tail
+            xf[bfs._internal_source(0)] = 1.0
+        act = eng.activity(xf)
+        live = eng.live_chunks(act)
+        sf = eng.scatter_predicated(xf, act)
+        y11, y11p = eng.reduce_predicated(sf, live), eng.reduce_plain(
+            sf, None, live)
+        y4, y4p = eng.fused_predicated(xf, act), eng.fused_plain(
+            xf, None, act)
+        full = eng.fused_spmv(xf)
+        torch.cuda.synchronize()
+        for label, y, yp in (("K11p", y11, y11p), ("K4p fused", y4, y4p)):
+            bit_equal(torch, f"PERM-C {kind} {label}", y, yp)
+            bit_equal(torch, f"PERM-C {kind} {label} vs unpredicated", y,
+                      full)
+        times[kind] = {
+            "K11p": time_ms(torch, lambda: eng.reduce_predicated(sf, live)),
+            "K4p": time_ms(torch, lambda: eng.fused_predicated(xf, act))}
+        bounds = permc_bounds(eng, act)
+        log(f"phase 21 ANDOR {kind}: live flush chunks {int(live.sum())}; "
+            f"K11p {times[kind]['K11p']:.4f} ms (bound "
+            f"{bounds['reduce'][0] / HBM_BYTES_PER_S * 1e3:.6f}), K4p fused "
+            f"PERM-C {times[kind]['K4p']:.4f} ms (bound "
+            f"{bounds['fused'][0] / HBM_BYTES_PER_S * 1e3:.6f}); bit-equal "
+            f"to plain and to the unpredicated kernels ok")
+    act_m = muladd.activity(xf)
+    live_m = muladd.live_chunks(act_m)
+    sm = muladd.scatter_predicated(xf, act_m)
+    y11m = muladd.reduce_predicated(sm, live_m)
+    y4m = muladd.fused_predicated(xf, act_m)
+    torch.cuda.synchronize()
+    errs = {"K11p": float((y11m - muladd.reduce_plain(sm, None, live_m))
+                          .abs().max()),
+            "K4p": float((y4m - muladd.fused_plain(xf, None, act_m))
+                         .abs().max())}
+    scale = float(y4m.abs().max())
+    for label, e in errs.items():
+        if e > MULADD_RTOL * scale:
+            raise AssertionError(f"PERM-C MULADD 5% {label}: {e} > "
+                                 f"{MULADD_RTOL * scale}")
+    log(f"phase 21 MULADD 5%: K11p within {errs['K11p']:.3e} and K4p fused "
+        f"PERM-C within {errs['K4p']:.3e} of plain (max|y| {scale:.6e}) ok")
+
+    # ---- 22. times ------------------------------------------------------------
+    for name, key, (nbytes, nops) in (
+            ("K11p_permc_reduce_pred", "K11p", permc_bounds(eng, act)[
+                "reduce"]),
+            ("K4p_planar_fused_pred_permc", "K4p", permc_bounds(eng, act)[
+                "fused"])):
+        r = rec[name]
+        r["ms"], r["err"] = times["5pct"][key], errs[key]
+        set_bound(r, nbytes, nops)
+    rec["K11p_permc_reduce_pred"]["plain_ms"] = time_ms(
+        torch, lambda: eng.reduce_plain(sf, None, live), iters=10)
+    rec["K4p_planar_fused_pred_permc"]["plain_ms"] = time_ms(
+        torch, lambda: eng.fused_plain(xf, None, act), iters=10)
+    bounds = permc_bounds(muladd)
+    timed = {"K11_permc_reduce": (lambda: muladd.reduce(s),
+                                  lambda: muladd.reduce_plain(s),
+                                  bounds["reduce"]),
+             "K4_planar_fused_permc": (lambda: muladd.fused_spmv(xt),
+                                       lambda: muladd.fused_plain(xt),
+                                       bounds["fused"])}
+    for name, (kernel, plain, (nbytes, nops)) in timed.items():
+        r = rec[name]
+        r["ms"] = time_ms(torch, kernel)
+        r["plain_ms"] = time_ms(torch, plain, iters=10)
+        set_bound(r, nbytes, nops)
+        log(f"phase 22 {name}: {r['ms']:.4f} ms ({gteps(muladd.nnz, r['ms'])})"
+            f" plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {nbytes / 1e6:.1f} MB)")
+    rec["K4_planar_fused_permc"]["library_ms"] = library_mv(
+        torch, bfs.SpMV_.csr_matrix_, xt, muladd_oracle(
+            bfs.SpMV_.csr_matrix_, x))
+    fused_ms = time_ms(torch, lambda: muladd(xt))
+    muladd.fused = False
+    split_ms = time_ms(torch, lambda: muladd(xt))
+    muladd.fused = True
+    free = pk["pr"].SpMV_.engine
+    free_ms = time_ms(torch, lambda: free(pk["x"]))
+    free_k4_ms = time_ms(torch, lambda: free.fused_spmv(pk["x"]))
+    log(f"phase 22 pokec MULADD engine call: PERM-C fused {fused_ms:.4f} ms "
+        f"({gteps(muladd.nnz, fused_ms)}), PERM-C split K4 scatter -> K11 "
+        f"{split_ms:.4f} ms ({gteps(muladd.nnz, split_ms)}); free deal fused "
+        f"(phase 10's engine) {free_ms:.4f} ms ({gteps(free.nnz, free_ms)}), "
+        f"its K4 fused {free_k4_ms:.4f} ms; library torch.mv "
+        f"{rec['K4_planar_fused_permc']['library_ms']:.4f} ms; device memory "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.1f} GB, reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.1f} GB")
+    ms = {name: time_ms(torch, lambda: fn(0, iters, device_output=True),
+                        iters=5, reps=3)
+          for name, fn in (("pull", bfs.pull), ("push", bfs.push),
+                           ("pull_push", bfs.pull_push))}
+    pr_ms = time_ms(torch, lambda: pr.pull(0.9, 100, device_output=True),
+                    iters=1, reps=3) / 100
+    log(f"phase 22 pokec bfs({iters}) on PERM-C: pull {ms['pull']:.4f} ms, "
+        f"push {ms['push']:.4f} ms, pull_push {ms['pull_push']:.4f} ms; "
+        f"pagerank (scale {BUCKET_SCALE * args.scale:g}) {pr_ms:.4f} "
+        f"ms/iter; card {card}")
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -27,11 +27,12 @@ class EngineConfig:
                                      # engine are all ported)
     sort_rows_by_degree: bool = False  # symmetric degree-sort relabel
     mxu_precision: str = "highest"   # accepted, ignored (always fp32)
-    device: Optional[str] = None     # None: "cuda" when a card is present,
-                                     # else "cpu"
+    device: Optional[str] = None     # None: "cuda" (raises without a
+                                     # card); the CPU only by name
     planar_deal: str = "free"        # planar layout deal: "free" (chained
-                                     # gather) or "bucket" (x re-laid by
-                                     # K5)
+                                     # gather), "bucket" (x re-laid by K5)
+                                     # or "permc" (PERM-C: chained gather,
+                                     # K11 reduces the split branch)
     tropical_split_format: str = "auto"  # tropical split-pass deposits:
                                      # "planes" (1 KB int8 gather plane a
                                      # piece, K8), "triples" (a digit sort
@@ -43,11 +44,7 @@ class EngineConfig:
                                              # None: the matrix's row count
 
     def __post_init__(self):
-        if self.planar_deal == "permc":
-            raise NotImplementedError(
-                "planar_deal='permc' (PERM-C layouts) is not ported yet "
-                "(ROADMAP queue 1, item 11)")
-        if self.planar_deal not in ("free", "bucket"):
+        if self.planar_deal not in ("free", "bucket", "permc"):
             raise ValueError(f"unknown planar_deal {self.planar_deal!r}")
         if self.tropical_split_format not in ("auto", "planes", "triples"):
             raise ValueError(f"unknown tropical_split_format "
@@ -58,9 +55,16 @@ class EngineConfig:
         return getattr(torch, self.dtype)
 
     def resolve_device(self) -> torch.device:
+        """The named device, else the card. The kernels run only there:
+        with no card present this raises instead of giving the CPU, which
+        a caller (the tests) asks for by name, `device="cpu"`."""
         if self.device is not None:
             return torch.device(self.device)
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port's kernels run on the card; pass "
+                "EngineConfig(device='cpu') for the plain PyTorch versions")
+        return torch.device("cuda")
 
     def resolve_engine(self) -> str:
         return self.engine   # "auto" resolves per module (capability ladder)

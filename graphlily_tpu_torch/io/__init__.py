@@ -11,6 +11,7 @@ from .router_format import (RouterSpMVLayout, choose_region_rows,
                             pack_router, deposit_targets)
 from .planar_format import (PlanarSpMVLayout, choose_planar_region_rows,
                             pack_planar, planes_to_triples)
+from .permc_format import pack_permc, permc_stream_rows
 from .tropical_format import (TropicalSpMVLayout, pack_tropical,
                               choose_tropical_region_rows,
                               resolve_tropical_split_format)

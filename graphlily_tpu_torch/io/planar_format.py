@@ -3,8 +3,9 @@
 The port's copy of the numpy path of `graphlily_tpu/io/planar_format.py`:
 for every input it builds the same arrays bit for bit (the tests hold the
 two equal), so either package's layout drives the port's `PlanarSpMV`.
-The JAX package's native C++ packer and its PERM-C branch are not copied
-(ROADMAP queue 1, items 5a and 11). The tropical packer
+`deal="permc"` packs through io/permc_format.pack_permc, as in the JAX
+package. The JAX package's native C++ planar packer is not copied
+(ROADMAP queue 1, item 5a). The tropical packer
 (io/tropical_format.py) packs with `hi_pad=-1` and `pad_val=FLOAT_INF`.
 `planes_to_triples` works through the steps in blocks, so it stays within
 a few hundred MB on the full pokec stand-in, where one pass would allocate
@@ -48,7 +49,7 @@ from .router_format import REGION_ROWS, CHUNK, MAX_REGIONS, _balance_chunks
 
 S = 8
 L = 128
-DEALS = ("free", "bucket")
+DEALS = ("free", "bucket", "permc")
 
 
 @dataclasses.dataclass
@@ -83,11 +84,16 @@ class PlanarSpMVLayout:
     el_slot: np.ndarray | None = None    # (nnz,) original nnz -> a_vals slot
     el_stream: np.ndarray | None = None  # (nnz,) original nnz -> flush-stream
                                          # slot (keep_el_stream=True only)
-    a_sub: np.ndarray | None = None      # deal "free": (NSTEPS*CB, 8, 128)
-                                         # int8 source-sublane table
+    a_sub: np.ndarray | None = None      # deals "free" and "permc":
+                                         # (NSTEPS*CB, 8, 128) int8
+                                         # source-sublane table
     triples: np.ndarray | None = None    # planes_to_triples(self), where
                                          # it replaced `planes` (the
-                                         # tropical "triples" format)
+                                         # tropical "triples" format, and
+                                         # every PERM-C layout)
+    c_end: np.ndarray | None = None      # PERM-C only: (NSTEPS*F, 8, 128)
+                                         # int8 run end per DEST lane
+    c_beg: np.ndarray | None = None      # PERM-C only: run start - 1
 
     @property
     def mem_bytes(self) -> int:
@@ -323,14 +329,24 @@ def pack_planar(csr: CSRMatrix, config=None, cb: int | None = None,
     c_hi slots (0 for the reduce; -1 marks them for the tropical split
     builder). `deal`: "bucket" (sublane = the column's bucket after a
     per-tile degree-sorted snake re-layout of the columns, read through
-    the xperm planes) or "free" (dest sublanes quota-dealt per class,
-    chained gather through a_sub, no xperm). `keep_el_stream` records
-    each nnz's flush-stream position. `config` is accepted for call-site
-    parity and unused."""
+    the xperm planes), "free" (dest sublanes quota-dealt per class,
+    chained gather through a_sub, no xperm) or "permc"
+    (io/permc_format.pack_permc; with `keep_el_stream` or a nonzero
+    `hi_pad`, which only the tropical pass 1 asks for, it packs "free",
+    as the JAX package does). `keep_el_stream` records each nnz's
+    flush-stream position. `config` is accepted for call-site parity and
+    unused."""
     del config
     if deal not in DEALS:
         raise ValueError(f"unknown planar deal {deal!r}; the port packs "
                          f"{DEALS}")
+    if deal == "permc":
+        if keep_el_stream or hi_pad != 0:
+            deal = "free"
+        else:
+            from .permc_format import pack_permc
+            return pack_permc(csr, pad_val=pad_val, cb=cb,
+                              region_rows=region_rows)
     work = csr.copy()
     util_round_csr_matrix_dim(work, 1024, 1024)
     nrows, ncols = work.num_rows, work.num_cols

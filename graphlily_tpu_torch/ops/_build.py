@@ -51,6 +51,9 @@ SIGNATURES = {
     "glt_planar_fused": [_P] * 12 + [_I] * 6 + [_P],
     "glt_planar_fused_pred": [_P] * 13 + [_I] * 6 + [_P],
     "glt_planar_xperm": [_P] * 3 + [_I] + [_P],
+    # permc_spmv.cu: K11 (PERM-C run-sum reduce) and K11p
+    "glt_permc_reduce": [_P] * 6 + [_I] * 2 + [_P],
+    "glt_permc_reduce_pred": [_P] * 7 + [_I] * 2 + [_P],
     # tropical_spmv.cu: K8 (split, planes), K9 (split, triples), K10
     "glt_tropical_split": [_P] * 6 + [_I] * 5 + [_P],
     "glt_tropical_split_triples": [_P] * 7 + [_I] * 4 + [_P],

@@ -27,11 +27,20 @@ K3p (`fused_predicated`, `scatter_predicated`). A planar A-chunk mixes
 the 8 pages of its column tile, so activity is per 1024-column tile, as
 in JAX `PlanarSpMV._normalize_act`; K5 runs unpredicated.
 
+PERM-C layouts (`planar_deal="permc"`, io/permc_format.py; `permc`)
+key phase C by destination lane. The engine re-keys those streams by
+stream position once at init (io/permc_format.permc_stream_rows), so K4
+fused, K4p fused, K4 scatter and every plain version run on them
+unchanged; the split branch reduces with K11 (`reduce`, or K11p
+`reduce_predicated`; csrc/permc_spmv.cu), which reads the destination-
+lane keys and sums each row's run of the flushed chunk. K11's plain
+version is K3's (`reduce_plain`): the same sums, added through the
+position-keyed rows. ADDMIN stays refused there, as in JAX.
+
 TPU-only parts of the JAX engine are not carried over: the two
 accumulator banks, the looped/unrolled split, the guard batching, the
 bf16 value stream, the 16-tile padding of the xperm call, the 3-D output
-view and the step compaction. PERM-C layouts come with their own port
-(ROADMAP queue 1, item 11).
+view, the step compaction and PERM-C's prefix differences.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import torch
 
 from ..config import EngineConfig, DEFAULT_CONFIG
 from ..io.planar_format import S, L, planes_to_triples
+from ..io.permc_format import permc_stream_rows
 from ..io.router_format import CHUNK, deposit_targets
 from ..semiring import Semiring, MaskType
 from . import _build
@@ -61,9 +71,14 @@ class PlanarArrays:
     tri: torch.Tensor            # (nsteps, dstep, 8) int32 a0|d0<<7|n<<14
     target: torch.Tensor         # (nsteps, dstep) int32
     c_code: torch.Tensor         # (nsteps*f,) int32
-    c_hi: torch.Tensor           # (nsteps*f*1024,) int8
-    c_lo: torch.Tensor           # (nsteps*f*1024,) int8
+    c_hi: torch.Tensor           # (nsteps*f*1024,) int8, by stream position
+    c_lo: torch.Tensor           # (nsteps*f*1024,) int8, by stream position
     xperm: torch.Tensor | None   # (ntiles*8*8*128,) int8; "bucket" only
+    # PERM-C only, (nsteps*f*1024,) int8 keyed by destination lane: the
+    # layout's c_hi, c_end and c_beg, which K11 reads
+    c_hi_dest: torch.Tensor | None = None
+    c_end: torch.Tensor | None = None
+    c_beg: torch.Tensor | None = None
 
 
 def run_words(tw: np.ndarray, nsteps: int, dstep: int) -> np.ndarray:
@@ -93,15 +108,18 @@ class PlanarSpMV(RouterSpMV):
                  config: EngineConfig = DEFAULT_CONFIG,
                  mask_type: MaskType = MaskType.NO_MASK):
         lay = layout
-        if getattr(lay, "c_end", None) is not None:
-            raise NotImplementedError(
-                "PERM-C planar layouts are not ported yet (ROADMAP queue 1, "
-                "item 11)")
         self._init_common(lay, semiring, config, mask_type)
+        self.permc = getattr(lay, "c_end", None) is not None
+        if self.permc and self.TROPICAL:
+            raise ValueError("PERM-C layouts serve MULADD/ANDOR only")
         self.chained = lay.a_sub is not None
         self.num_col_tiles = lay.num_col_tiles
         dev = self._dev
         target = deposit_targets(lay.rg, lay.dstep, lay.f)
+        c_hi, c_lo = (permc_stream_rows(lay) if self.permc
+                      else (lay.c_hi, lay.c_lo))
+        dest_keys = (dict(c_hi_dest=dev(lay.c_hi), c_end=dev(lay.c_end),
+                          c_beg=dev(lay.c_beg)) if self.permc else {})
         self.arrays = PlanarArrays(
             a_page=dev(lay.a_page), a_r=dev(lay.a_r),
             a_sub=dev(lay.a_sub) if self.chained else None,
@@ -109,10 +127,12 @@ class PlanarSpMV(RouterSpMV):
             rg=dev(lay.rg).reshape(lay.nsteps, lay.rstep, 2),
             tri=dev(piece_words(lay)).reshape(lay.nsteps, lay.dstep, S),
             target=dev(target).reshape(lay.nsteps, lay.dstep),
-            c_code=dev(lay.c_code), c_hi=dev(lay.c_hi), c_lo=dev(lay.c_lo),
-            xperm=None if self.chained else dev(lay.xperm))
+            c_code=dev(lay.c_code), c_hi=dev(c_hi), c_lo=dev(c_lo),
+            xperm=None if self.chained else dev(lay.xperm), **dest_keys)
         self.launches = {"fused": 0, "scatter": 0, "reduce": 0, "xperm": 0,
                          "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0}
+        if self.permc:
+            self.launches.update(permc_reduce=0, permc_reduce_pred=0)
 
     # ---- K5 xperm --------------------------------------------------------------
     def xperm(self, x: torch.Tensor,
@@ -180,6 +200,51 @@ class PlanarSpMV(RouterSpMV):
             self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
         self._raise_on(rc, "glt_planar_fused")
         self.launches["fused"] += 1
+        return y
+
+    # ---- K11 and K11p: PERM-C phase C ---------------------------------------------
+    def reduce(self, stream: torch.Tensor,
+               arrays: PlanarArrays | None = None) -> torch.Tensor:
+        """Phase C of the split branch: K3, or K11 on a PERM-C layout.
+        (nregions*region_rows,) rows."""
+        if not self.permc:
+            return super().reduce(stream, arrays)
+        return self._permc_reduce(stream, None, arrays)
+
+    def reduce_predicated(self, stream: torch.Tensor, live: torch.Tensor,
+                          arrays: PlanarArrays | None = None) -> torch.Tensor:
+        """Phase C over the live flush chunks only: K3p, or K11p on a
+        PERM-C layout."""
+        if not self.permc:
+            return super().reduce_predicated(stream, live, arrays)
+        return self._permc_reduce(stream, live, arrays)
+
+    def _permc_reduce(self, stream: torch.Tensor, live: torch.Tensor | None,
+                      arrays: PlanarArrays | None) -> torch.Tensor:
+        """K11, or K11p with `live`: each flushed chunk's row runs, read
+        through the destination-lane keys, added into y."""
+        a = self.arrays if arrays is None else arrays
+        stream = stream.reshape(-1)
+        nchunks = self.nsteps * self.f
+        if not self._check(stream, nchunks * CHUNK, "stream"):
+            return self.reduce_plain(stream, a, live)
+        y = torch.zeros(self.out_len, dtype=torch.float32,
+                        device=stream.device)
+        ptrs = [t.data_ptr() for t in (a.c_code, stream, a.c_hi_dest,
+                                       a.c_end, a.c_beg, y)]
+        cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
+        if live is None:
+            key = "permc_reduce"
+            rc = _build.library().glt_permc_reduce(
+                *ptrs, nchunks, self.region_rows, cuda_stream)
+        else:
+            self._check_flags(live, nchunks, "live")
+            key = "permc_reduce_pred"
+            rc = _build.library().glt_permc_reduce_pred(
+                *ptrs, live.data_ptr(), nchunks, self.region_rows,
+                cuda_stream)
+        self._raise_on(rc, f"glt_{key}")
+        self.launches[key] += 1
         return y
 
     # ---- SpMSpV: tile activity, K4p ---------------------------------------------

@@ -1,8 +1,9 @@
 """CUDA kernels K1 (fused), K2 (scatter), K3 (reduce) of the roll router,
 K4 (scatter, fused) and K5 (xperm) of the planar router, the chunked
 K6/K7 kernel, the tropical engine's K4 scatter in ADDMIN mode, K8 and K9
-(split) and K10 (window reduce), and the frontier-predicated forms K1p,
-K2p, K3p, K4p and K7p (SpMSpV, for empty, 1-vertex and 5% frontiers)
+(split) and K10 (window reduce), K11 (the PERM-C run-sum reduce) and K4
+fused on PERM-C layouts, and the frontier-predicated forms K1p, K2p,
+K3p, K4p, K7p and K11p (SpMSpV, for empty, 1-vertex and 5% frontiers)
 against their plain PyTorch versions and the unpredicated kernels, on the
 card.
 
@@ -12,8 +13,9 @@ torch and the port (no jax), so on a machine without jax it runs as
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tolerances: K2, K4 scatter and K5 are pure copies of products or of x and
-must equal their plain versions bit for bit. K1, K4 fused and K3 add with float atomics in an order that
-changes from run to run: ANDOR adds 0/1 counts and stays exact; MULADD is
+must equal their plain versions bit for bit. K1, K4 fused, K3 and K11 add
+with float atomics in an order that changes from run to run: ANDOR adds
+0/1 counts and stays exact; MULADD is
 held to max|y - y64| <= 1e-5 * max|y64| against the float64 oracle at
 these sizes (the smoke test's googleplus bound is 1e-4, for hub rows of up
 to ~1e5 terms). The chunked kernel: ANDOR and ADDMIN bit-equal to the
@@ -30,7 +32,8 @@ import torch
 from graphlily_tpu_torch import (ArithmeticSemiring, LogicalSemiring,
                                  TropicalSemiring, EngineConfig)
 from graphlily_tpu_torch.io import (rmat_csr, pack_router, pack_planar,
-                                    pack_csr_chunks, pack_tropical,
+                                    pack_permc, pack_csr_chunks,
+                                    pack_tropical,
                                     util_round_csr_matrix_dim)
 from graphlily_tpu_torch.module import SpMVModule
 from graphlily_tpu_torch.ops import (RouterSpMV, PlanarSpMV, ChunkedSpMV,
@@ -355,6 +358,78 @@ def test_planar_predicated_kernels_match_plain(name, semiring, deal, kind,
                       "K4p fused")
     _check_predicated(y3, eng.reduce_plain(s, None, live), full, semiring,
                       "K4p scatter -> K3p")
+
+
+PERMC_LAUNCHES = {"fused": 0, "scatter": 0, "reduce": 0, "xperm": 0,
+                  "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0,
+                  "permc_reduce": 0, "permc_reduce_pred": 0}
+
+
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("name", list(PLANAR_FIXTURES))
+def test_permc_kernels_match_plain(name, semiring, cuda):
+    """On PERM-C layouts: K4 scatter's stream bit-equal to its plain
+    version; K11 on it, K4 fused and the engine call, fused and split,
+    against the plain versions and the float64 oracle."""
+    build, region_rows = PLANAR_FIXTURES[name]
+    csr = build()
+    lay = pack_permc(csr, region_rows=region_rows)
+    eng = PlanarSpMV(lay, semiring, EngineConfig(device="cuda"))
+    assert eng.permc
+    rng = np.random.default_rng(7)
+    x = rng.random(lay.num_cols).astype(np.float32) + 0.5
+    x[rng.random(lay.num_cols) < 0.3] = 0.0
+    xt = torch.from_numpy(x).to(cuda)
+    stream = eng.scatter(xt)
+    assert torch.equal(stream.view(torch.int32),
+                       eng.scatter_plain(xt).view(torch.int32))
+    y11 = eng.reduce(stream)
+    y4 = eng.fused_spmv(xt)
+    torch.cuda.synchronize()
+    assert eng.launches == {**PERMC_LAUNCHES, "fused": 1, "scatter": 1,
+                            "permc_reduce": 1}
+    y11_plain, y4_plain = eng.reduce_plain(stream), eng.fused_plain(xt)
+    _check_predicated(y11, y11_plain, y4_plain, semiring, "K11")
+    _check_predicated(y4, y4_plain, y11_plain, semiring, "K4 fused PERM-C")
+    calls = {}
+    for fused in (True, False):
+        eng.fused = fused
+        calls[f"engine call fused={fused}"] = eng(xt)
+    _assert_close_to_oracle({"K4 scatter -> K11": y11, "K4 fused": y4,
+                             **calls}, _oracle(csr, semiring, x),
+                            lay.num_rows, semiring)
+
+
+@pytest.mark.parametrize("kind", FRONTIERS)
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("name", ["region_1024", "hub_columns"])
+def test_permc_predicated_kernels_match_plain(name, semiring, kind, cuda):
+    """On PERM-C layouts (region_1024: 20 regions): K4p fused and K4p
+    scatter -> K11p against their plain versions and the unpredicated
+    kernels; K4p's stream bit-equal to its plain version."""
+    build, region_rows = PLANAR_FIXTURES[name]
+    lay = pack_permc(build(), region_rows=region_rows)
+    eng = PlanarSpMV(lay, semiring, EngineConfig(device="cuda"))
+    xt = torch.from_numpy(_frontier(lay.num_cols, kind, 0.0)).to(cuda)
+    act = eng.activity(xt)
+    live = eng.live_chunks(act)
+    s = eng.scatter_predicated(xt, act)
+    assert torch.equal(s.view(torch.int32),
+                       eng.scatter_plain(xt, None, act).view(torch.int32))
+    y11 = eng.reduce_predicated(s, live)
+    y4 = eng.fused_predicated(xt, act)
+    full = eng.fused_spmv(xt)
+    torch.cuda.synchronize()
+    assert eng.launches == {**PERMC_LAUNCHES, "fused": 1, "fused_pred": 1,
+                            "scatter_pred": 1, "permc_reduce_pred": 1}
+    _check_predicated(y4, eng.fused_plain(xt, None, act), full, semiring,
+                      "K4p fused PERM-C")
+    _check_predicated(y11, eng.reduce_plain(s, None, live), full, semiring,
+                      "K4p scatter -> K11p")
+    if kind == "empty":
+        assert not y4.any() and not y11.any() and not s.any()
 
 
 @pytest.mark.parametrize("kind", FRONTIERS)

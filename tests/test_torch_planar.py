@@ -151,17 +151,31 @@ def test_wrappers_check_arguments():
         eng.xperm(torch.zeros(lay.num_cols))
     with pytest.raises(ValueError):
         PlanarSpMV(lay, tg.TropicalSemiring, CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tg.EngineConfig(planar_deal="permc")
+    assert tg.EngineConfig(planar_deal="permc").planar_deal == "permc"
     with pytest.raises(ValueError, match="planar_deal"):
         tg.EngineConfig(planar_deal="snake")
 
 
+def test_resolve_device_raises_without_a_card(monkeypatch):
+    """With no device named, the config resolves the card, and raises
+    where there is none instead of giving the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tg.EngineConfig().resolve_device()
+    assert tg.EngineConfig(device="cpu").resolve_device() == torch.device(
+        "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tg.EngineConfig().resolve_device() == torch.device("cuda")
+
+
 def test_port_imports_no_jax():
-    """The port, planar engine included, loads neither jax nor the JAX
-    package (the card's machine has no jax)."""
+    """The port, planar and PERM-C engines and the native loader included,
+    loads neither jax nor the JAX package (the card's machine has no
+    jax)."""
     code = ("import sys, graphlily_tpu_torch, graphlily_tpu_torch.apps, "
-            "graphlily_tpu_torch.ops.planar, graphlily_tpu_torch.module\n"
+            "graphlily_tpu_torch.ops.planar, graphlily_tpu_torch.module, "
+            "graphlily_tpu_torch.io.permc_format, "
+            "graphlily_tpu_torch.native\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'graphlily_tpu')))")
     root = Path(__file__).resolve().parent.parent
