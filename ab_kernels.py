@@ -1,0 +1,281 @@
+#!/usr/bin/env python3
+"""Old/new A/B of the chunked kernel (K6/K7, K7p) and K4 fused (K4p fused)
+on one GPU, and the sizes their device forms are cut to.
+
+Packs the full stand-ins once with this tree's packers (which are
+array-equal to every earlier tree's), builds each kernel's engine from the
+same layout with this tree's package and with the package of an older
+tree (`--parent DIR`: a directory holding that tree's
+graphlily_tpu_torch/, e.g. unpacked from `git archive`), checks each
+pair's outputs against each other, and times them in turns: old, new,
+new, old (CUDA events, min over 5 reps of 100 calls each). Rows:
+
+  chunked ADDMIN   googleplus SSSP's layout (self edges, degree-sorted)
+  chunked MULADD   googleplus, engine="pallas", degree-sorted
+  K7p ADDMIN       SSSP's SpMSpV layout (chunk_order="col") at empty,
+                   1-vertex and 5% frontiers
+  K4 fused         pokec PageRank's "free" layout, MULADD
+  K4 fused PERM-C  pokec BFS's PERM-C layout, MULADD
+  K4p fused        ANDOR engines on both layouts, empty, 1-vertex and 5%
+
+`--entries E ...` also times this tree's chunked kernel with other block
+sizes (real entries per block). Prints one line per row and writes them
+to chiprun_out/ab_kernels.json.
+
+`--variant DIR ...` adds more trees to the same turns (each variant
+before and after the new tree, as the parent).
+
+Usage: python3 ab_kernels.py --parent _archive_check/parent [--scale S]
+       [--variant DIR ...] [--entries 1024 2048 4096]
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def load_package(root: Path, name: str):
+    """The graphlily_tpu_torch package under `root`, imported as `name`,
+    with its `ops` subpackage (and `ops._build`) loaded."""
+    pkg = root / "graphlily_tpu_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    mod = sys.modules[name]
+    for sub in ("ops", "ops._build", "ops.chunked", "ops.planar"):
+        importlib.import_module(f"{name}.{sub}")
+    return mod
+
+
+def time_ms(torch, fn, iters: int = 100, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def capture_layouts(scale: float, planar: bool) -> dict:
+    """Pack every layout the A/B needs through the public apps, recording
+    what the modules' packers return."""
+    from graphlily_tpu_torch import EngineConfig, ArithmeticSemiring
+    from graphlily_tpu_torch.apps import SSSP, PageRank, BFS
+    from graphlily_tpu_torch.io import (iccad_standin, degree_sort_permutation,
+                                        symmetric_permute,
+                                        util_round_csr_matrix_dim)
+    from graphlily_tpu_torch.module import (SpMVModule, spmv_module,
+                                            spmspv_module)
+    got = []
+    saved = {}
+    for mod in (spmv_module, spmspv_module):
+        for name in ("pack_csr_chunks", "pack_planar"):
+            fn = getattr(mod, name)
+            saved[(mod, name)] = fn
+
+            def rec(*a, _fn=fn, **kw):
+                got.append(_fn(*a, **kw))
+                return got[-1]
+            setattr(mod, name, rec)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        g = iccad_standin("googleplus", scale=scale, seed=0)
+        sssp = SSSP(EngineConfig(sort_rows_by_degree=True, device="cuda"))
+        sssp.load_and_format_matrix(g)
+        out["sssp_row"], out["sssp_col"] = got[-2], got[-1]
+        gs = symmetric_permute(g, degree_sort_permutation(g))
+        util_round_csr_matrix_dim(gs, 1024, 1024)
+        m = SpMVModule(EngineConfig(engine="pallas", device="cuda"))
+        m.set_semiring(ArithmeticSemiring)
+        m.load_and_format_matrix(gs)
+        out["gp_muladd"] = got[-1]
+        log(f"googleplus layouts: {time.perf_counter() - t0:.1f} s")
+        if not planar:
+            return out
+        t0 = time.perf_counter()
+        p = iccad_standin("pokec", scale=scale, seed=0)
+        engine = "auto" if scale >= 1 else "planar"
+        pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine=engine))
+        pr.load_and_format_matrix(p, 0.9)
+        out["free"] = got[-1]
+        log(f"pokec free layout: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bfs = BFS(EngineConfig(sort_rows_by_degree=True, engine=engine,
+                               planar_deal="permc"))
+        bfs.load_and_format_matrix(p)
+        out["permc"] = got[-1]
+        log(f"pokec PERM-C layout: {time.perf_counter() - t0:.1f} s")
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return out
+
+
+def frontier(torch, ncols: int, kind: str, zero: float, rng):
+    k = {"empty": 0, "one": 1, "5pct": ncols // 20}[kind]
+    x = np.full(ncols, zero, np.float32)
+    x[rng.choice(ncols, size=k, replace=False)] = rng.integers(
+        1, 1001, k).astype(np.float32)
+    return torch.from_numpy(x).to("cuda")
+
+
+def same(torch, label: str, a, b, exact: bool) -> None:
+    if exact:
+        ok = torch.equal(a.view(torch.int32), b.view(torch.int32))
+    else:
+        ok = float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    if not ok:
+        raise AssertionError(f"{label}: old and new kernels disagree")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--variant", type=Path, nargs="*", default=[],
+                    help="more trees, timed in the same turns as --parent")
+    ap.add_argument("--unchecked", action="store_true",
+                    help="do not hold the variants' outputs to the new "
+                         "tree's (ablations that compute another y)")
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--entries", type=int, nargs="*", default=[])
+    ap.add_argument("--kernels", nargs="+", default=["chunked", "planar"],
+                    choices=["chunked", "planar"])
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("ab_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"card: {card}")
+    sys.path.insert(0, str(ROOT))
+    new = load_package(ROOT, "graphlily_tpu_torch")
+    others = {"old": load_package(args.parent.resolve(), "glt_parent")}
+    for i, path in enumerate(args.variant):
+        others[path.name] = load_package(path.resolve(), f"glt_variant{i}")
+    trees = {**others, "new": new}
+    for pkg in trees.values():
+        pkg.ops._build.library()
+    lays = capture_layouts(args.scale, "planar" in args.kernels)
+    order = [*others, "new", "new", *reversed(others)]
+    rng = np.random.default_rng(7)
+    rows = []
+
+    def engines(cls: str, lay, semiring: str) -> dict:
+        """One engine of `cls` per tree, on the same layout."""
+        return {k: getattr(pkg.ops, cls)(lay, getattr(pkg, semiring),
+                                         pkg.EngineConfig(device="cuda"))
+                for k, pkg in trees.items()}
+
+    def ab(label, engs, call, exact, extra=None):
+        """Outputs compared with the new tree's, then timed in turns."""
+        outs = {k: call(e) for k, e in engs.items()}
+        torch.cuda.synchronize()
+        for k in others if not args.unchecked else ["old"]:
+            same(torch, f"{label} ({k})", outs["new"], outs[k], exact)
+        ms = {k: [] for k in trees}
+        for k in order:
+            ms[k].append(time_ms(torch, lambda: call(engs[k])))
+        row = {"row": label, **{f"{k}_ms": v for k, v in ms.items()}}
+        if extra is not None:
+            row.update(extra(engs["new"]))
+        log(f"{label}: " + ", ".join(
+            f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms"
+            for k, v in ms.items()) + f" ({card})")
+        rows.append(row)
+
+    inf = float(new.FLOAT_INF)
+    def chunked():
+        """The chunked kernel: ADDMIN, MULADD, K7p."""
+        x = rng.integers(0, 1000, lays["sssp_row"].num_cols).astype(np.float32)
+        x[rng.random(len(x)) < 0.5] = inf
+        xmin = torch.from_numpy(x).to("cuda")
+        xmul = torch.from_numpy(np.random.default_rng(8).random(
+            lays["gp_muladd"].num_cols).astype(np.float32)).to("cuda")
+        blocks = lambda e: {"blocks": e.arrays.blocks.shape[0],
+                            "max_segments": e.arrays.max_segments,
+                            "device_MB": e.arrays.nbytes() / 1e6}
+        for key, semiring, xt, label in (
+                ("sssp_row", "TropicalSemiring", xmin,
+                 "ADDMIN (googleplus SSSP)"),
+                ("gp_muladd", "ArithmeticSemiring", xmul,
+                 "MULADD (googleplus)")):
+            engs = engines("ChunkedSpMV", lays[key], semiring)
+            ab(f"chunked {label}", engs, lambda e: e.spmv(xt),
+               semiring != "ArithmeticSemiring", blocks)
+            eng = engs["new"]
+            for entries in args.entries:
+                keep = eng.arrays
+                eng.arrays = new.ops.chunked.chunk_entries(
+                    lays[key], eng.device, entries)
+                ms = time_ms(torch, lambda: eng.spmv(xt))
+                rows.append({"row": f"chunked {label} E={entries}",
+                             "new_ms": [ms], **blocks(eng)})
+                log(f"chunked {label} with {entries} entries a block: "
+                    f"{ms:.4f} ms ({eng.arrays.blocks.shape[0]} blocks)")
+                eng.arrays = keep
+            del engs, eng
+        engs = engines("ChunkedSpMV", lays["sssp_col"], "TropicalSemiring")
+        for kind in ("empty", "one", "5pct"):
+            xf = frontier(torch, lays["sssp_col"].num_cols, kind, inf, rng)
+            act = engs["new"].tile_activity(xf)
+            ab(f"K7p ADDMIN {kind}", engs,
+               lambda e, xf=xf, act=act: e.spmv_predicated(xf, act), True)
+        del engs
+
+    def planar():
+        """K4 fused and K4p fused, "free" and PERM-C."""
+        for key, label in (("free", "K4 fused"), ("permc", "K4 fused PERM-C")):
+            lay = lays[key]
+            xt = torch.from_numpy(np.random.default_rng(9).random(
+                lay.num_cols).astype(np.float32)).to("cuda")
+            engs = engines("PlanarSpMV", lay, "ArithmeticSemiring")
+            ab(f"{label} MULADD (pokec)", engs, lambda e: e.fused_spmv(xt),
+               False, lambda e: {"a_col_MB": 2 * e.arrays.a_col.numel() / 1e6})
+            del engs
+            engs = engines("PlanarSpMV", lay, "LogicalSemiring")
+            for kind in ("empty", "one", "5pct"):
+                xf = frontier(torch, lay.num_cols, kind, 0.0, rng)
+                act = engs["new"].activity(xf)
+                ab(f"K4p{label[2:]} ANDOR {kind}", engs,
+                   lambda e, xf=xf, act=act: e.fused_predicated(xf, act), True)
+            del engs
+
+    for name in args.kernels:
+        {"chunked": chunked, "planar": planar}[name]()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "ab_kernels.json").write_text(json.dumps(
+        {"card": card, "scale": args.scale, "rows": rows}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

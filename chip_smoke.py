@@ -42,8 +42,9 @@ Phases, one or more lines each:
                ms/iter, BFS pull ms
   7. pokec     the graph, then PageRank and BFS formatted through
                EngineConfig(sort_rows_by_degree=True) (engine "auto" ->
-               planar, deal "free"), layout facts and pack seconds; a
-               third BFS packs the "bucket" deal on the stand-in at
+               planar, deal "free"), layout facts and pack seconds, K4
+               fused's tile columns (init seconds, bytes);
+               a third BFS packs the "bucket" deal on the stand-in at
                scale 0.25 (BUCKET_SCALE)
   8. apps      pokec PageRank.pull(0.9, 10) and BFS.pull(0, 11) fused and
                split, and BFS.pull(0, 11) on the bucket layout (K5)
@@ -54,7 +55,9 @@ Phases, one or more lines each:
   10. times    pokec, as phase 6, plus the planar engine call fused and
                split
   11. sssp     googleplus SSSP(EngineConfig(sort_rows_by_degree=True)):
-               engine "auto" -> chunked; layout facts and load seconds;
+               engine "auto" -> chunked; layout facts and load seconds,
+               the padding-free device form (init seconds, entries,
+               segments, blocks, bytes against the padded streams');
                pull(0, 7) bit-equal to the oracle
   12. chunked  the K6/K7 kernel against its plain version and the oracle:
                ADDMIN on the SSSP layout, MULADD and ANDOR on googleplus
@@ -62,8 +65,10 @@ Phases, one or more lines each:
                BFS.pull(0, 7) on googleplus at scale 0.1 (engine "auto" ->
                chunked)
   13. times    the chunked kernel and its plain version (ADDMIN, MULADD,
-               ANDOR), SSSP pull(0, 7) ms, the chunked MULADD engine call
-               against the roll router's fused call on the same graph
+               ANDOR; the MULADD instance has its own kernels-JSON record
+               beside torch.mv on the same graph), SSSP pull(0, 7) ms, the
+               chunked MULADD engine call against the roll router's fused
+               call on the same graph
   14. push     googleplus BFS (the phase 4-5 app; SpMSpV shares its roll
                engine): push(0, 7) and pull_push(0, 7, threshold=0.05),
                fused (K1p) and split (K2p -> K3p), bit-equal to the oracle
@@ -102,7 +107,8 @@ Phases, one or more lines each:
   21. permc    pokec BFS(EngineConfig(sort_rows_by_degree=True,
                planar_deal="permc")) on the full graph (engine "auto" ->
                planar; SpMSpV shares it): g++ build, C++ greedy, pack and
-               load seconds, layout facts (row runs, elements a run);
+               load seconds, layout facts (row runs, elements a run),
+               K4 fused's tile columns;
                pull(0, 11) fused and split, push(0, 11) fused and split,
                pull_push(0, 11, 0.05) bit-equal to the oracle; PageRank
                pull(0.9, 10) on PERM-C on the quarter graph of phase 7; a
@@ -165,6 +171,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K6_K7_chunked": (CHUNKED_SRC,
                       "graphlily_tpu/ops/spmv_pallas.py:294 (K7), "
                       "graphlily_tpu/ops/spmv_pallas.py:160 (K6)"),
+    # the same kernel's MULADD instance, beside cuSPARSE on the same graph
+    "K6_K7_chunked_muladd": (CHUNKED_SRC,
+                             "graphlily_tpu/ops/spmv_pallas.py:294 (K7), "
+                             "graphlily_tpu/ops/spmv_pallas.py:160 (K6)"),
     # the frontier-predicated forms (SpMSpV): the Pallas launchers with sm/na
     "K7p_chunked_pred": (CHUNKED_SRC, "graphlily_tpu/ops/spmv_pallas.py:335"),
     "K1p_router_fused_pred": (ROUTER_SRC,
@@ -592,6 +602,7 @@ def pokec(torch, args, rec: dict, card: str) -> None:
             f"flushes={int((w2 < 0).sum())} "
             f"stream_MB={eng.nsteps * eng.f * 4096 / 1e6:.1f} "
             f"y_MB={eng.out_len * 4 / 1e6:.2f} fused={eng.fused}")
+        log(f"phase 7 pokec {key} {planar_form(eng)}")
         apps[key] = app
     pr, bfs, bfsb = apps["pagerank"], apps["bfs"], apps["bfs_bucket"]
     pr_eng, bfs_eng = pr.SpMV_.engine, bfs.SpMV_.engine
@@ -756,11 +767,12 @@ def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
     log(f"phase 11 sssp layout (scale={args.scale}): relabel+self edges+pack"
         f"+init {secs:.1f} s nnz={eng.nnz} chunks={eng.num_chunks} "
         f"fill={eng.nnz / slots:.3f} col_tiles={eng.nct} "
-        f"window_groups={eng.out_len // 1024} streams r/rows/vals MB="
+        f"window_groups={eng.out_len // 1024} padded streams r/rows/vals MB="
         f"{slots / 1e6:.1f}/{slots / 1e6:.1f}/{4 * slots / 1e6:.1f} "
         f"windows_with_chunks={int((per_window > 0).sum())}/{len(per_window)}"
         f" median_window_chunks={int(np.median(per_window[per_window > 0]))}"
         f" window0_chunks={int(per_window[0])} top_row_nnz={top_row}")
+    log(f"phase 11 {chunked_form(eng, slots)}")
     reset((eng,))
     dist = sssp.pull(0, iters)
     torch.cuda.synchronize()
@@ -806,6 +818,10 @@ def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
         torch.cuda.synchronize()
         if exact:
             bit_equal(torch, "ANDOR chunked kernel", y, yp)
+        else:
+            rec["K6_K7_chunked_muladd"]["err"] = float((y - yp).abs().max())
+        log(f"phase 12 {semiring.name} chunked (googleplus): "
+            f"{chunked_form(e, e.num_chunks * 1024)}")
         for label, out in (("kernel", y), ("plain", yp),
                            ("engine call", m.apply(xt))):
             out = out.cpu().numpy()
@@ -831,6 +847,8 @@ def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
     rank = pr.pull(0.9, 10)
     dist = bfs.pull(0, iters)
     torch.cuda.synchronize()
+    rec["K6_K7_chunked_muladd"]["launches"] = pr.SpMV_.engine.launches[
+        "chunked"]
     log(f"phase 12 launches: pagerank {pr.SpMV_.engine.launches} bfs "
         f"{bfs.SpMV_.engine.launches}")
     if min(pr.SpMV_.engine.launches["chunked"],
@@ -860,6 +878,11 @@ def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
         log(f"phase 13 {name} chunked kernel (googleplus): {k_ms:.4f} ms "
             f"({gteps(e.nnz, k_ms)}) plain {p_ms:.4f} ms "
             f"({gteps(e.nnz, p_ms)})")
+        if name == "arithmetic":
+            r = rec["K6_K7_chunked_muladd"]
+            r["ms"], r["plain_ms"] = k_ms, p_ms
+            r["library_ms"] = gp["library_ms"]
+            set_bound(r, chunked_bytes(e, e.num_chunks, e.nnz), 2 * e.nnz)
     m, e, _ = engines["arithmetic"]
     roll, xt = gp["roll"], gp["x"]
     chunked_ms = time_ms(torch, lambda: m.apply(xt))
@@ -885,6 +908,36 @@ def chunked_bytes(eng, chunks: int, real: int,
     and y once."""
     tiles = eng.nct if x_tiles is None else x_tiles
     return 6 * real + 4 * chunks + 4 * 1024 * tiles + 4 * eng.out_len
+
+
+def chunked_form(eng, slots: int) -> str:
+    """The chunked kernel's padding-free device form, for the log: its
+    init seconds, sizes and device bytes against the padded streams'."""
+    import torch
+    a = eng.arrays
+    padded = (6 * slots + 4 * len(a.code)) / 1e6
+    # the kernel's atomics at most: one global per (block, row), one shared
+    # per run of equal rows in a thread's 8-entry vector
+    _, row = eng.plain_index()
+    sizes = (a.blocks[:, 1] - a.blocks[:, 0]).long()
+    blk = torch.repeat_interleave(torch.arange(len(sizes), device=row.device),
+                                  sizes, output_size=row.numel())
+    key = (blk << 40) | (torch.arange(row.numel(), device=row.device) // 8)
+    new = torch.ones_like(row, dtype=torch.bool)
+    new[1:] = (key[1:] != key[:-1]) | (row[1:] != row[:-1])
+    pairs = torch.unique((blk << 32) | row).numel()
+    return (f"padding-free form: init {eng.init_seconds:.2f} s, entries "
+            f"{a.r.numel()}, segments {a.seg_x.numel()}, blocks "
+            f"{a.blocks.shape[0]} (at most {a.max_segments} segments), "
+            f"device {a.nbytes() / 1e6:.1f} MB against {padded:.1f} MB of "
+            f"padded streams and codes; atomics at most {pairs} global, "
+            f"{int(new.sum())} shared")
+
+
+def planar_form(eng) -> str:
+    """K4 fused's derived tile columns, for the log: init seconds, MB."""
+    return (f"K4 fused tile columns: init {eng.init_seconds:.2f} s, device "
+            f"{2 * eng.arrays.a_col.numel() / 1e6:.1f} MB")
 
 
 def frontier_x(torch, ncols: int, kind: str, zero: float, rng):
@@ -1113,7 +1166,7 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
         bit_equal(torch, f"K7p {kind} vs unpredicated", y, full)
         ms = time_ms(torch, lambda: seng.spmv_predicated(xt, act))
         kept = seng.active_chunks(act)
-        real = int((seng.arrays.vals.view(-1, 1024)[kept] != inf).sum())
+        real = int(act.bool()[seng.plain_index()[0] // 1024].sum())
         nbytes = chunked_bytes(seng, int(kept.sum()), real, int(act.sum()))
         log(f"phase 17 googleplus chunked ADDMIN {kind}: active tiles "
             f"{int(act.sum())}/{seng.nct}, batches "
@@ -1498,12 +1551,13 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
         f"flushes={int((w2 < 0).sum())} "
         f"stream_MB={eng.nsteps * eng.f * 4096 / 1e6:.1f} row_runs={runs} "
         f"elements_per_run={eng.nnz / max(runs, 1):.3f} fused={eng.fused}")
+    log(f"phase 21 pokec bfs PERM-C {planar_form(eng)}")
     t0 = time.perf_counter()
     muladd = PlanarSpMV(layouts[-1], ArithmeticSemiring,
                         EngineConfig(device="cuda"))
     del layouts[:]
     log(f"phase 21 MULADD engine on the same layout: init "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; {planar_form(muladd)}")
     t0 = time.perf_counter()
     pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine="planar",
                                planar_deal="permc"))

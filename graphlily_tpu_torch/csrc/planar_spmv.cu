@@ -42,7 +42,9 @@
 // into a zeroed stream (no atomics, bit-equal to its plain version), and
 // K4 fused adds each product straight into y with float atomics, summed
 // first over runs of equal rows within the warp (glt::warp_add_rows; a
-// piece's lanes are row-sorted within each sublane).
+// piece's lanes are row-sorted within each sublane). K4 fused gathers
+// through one int16 tile column per A slot, derived at engine init
+// (ops/planar.tile_columns), instead of the chain a_r -> a_sub -> x.
 //
 // Predication (kPred). A planar A-chunk mixes the 8 pages of its column
 // tile, so activity is per 1024-column tile (act[a_page[c]],
@@ -179,28 +181,37 @@ __global__ void __launch_bounds__(kThreads) planar_scatter_kernel(
 // ---------------------------------------------------------------------------
 // K4 fused. Replaces _planar_fused_call with the bodies
 // _make_planar_kernel / _make_planar_kernel_looped(fuse=True) and the
-// inline one-hot reduce _onehot_place (router_pallas.py:1459, :981, :1190,
-// :88): K4 scatter's pieces, but each product goes straight to its row of
-// y, so the flush stream never reaches device memory.
-// Bound on the H100: K4 scatter's dependent-load chain, then the y atomics
-// (y in L2: 6.6 MB on the pokec stand-in); about 7 B of streams per nnz
-// (K4 scatter's reads plus int8 c_hi and c_lo at the element's stream
-// position). Measured on the pokec stand-in (PERF.md): 0.346 ms, 0.274 ms
-// with the atomics taken out.
-// Design: K4 scatter's warp-per-piece walk; hi/lo are read at
-// target*1024 + s*128 + d0 + i; warp_add_rows folds each run of equal
-// rows among the warp's lanes into one atomic. The pass bound is uniform
-// across the warp, so every lane reaches the shuffles.
-template <Op kOp, bool kChained, bool kPred>
+// inline one-hot reduce _onehot_place (router_pallas.py:1459 -> pallas_call
+// :1509, :981, :1190, :88): K4 scatter's pieces, but each product goes
+// straight to its row of y, so the flush stream never reaches device
+// memory.
+// Bound on the H100: about 7 B of streams per nnz (fp32 value, int16 tile
+// column, int8 c_hi and c_lo at the element's stream position) plus 32 B
+// of triple words per piece; x (6.5 MB on the pokec stand-in) and y (6.6
+// MB, the atomics) stay in the 50 MB L2.
+// Design: one warp per deposit piece, in stream order, as K4 scatter: the
+// pieces of one step read neighbouring runs of the same A-chunks, so the
+// A streams are read close to once from device memory. The gather reads
+// a_col[c, s, l] = a_sub[c, s, a_r]*128 + a_r ("free", PERM-C) or
+// s*128 + a_r ("bucket", over K5's x2), one 2-byte load before x instead
+// of two dependent byte loads. hi/lo are read at target*1024 + s*128 +
+// d0 + i; warp_add_rows folds each run of equal rows among the warp's
+// lanes into one global atomic. The pass bound is uniform across the
+// warp, so every lane reaches the shuffles.
+// Measured against its redesign for this card, pieces grouped by
+// destination region with a shared-memory tile of the region's rows
+// (PERF.md, PR 7): the grouped walk reads the A streams in scattered
+// order and lost even with its shared atomics taken out, and Hopper adds
+// floats into shared memory by a compare-and-swap loop.
+template <Op kOp, bool kPred>
 __global__ void __launch_bounds__(kThreads) planar_fused_kernel(
-    const int* __restrict__ a_page, const int8_t* __restrict__ a_r,
-    const int8_t* __restrict__ a_sub, const float* __restrict__ a_vals,
-    const int2* __restrict__ rg, const int* __restrict__ tri,
-    const int* __restrict__ target, const int* __restrict__ c_code,
-    const int8_t* __restrict__ c_hi, const int8_t* __restrict__ c_lo,
-    const float* __restrict__ x, float* __restrict__ y,
-    const uint8_t* __restrict__ act, int cb, int rstep, int dstep,
-    int region_rows, long long npieces) {
+    const int* __restrict__ a_page, const int16_t* __restrict__ a_col,
+    const float* __restrict__ a_vals, const int2* __restrict__ rg,
+    const int* __restrict__ tri, const int* __restrict__ target,
+    const int* __restrict__ c_code, const int8_t* __restrict__ c_hi,
+    const int8_t* __restrict__ c_lo, const float* __restrict__ x,
+    float* __restrict__ y, const uint8_t* __restrict__ act, int cb,
+    int rstep, int dstep, int region_rows, long long npieces) {
   const unsigned lane = threadIdx.x & 31;
   const long long gp = static_cast<long long>(blockIdx.x) * kWarps
       + (threadIdx.x >> 5);
@@ -217,6 +228,7 @@ __global__ void __launch_bounds__(kThreads) planar_fused_kernel(
   if (code < 0) return;                          // whole warp
   const Runs r = load_runs(tri + (t * dstep + (w.x >> 8)) * kSub, lane);
   const long long chunk = c * kChunk;
+  const float* xs = x + static_cast<long long>(page) * kChunk;
   float* yr = y + static_cast<long long>(code) * region_rows;
   const int8_t* hi = c_hi + tgt * kChunk;
   const int8_t* lo = c_lo + tgt * kChunk;
@@ -227,8 +239,8 @@ __global__ void __launch_bounds__(kThreads) planar_fused_kernel(
     float g = 0.f;
     int row = -1;
     if (e < n) {
-      g = gathered<kOp, kChained>(a_r, a_sub, a_vals, x, chunk, page, el.s,
-                                  el.src);
+      const long long src = chunk + el.s * kLanes + el.src;
+      g = product<kOp>(a_vals[src], __ldg(xs + a_col[src]));
       row = static_cast<int>(hi[el.dst]) * kLanes
           + static_cast<int>(lo[el.dst]);
     }
@@ -286,23 +298,22 @@ void launch_scatter(const void* a_page, const void* a_r, const void* a_sub,
           static_cast<const uint8_t*>(act), cb, rstep, dstep, npieces);
 }
 
-template <Op kOp, bool kChained, bool kPred>
-void launch_fused(const void* a_page, const void* a_r, const void* a_sub,
-                  const void* a_vals, const void* rg, const void* tri,
-                  const void* target, const void* c_code, const void* c_hi,
-                  const void* c_lo, const void* x, void* y, const void* act,
-                  long long npieces, int cb, int rstep, int dstep,
-                  int region_rows, cudaStream_t st) {
-  planar_fused_kernel<kOp, kChained, kPred>
+template <Op kOp, bool kPred>
+void launch_fused(const void* a_page, const void* a_col, const void* a_vals,
+                  const void* rg, const void* tri, const void* target,
+                  const void* c_code, const void* c_hi, const void* c_lo,
+                  const void* x, void* y, const void* act, long long npieces,
+                  int cb, int rstep, int dstep, int region_rows,
+                  cudaStream_t st) {
+  planar_fused_kernel<kOp, kPred>
       <<<blocks_for(npieces, kWarps), kThreads, 0, st>>>(
-          static_cast<const int*>(a_page), static_cast<const int8_t*>(a_r),
-          static_cast<const int8_t*>(a_sub), static_cast<const float*>(a_vals),
-          static_cast<const int2*>(rg), static_cast<const int*>(tri),
-          static_cast<const int*>(target), static_cast<const int*>(c_code),
-          static_cast<const int8_t*>(c_hi), static_cast<const int8_t*>(c_lo),
-          static_cast<const float*>(x), static_cast<float*>(y),
-          static_cast<const uint8_t*>(act), cb, rstep, dstep, region_rows,
-          npieces);
+          static_cast<const int*>(a_page), static_cast<const int16_t*>(a_col),
+          static_cast<const float*>(a_vals), static_cast<const int2*>(rg),
+          static_cast<const int*>(tri), static_cast<const int*>(target),
+          static_cast<const int*>(c_code), static_cast<const int8_t*>(c_hi),
+          static_cast<const int8_t*>(c_lo), static_cast<const float*>(x),
+          static_cast<float*>(y), static_cast<const uint8_t*>(act), cb, rstep,
+          dstep, region_rows, npieces);
 }
 
 template <Op kOp, bool kPred>
@@ -333,25 +344,21 @@ int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
 
 // and_or: 0 MULADD, 1 ANDOR; there is no ADDMIN instance.
 template <bool kPred>
-int run_fused(const void* a_page, const void* a_r, const void* a_sub,
-              const void* a_vals, const void* rg, const void* tri,
-              const void* target, const void* c_code, const void* c_hi,
-              const void* c_lo, const void* x, void* y, const void* act,
-              int nsteps, int cb, int rstep, int dstep, int region_rows,
-              int and_or, void* cuda_stream) {
+int run_fused(const void* a_page, const void* a_col, const void* a_vals,
+              const void* rg, const void* tri, const void* target,
+              const void* c_code, const void* c_hi, const void* c_lo,
+              const void* x, void* y, const void* act, int nsteps, int cb,
+              int rstep, int dstep, int region_rows, int and_or,
+              void* cuda_stream) {
   if (and_or < 0 || and_or > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long npieces = static_cast<long long>(nsteps) * dstep;
   if (npieces > 0) {
     auto st = static_cast<cudaStream_t>(cuda_stream);
-    const bool chained = a_sub != nullptr;
-    auto launch = and_or
-        ? (chained ? launch_fused<Op::kAndOr, true, kPred>
-                   : launch_fused<Op::kAndOr, false, kPred>)
-        : (chained ? launch_fused<Op::kMulAdd, true, kPred>
-                   : launch_fused<Op::kMulAdd, false, kPred>);
-    launch(a_page, a_r, a_sub, a_vals, rg, tri, target, c_code, c_hi, c_lo,
-           x, y, act, npieces, cb, rstep, dstep, region_rows, st);
+    auto launch = and_or ? launch_fused<Op::kAndOr, kPred>
+                         : launch_fused<Op::kMulAdd, kPred>;
+    launch(a_page, a_col, a_vals, rg, tri, target, c_code, c_hi, c_lo, x, y,
+           act, npieces, cb, rstep, dstep, region_rows, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -361,8 +368,9 @@ int run_fused(const void* a_page, const void* a_r, const void* a_sub,
 // ---------------------------------------------------------------------------
 // C entry points. Each launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (0 = launched).
-// Outputs of K4 must be zeroed by the caller. a_sub == nullptr selects the
-// "bucket" gather (x is then K5's x2); otherwise the chained "free" gather.
+// Outputs of K4 must be zeroed by the caller. For K4 scatter a_sub ==
+// nullptr selects the "bucket" gather (x is then K5's x2); otherwise the
+// chained "free" gather.
 // K4 scatter's `op` is semiring.OpType (0 MULADD, 1 ANDOR: a float stream;
 // 2 ADDMIN: an int32 stream of encodings); K4 fused takes and_or (0 or 1).
 
@@ -387,26 +395,28 @@ extern "C" int glt_planar_scatter_pred(
                            cuda_stream);
 }
 
+// K4 fused: a_col is the (nsteps*cb*1024,) int16 tile column of every A
+// slot (ops/planar.tile_columns); x is K5's x2 for "bucket" layouts.
 extern "C" int glt_planar_fused(
-    const void* a_page, const void* a_r, const void* a_sub,
-    const void* a_vals, const void* rg, const void* tri, const void* target,
-    const void* c_code, const void* c_hi, const void* c_lo, const void* x,
-    void* y, int nsteps, int cb, int rstep, int dstep, int region_rows,
-    int and_or, void* cuda_stream) {
-  return run_fused<false>(a_page, a_r, a_sub, a_vals, rg, tri, target, c_code,
+    const void* a_page, const void* a_col, const void* a_vals,
+    const void* rg, const void* tri, const void* target, const void* c_code,
+    const void* c_hi, const void* c_lo, const void* x, void* y, int nsteps,
+    int cb, int rstep, int dstep, int region_rows, int and_or,
+    void* cuda_stream) {
+  return run_fused<false>(a_page, a_col, a_vals, rg, tri, target, c_code,
                           c_hi, c_lo, x, y, nullptr, nsteps, cb, rstep, dstep,
                           region_rows, and_or, cuda_stream);
 }
 
 // K4p fused: act is the (num_col_tiles,) uint8 tile activity.
 extern "C" int glt_planar_fused_pred(
-    const void* a_page, const void* a_r, const void* a_sub,
-    const void* a_vals, const void* rg, const void* tri, const void* target,
-    const void* c_code, const void* c_hi, const void* c_lo, const void* x,
-    void* y, const void* act, int nsteps, int cb, int rstep, int dstep,
+    const void* a_page, const void* a_col, const void* a_vals,
+    const void* rg, const void* tri, const void* target, const void* c_code,
+    const void* c_hi, const void* c_lo, const void* x, void* y,
+    const void* act, int nsteps, int cb, int rstep, int dstep,
     int region_rows, int and_or, void* cuda_stream) {
-  return run_fused<true>(a_page, a_r, a_sub, a_vals, rg, tri, target, c_code,
-                         c_hi, c_lo, x, y, act, nsteps, cb, rstep, dstep,
+  return run_fused<true>(a_page, a_col, a_vals, rg, tri, target, c_code, c_hi,
+                         c_lo, x, y, act, nsteps, cb, rstep, dstep,
                          region_rows, and_or, cuda_stream);
 }
 

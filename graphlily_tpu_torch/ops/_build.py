@@ -35,8 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaGetLastError().
 SIGNATURES = {
     # chunked_spmv.cu: K6 and K7 in one kernel; K7p
-    "glt_chunked_spmv": [_P] * 6 + [_I] * 3 + [_F, _P],
-    "glt_chunked_spmv_predicated": [_P] * 7 + [_I] * 3 + [_F, _P],
+    "glt_chunked_spmv": [_P] * 9 + [_I] * 3 + [_F, _P],
+    "glt_chunked_spmv_predicated": [_P] * 10 + [_I] * 3 + [_F, _P],
     # router_spmv.cu: K1, K2, K3 and K1p, K2p, K3p
     "glt_router_scatter": [_P] * 8 + [_I] * 5 + [_P],
     "glt_router_scatter_pred": [_P] * 9 + [_I] * 5 + [_P],
@@ -48,8 +48,8 @@ SIGNATURES = {
     # (K4 scatter's int is the semiring op: 2 is the tropical ADDMIN)
     "glt_planar_scatter": [_P] * 9 + [_I] * 5 + [_P],
     "glt_planar_scatter_pred": [_P] * 10 + [_I] * 5 + [_P],
-    "glt_planar_fused": [_P] * 12 + [_I] * 6 + [_P],
-    "glt_planar_fused_pred": [_P] * 13 + [_I] * 6 + [_P],
+    "glt_planar_fused": [_P] * 11 + [_I] * 6 + [_P],
+    "glt_planar_fused_pred": [_P] * 12 + [_I] * 6 + [_P],
     "glt_planar_xperm": [_P] * 3 + [_I] + [_P],
     # permc_spmv.cu: K11 (PERM-C run-sum reduce) and K11p
     "glt_permc_reduce": [_P] * 6 + [_I] * 2 + [_P],

@@ -15,9 +15,12 @@ elements. Kernels, in csrc/planar_spmv.cu unless named otherwise:
               ("free" layouts gather through a_sub and need no re-layout).
 
 The deposits read each piece's 8 triple-run words instead of its 1 KB
-plane (io/planar_format.planes_to_triples; 32 B per piece). `__call__`
-is RouterSpMV's: K4 fused or K4 scatter -> K3 by the same fused rule
-(ops/router.FUSED_MAX_Y_BYTES), then the ANDOR 0/1 clamp and the SpMV
+plane (io/planar_format.planes_to_triples; 32 B per piece). K4 fused
+and K4p fused gather through one int16 tile column per A slot, derived
+once at init (`tile_columns`, `PlanarArrays.a_col`): the chained
+a_r -> a_sub gather resolved once.
+`__call__` is RouterSpMV's: K4 fused or K4 scatter -> K3 by the same fused
+rule (ops/router.FUSED_MAX_Y_BYTES), then the ANDOR 0/1 clamp and the SpMV
 mask, as the JAX engine does (router_pallas.py:1757-1782). Each wrapper
 runs its kernel on CUDA tensors and its plain PyTorch version (`*_plain`)
 only when given CPU tensors; each launch adds one to `launches[name]`.
@@ -45,6 +48,7 @@ view, the step compaction and PERM-C's prefix differences.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -74,11 +78,27 @@ class PlanarArrays:
     c_hi: torch.Tensor           # (nsteps*f*1024,) int8, by stream position
     c_lo: torch.Tensor           # (nsteps*f*1024,) int8, by stream position
     xperm: torch.Tensor | None   # (ntiles*8*8*128,) int8; "bucket" only
+    # (nsteps*cb*1024,) int16, K4 fused's gather index (tile_columns); None
+    # on the tropical engine's pass 1, which never fuses
+    a_col: torch.Tensor | None = None
     # PERM-C only, (nsteps*f*1024,) int8 keyed by destination lane: the
     # layout's c_hi, c_end and c_beg, which K11 reads
     c_hi_dest: torch.Tensor | None = None
     c_end: torch.Tensor | None = None
     c_beg: torch.Tensor | None = None
+
+
+def tile_columns(a_r: torch.Tensor,
+                 a_sub: torch.Tensor | None) -> torch.Tensor:
+    """K4 fused's gather index, int16 per A slot (c, s, l): the x column
+    within the chunk's tile, a_sub[c, s, r]*128 + r with r = a_r[c, s, l]
+    ("free" and PERM-C), or s*128 + r ("bucket", over K5's x2). Torch ops
+    on the arrays' device."""
+    slot = torch.arange(a_r.numel(), device=a_r.device)
+    r = a_r.long()
+    sub = (a_sub[slot - slot % L + r].long() if a_sub is not None
+           else torch.div(slot, L, rounding_mode="floor") % S)
+    return (sub * L + r).to(torch.int16)
 
 
 def run_words(tw: np.ndarray, nsteps: int, dstep: int) -> np.ndarray:
@@ -133,6 +153,14 @@ class PlanarSpMV(RouterSpMV):
                          "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0}
         if self.permc:
             self.launches.update(permc_reduce=0, permc_reduce_pred=0)
+        self.init_seconds = 0.0        # of the derived a_col
+        if not self.TROPICAL:          # the tropical engine never fuses
+            t0 = time.perf_counter()
+            a = self.arrays
+            a.a_col = tile_columns(a.a_r, a.a_sub)
+            if a.a_r.is_cuda:
+                torch.cuda.synchronize(a.a_r.device)
+            self.init_seconds = time.perf_counter() - t0
 
     # ---- K5 xperm --------------------------------------------------------------
     def xperm(self, x: torch.Tensor,
@@ -187,19 +215,31 @@ class PlanarSpMV(RouterSpMV):
                    arrays: PlanarArrays | None = None) -> torch.Tensor:
         """Gather, deposits and reduce in one kernel:
         (nregions*region_rows,) rows."""
+        return self._fused(x, None, arrays)
+
+    def _fused(self, x: torch.Tensor, act: torch.Tensor | None,
+               arrays: PlanarArrays | None) -> torch.Tensor:
+        """K4 fused, or K4p fused with `act`."""
         a = self.arrays if arrays is None else arrays
         x = x.reshape(-1)
         if not self._check(x, self.num_cols, "x"):
-            return self.fused_plain(x, a)
+            return self.fused_plain(x, a, act)
+        if act is not None:
+            self._check_flags(act, self.num_act, "act")
         xs = self._gather_source(x, a)
         y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
-        rc = _build.library().glt_planar_fused(
-            *self._stream_ptrs(a), a.c_code.data_ptr(), a.c_hi.data_ptr(),
-            a.c_lo.data_ptr(), xs.data_ptr(), y.data_ptr(),
-            self.nsteps, self.cb, self.rstep, self.dstep, self.region_rows,
-            self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_planar_fused")
-        self.launches["fused"] += 1
+        ptrs = [t.data_ptr() for t in (a.a_page, a.a_col, a.a_vals, a.rg,
+                                       a.tri, a.target, a.c_code, a.c_hi,
+                                       a.c_lo, xs, y)]
+        key = "fused" if act is None else "fused_pred"
+        if act is not None:
+            ptrs.append(act.data_ptr())
+        rc = getattr(_build.library(), f"glt_planar_{key}")(
+            *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
+            self.region_rows, self._and_or,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        self._raise_on(rc, f"glt_planar_{key}")
+        self.launches[key] += 1
         return y
 
     # ---- K11 and K11p: PERM-C phase C ---------------------------------------------
@@ -283,21 +323,7 @@ class PlanarSpMV(RouterSpMV):
                          arrays: PlanarArrays | None = None) -> torch.Tensor:
         """K4 fused over the pieces of active tiles only:
         (nregions*region_rows,) rows."""
-        a = self.arrays if arrays is None else arrays
-        x = x.reshape(-1)
-        if not self._check(x, self.num_cols, "x"):
-            return self.fused_plain(x, a, act)
-        self._check_flags(act, self.num_act, "act")
-        xs = self._gather_source(x, a)
-        y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
-        rc = _build.library().glt_planar_fused_pred(
-            *self._stream_ptrs(a), a.c_code.data_ptr(), a.c_hi.data_ptr(),
-            a.c_lo.data_ptr(), xs.data_ptr(), y.data_ptr(), act.data_ptr(),
-            self.nsteps, self.cb, self.rstep, self.dstep, self.region_rows,
-            self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_planar_fused_pred")
-        self.launches["fused_pred"] += 1
-        return y
+        return self._fused(x, act, arrays)
 
     @staticmethod
     def _stream_ptrs(a: PlanarArrays) -> list:
@@ -348,6 +374,29 @@ class PlanarSpMV(RouterSpMV):
         if own:
             self._plain_index = idx
         return idx
+
+    def fused_plain(self, x: torch.Tensor, a: PlanarArrays | None = None,
+                    act: torch.Tensor | None = None) -> torch.Tensor:
+        """K4 fused's plain version: (K5's x2 for "bucket" layouts) gathered
+        through a_col, the products copied to their flush-stream positions
+        and added into y by K3's plain version, so it equals K4 scatter ->
+        K3's plain versions bit for bit. With `act` (per tile), K4p
+        fused's: active tiles' pieces only."""
+        arr = self.arrays if a is None else a
+        x = x.reshape(-1)
+        xs = x if self.chained else self.xperm_plain(x, arr)
+        idx = self.plain_index(a)
+        src, dst, unit = idx["src"], idx["dst"], idx["unit"]
+        if act is not None:
+            keep = act.bool()[unit]
+            src, dst, unit = src[keep], dst[keep], unit[keep]
+        vals = arr.a_vals[src]
+        xg = xs[unit * CHUNK + arr.a_col[src].long()]
+        g = (torch.logical_and(vals != 0, xg != 0).to(torch.float32)
+             if self._and_or else vals * xg)
+        stream = torch.zeros(self.nsteps * self.f * CHUNK,
+                             dtype=torch.float32, device=x.device)
+        return self.reduce_plain(stream.index_copy_(0, dst, g), a)
 
     def xperm_plain(self, x: torch.Tensor,
                     a: PlanarArrays | None = None) -> torch.Tensor:

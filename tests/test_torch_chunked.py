@@ -28,6 +28,7 @@ from graphlily_tpu_torch.io import (pack_csr_chunks, add_self_edges_for_sssp,
                                     rmat_csr, uniform_csr)
 from graphlily_tpu_torch.io.matrix import csr_from_coo
 from graphlily_tpu_torch.ops import ChunkedSpMV
+from graphlily_tpu_torch.ops.chunked import entry_slots
 
 from test_torch_fixtures import CHUNKED_FIXTURES
 from test_torch_io import assert_same_csr, to_jax
@@ -139,16 +140,24 @@ def test_add_self_edges_for_sssp_matches_jax(build):
 
 @pytest.mark.parametrize("fixture", list(CHUNKED_FIXTURES))
 def test_every_nnz_lands_at_its_el_slot(fixture):
-    """The plain version's (col, row) of each nnz's slot is the nnz's own,
-    and its value is the nnz's value."""
+    """The plain version's (col, row) of the entry holding each nnz's slot
+    is the nnz's own, and its value is the nnz's value."""
     csr, lay = _pack(fixture, "arithmetic")
     eng = ChunkedSpMV(lay, tg.ArithmeticSemiring, CPU)
     col, row = (t.numpy() for t in eng.plain_index())
+    slots = entry_slots(torch.from_numpy(lay.code),
+                        torch.from_numpy(lay.el_slot)).numpy()
+    entry = np.full(lay.num_chunks * 1024, -1, np.int64)
+    entry[slots] = np.arange(len(slots))
+    e = entry[lay.el_slot]
     nnz = csr.nnz
-    np.testing.assert_array_equal(col[lay.el_slot],
+    assert (e >= 0).all()
+    np.testing.assert_array_equal(col[e],
                                   csr.adj_indices[:nnz].astype(np.int64))
-    np.testing.assert_array_equal(row[lay.el_slot], csr.row_ids())
+    np.testing.assert_array_equal(row[e], csr.row_ids())
     np.testing.assert_array_equal(lay.vals.reshape(-1)[lay.el_slot],
+                                  csr.adj_data[:nnz])
+    np.testing.assert_array_equal(eng.arrays.vals.numpy()[e],
                                   csr.adj_data[:nnz])
     assert len(np.unique(lay.el_slot)) == nnz
 

@@ -5,7 +5,9 @@ K6/K7 kernel, the tropical engine's K4 scatter in ADDMIN mode, K8 and K9
 fused on PERM-C layouts, and the frontier-predicated forms K1p, K2p,
 K3p, K4p, K7p and K11p (SpMSpV, for empty, 1-vertex and 5% frontiers)
 against their plain PyTorch versions and the unpredicated kernels, on the
-card.
+card. The chunked kernel also runs on small block tables that stress its
+shared tile (a hub window over many blocks, empty window groups), and K4
+fused on PERM-C, "free" and "bucket" layouts of the hub-column graph.
 
 Needs a CUDA card and nvcc; every test skips without a card. Imports only
 torch and the port (no jax), so on a machine without jax it runs as
@@ -38,6 +40,7 @@ from graphlily_tpu_torch.io import (rmat_csr, pack_router, pack_planar,
 from graphlily_tpu_torch.module import SpMVModule
 from graphlily_tpu_torch.ops import (RouterSpMV, PlanarSpMV, ChunkedSpMV,
                                      TropicalSpMV)
+from graphlily_tpu_torch.ops.chunked import chunk_entries
 
 from test_torch_fixtures import (FIXTURES, PLANAR_FIXTURES, CHUNKED_FIXTURES,
                                  TROPICAL_FIXTURES, hub_window_csr)
@@ -458,6 +461,84 @@ def test_chunked_predicated_kernel_matches_plain(name, semiring, kind, cuda):
             assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
     if kind == "empty":
         assert not act.any() and bool((y == semiring.zero).all())
+
+
+# ---- the chunked kernel's shared tile; K4 fused's tile columns -----------
+@pytest.mark.parametrize("kind", ["full", *FRONTIERS])
+@pytest.mark.parametrize("semiring", CHUNKED_SEMIRINGS, ids=lambda s: s.name)
+@pytest.mark.parametrize("name", ["hub_window", "hub_rows", "empty_windows"])
+def test_chunked_tile_blocks_match_plain(name, semiring, kind, cuda):
+    """The chunked kernel ("full") and K7p on a table of 256-entry blocks:
+    the hub window's 4,096 chunks spread over thousands of blocks of one
+    window group, the hub row's runs cross block boundaries, and empty
+    window groups get no block. ANDOR and ADDMIN bit-equal to the plain
+    version (and K7p to the unpredicated kernel), MULADD within 1e-4 of
+    max|y|."""
+    lay = pack_csr_chunks(CHUNKED_CASES[name](), pad_val=semiring.zero,
+                          chunk_order="col")
+    eng = ChunkedSpMV(lay, semiring, EngineConfig(device="cuda"))
+    eng.arrays = chunk_entries(lay, cuda, block_entries=256)
+    a = eng.arrays
+    group = (a.seg_y.long()[a.blocks[:, 2].long()] // 1024).cpu()
+    if name == "hub_window":
+        assert int((group == 0).sum()) >= 2000
+    if name == "empty_windows":
+        assert set(group.tolist()) == {0} and eng.out_len == 4096
+    if kind == "full":
+        xt = torch.from_numpy(_chunked_x(lay, semiring)).to(cuda)
+        y, refs = eng.spmv(xt), (eng.spmv_plain(xt),)
+    else:
+        xt = torch.from_numpy(_frontier(lay.num_cols, kind,
+                                        semiring.zero)).to(cuda)
+        act = eng.tile_activity(xt)
+        y = eng.spmv_predicated(xt, act)
+        refs = (eng.spmv_predicated_plain(xt, act), eng.spmv(xt))
+    torch.cuda.synchronize()
+    for ref in refs:
+        if semiring is ArithmeticSemiring:
+            scale = max(float(ref.abs().max()), 1e-30)
+            assert float((y - ref).abs().max()) <= 1e-4 * scale
+        else:
+            assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
+
+
+def _planar_layout(name, deal):
+    build, region_rows = PLANAR_FIXTURES[name]
+    if deal == "permc":
+        return pack_permc(build(), region_rows=region_rows)
+    return pack_planar(build(), region_rows=region_rows, deal=deal)
+
+
+@pytest.mark.parametrize("kind", ["full", *FRONTIERS])
+@pytest.mark.parametrize("deal", ["free", "bucket", "permc"])
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("name", ["region_4096", "hub_columns"])
+def test_planar_fused_tile_columns_match_plain(name, semiring, deal, kind,
+                                               cuda):
+    """K4 fused ("full") and K4p fused, gathering through the int16 tile
+    column, against their plain versions (and K4p fused against the
+    unpredicated kernel) in every deal: ANDOR bit-equal, MULADD within
+    1e-5 of max|y|."""
+    lay = _planar_layout(name, deal)
+    eng = PlanarSpMV(lay, semiring, EngineConfig(device="cuda"))
+    assert eng.arrays.a_col.dtype == torch.int16
+    if kind == "full":
+        rng = np.random.default_rng(7)
+        x = rng.random(lay.num_cols).astype(np.float32) + 0.5
+        x[rng.random(lay.num_cols) < 0.3] = 0.0
+        xt = torch.from_numpy(x).to(cuda)
+        y, refs = eng.fused_spmv(xt), (eng.fused_plain(xt),)
+    else:
+        xt = torch.from_numpy(_frontier(lay.num_cols, kind, 0.0)).to(cuda)
+        act = eng.activity(xt)
+        y = eng.fused_predicated(xt, act)
+        refs = (eng.fused_plain(xt, None, act), eng.fused_spmv(xt))
+    torch.cuda.synchronize()
+    for ref in refs:
+        _check_predicated(y, ref, ref, semiring, f"{deal} {kind}")
+    if kind == "empty":
+        assert not y.any()
 
 
 @pytest.mark.parametrize("engine", ["roll", "planar", "chunked"])
