@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Old/new A/B of the chunked kernel (K6/K7, K7p) and K4 fused (K4p fused)
-on one GPU, and the sizes their device forms are cut to.
+"""Old/new A/B of the chunked kernel (K6/K7, K7p), K4 fused (K4p fused), K1
+(K1p) and K8 on one GPU, and the sizes their device forms are cut to.
 
 Packs the full stand-ins once with this tree's packers (which are
 array-equal to every earlier tree's), builds each kernel's engine from the
@@ -17,6 +17,20 @@ new, old (CUDA events, min over 5 reps of 100 calls each). Rows:
   K4 fused         pokec PageRank's "free" layout, MULADD
   K4 fused PERM-C  pokec BFS's PERM-C layout, MULADD
   K4p fused        ANDOR engines on both layouts, empty, 1-vertex and 5%
+  K1 MULADD/ANDOR  googleplus, degree-sorted (the PageRank and BFS layout),
+                   beside torch.mv (cuSPARSE) on the same MULADD SpMV, K1
+                   over the deposit-ordered form (K1p's), at 2,048 and
+                   8,192 elements a block, and, with `--ablations`, this
+                   tree's kernel built from patched copies of its source
+                   (ABLATIONS): the y atomics as plain stores, the x
+                   gather as a constant
+  K1p ANDOR        the same layout at empty, 1-vertex and 5% frontiers
+  K8               pokec SSSP's tropical layout ("planes"), beside K9 on
+                   triples derived from the same planes
+                   (io/tropical_format.derive_split_triples), the zero
+                   fill of the window stream alone (inside K8's call) and,
+                   with `--ablations`, K8 without its stores and without
+                   its g1 gather
 
 `--entries E ...` also times this tree's chunked kernel with other block
 sizes (real entries per block). Prints one line per row and writes them
@@ -27,13 +41,16 @@ before and after the new tree, as the parent).
 
 Usage: python3 ab_kernels.py --parent _archive_check/parent [--scale S]
        [--variant DIR ...] [--entries 1024 2048 4096]
+       [--kernels chunked planar router tropical] [--ablations]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -42,6 +59,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+KERNELS = ["chunked", "planar", "router", "tropical"]
 
 
 def log(msg: str) -> None:
@@ -59,9 +77,49 @@ def load_package(root: Path, name: str):
         sys.modules[name] = mod
         spec.loader.exec_module(mod)
     mod = sys.modules[name]
-    for sub in ("ops", "ops._build", "ops.chunked", "ops.planar"):
+    for sub in ("ops", "ops._build", "ops.chunked", "ops.planar",
+                "ops.router", "ops.tropical"):
         importlib.import_module(f"{name}.{sub}")
     return mod
+
+
+# Ablations of K1 and K8: name -> (source under csrc/, [(old, new)]);
+# K1's atomics as plain stores, its x gather as a constant; K8's stores
+# skipped (kept only for a value that never occurs), its g1 gather
+# replaced by the lane byte
+ABLATIONS = {
+    "k1_no_atomics": ("router_spmv.cu", [(
+        "if (v != 0.f) atomicAdd(y + row, v);", "if (v != 0.f) y[row] = v;")]),
+    "k1_no_gather": ("router_spmv.cu", [(
+        "return __ldg(x + col);", "return 1.0f;")]),
+    "k8_no_store": ("tropical_spmv.cu", [(
+        "if (dst[u] >= 0) out[dst[u]] = v[u];",
+        "if (dst[u] >= 0 && v[u] == -7) out[dst[u]] = v[u];")]),
+    "k8_no_gather": ("tropical_spmv.cu", [(
+        "if (e < n) v[u] = __ldg(src + el.s * kLanes + __ldg(lane_of + e));",
+        "if (e < n) v[u] = __ldg(lane_of + e);")]),
+}
+
+
+def ablation_tree(name: str):
+    """This tree's package copied under _archive_check/ablate_<name>/ with
+    ABLATIONS[name] applied to its source, loaded as its own package."""
+    root = ROOT / "_archive_check" / f"ablate_{name}"
+    if root.exists():
+        shutil.rmtree(root)
+    pkg = root / "graphlily_tpu_torch"
+    shutil.copytree(ROOT / "graphlily_tpu_torch", pkg,
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    source, edits = ABLATIONS[name]
+    src = pkg / "csrc" / source
+    text = src.read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"ablation {name}: {old!r} is not in the "
+                               "source once")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return load_package(root, f"glt_ablate_{name}")
 
 
 def time_ms(torch, fn, iters: int = 100, reps: int = 5) -> float:
@@ -80,9 +138,9 @@ def time_ms(torch, fn, iters: int = 100, reps: int = 5) -> float:
     return best
 
 
-def capture_layouts(scale: float, planar: bool) -> dict:
-    """Pack every layout the A/B needs through the public apps, recording
-    what the modules' packers return."""
+def capture_layouts(scale: float, kernels) -> dict:
+    """Pack every layout the A/B's `kernels` need through the public apps,
+    recording what the modules' packers return."""
     from graphlily_tpu_torch import EngineConfig, ArithmeticSemiring
     from graphlily_tpu_torch.apps import SSSP, PageRank, BFS
     from graphlily_tpu_torch.io import (iccad_standin, degree_sort_permutation,
@@ -93,7 +151,8 @@ def capture_layouts(scale: float, planar: bool) -> dict:
     got = []
     saved = {}
     for mod in (spmv_module, spmspv_module):
-        for name in ("pack_csr_chunks", "pack_planar"):
+        for name in ("pack_csr_chunks", "pack_planar", "pack_router",
+                     "pack_tropical"):
             fn = getattr(mod, name)
             saved[(mod, name)] = fn
 
@@ -102,24 +161,48 @@ def capture_layouts(scale: float, planar: bool) -> dict:
                 return got[-1]
             setattr(mod, name, rec)
     out = {}
+    engine = "auto" if scale >= 1 else "planar"
     try:
         t0 = time.perf_counter()
         g = iccad_standin("googleplus", scale=scale, seed=0)
-        sssp = SSSP(EngineConfig(sort_rows_by_degree=True, device="cuda"))
-        sssp.load_and_format_matrix(g)
-        out["sssp_row"], out["sssp_col"] = got[-2], got[-1]
-        gs = symmetric_permute(g, degree_sort_permutation(g))
-        util_round_csr_matrix_dim(gs, 1024, 1024)
-        m = SpMVModule(EngineConfig(engine="pallas", device="cuda"))
-        m.set_semiring(ArithmeticSemiring)
-        m.load_and_format_matrix(gs)
-        out["gp_muladd"] = got[-1]
+        if "chunked" in kernels:
+            sssp = SSSP(EngineConfig(sort_rows_by_degree=True,
+                                     device="cuda"))
+            sssp.load_and_format_matrix(g)
+            out["sssp_row"], out["sssp_col"] = got[-2], got[-1]
+            gs = symmetric_permute(g, degree_sort_permutation(g))
+            util_round_csr_matrix_dim(gs, 1024, 1024)
+            m = SpMVModule(EngineConfig(engine="pallas", device="cuda"))
+            m.set_semiring(ArithmeticSemiring)
+            m.load_and_format_matrix(gs)
+            out["gp_muladd"] = got[-1]
+        if "router" in kernels:
+            pr = PageRank(EngineConfig(
+                sort_rows_by_degree=True,
+                engine="auto" if scale >= 1 else "router"))
+            pr.load_and_format_matrix(g, 0.9)
+            if pr.SpMV_.engine_name != "roll":
+                raise AssertionError(f"googleplus resolved "
+                                     f"{pr.SpMV_.engine_name!r}, not roll")
+            out["roll"] = got[-1]
+            out["roll_csr"] = pr.SpMV_.csr_matrix_
         log(f"googleplus layouts: {time.perf_counter() - t0:.1f} s")
-        if not planar:
+        if "planar" not in kernels and "tropical" not in kernels:
+            return out
+        p = iccad_standin("pokec", scale=scale, seed=0)
+        if "tropical" in kernels:
+            t0 = time.perf_counter()
+            sp = SSSP(EngineConfig(sort_rows_by_degree=True,
+                                   engine="auto" if scale >= 1 else "router"))
+            sp.load_and_format_matrix(p)
+            if sp.SpMV_.engine_name != "tropical":
+                raise AssertionError(f"pokec SSSP resolved "
+                                     f"{sp.SpMV_.engine_name!r}")
+            out["tropical"] = got[-1]
+            log(f"pokec tropical layout: {time.perf_counter() - t0:.1f} s")
+        if "planar" not in kernels:
             return out
         t0 = time.perf_counter()
-        p = iccad_standin("pokec", scale=scale, seed=0)
-        engine = "auto" if scale >= 1 else "planar"
         pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine=engine))
         pr.load_and_format_matrix(p, 0.9)
         out["free"] = got[-1]
@@ -163,8 +246,9 @@ def main(argv=None) -> int:
                          "tree's (ablations that compute another y)")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--entries", type=int, nargs="*", default=[])
-    ap.add_argument("--kernels", nargs="+", default=["chunked", "planar"],
-                    choices=["chunked", "planar"])
+    ap.add_argument("--kernels", nargs="+", default=KERNELS, choices=KERNELS)
+    ap.add_argument("--ablations", action="store_true",
+                    help="add K1's ablation trees (ABLATIONS) to its rows")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -181,10 +265,11 @@ def main(argv=None) -> int:
     for i, path in enumerate(args.variant):
         others[path.name] = load_package(path.resolve(), f"glt_variant{i}")
     trees = {**others, "new": new}
-    for pkg in trees.values():
+    ablated = ({name: ablation_tree(name) for name in ABLATIONS}
+               if args.ablations else {})
+    for pkg in (*trees.values(), *ablated.values()):
         pkg.ops._build.library()
-    lays = capture_layouts(args.scale, "planar" in args.kernels)
-    order = [*others, "new", "new", *reversed(others)]
+    lays = capture_layouts(args.scale, args.kernels)
     rng = np.random.default_rng(7)
     rows = []
 
@@ -194,15 +279,23 @@ def main(argv=None) -> int:
                                          pkg.EngineConfig(device="cuda"))
                 for k, pkg in trees.items()}
 
-    def ab(label, engs, call, exact, extra=None):
-        """Outputs compared with the new tree's, then timed in turns."""
-        outs = {k: call(e) for k, e in engs.items()}
+    def ab(label, engs, call, exact, extra=None, more=None, unchecked=()):
+        """Outputs compared with the new tree's, then timed in turns: the
+        other trees, then `more` (name -> callable, timed in the same
+        turns; checked unless named in `unchecked`), then the new tree
+        twice, then the same in reverse."""
+        fns = {k: (lambda e=e: call(e)) for k, e in engs.items()}
+        fns.update(more or {})
+        outs = {k: fn() for k, fn in fns.items()}
         torch.cuda.synchronize()
-        for k in others if not args.unchecked else ["old"]:
+        checked = [k for k in fns if k != "new" and k not in unchecked
+                   and (k == "old" or not args.unchecked or k not in others)]
+        for k in checked:
             same(torch, f"{label} ({k})", outs["new"], outs[k], exact)
-        ms = {k: [] for k in trees}
-        for k in order:
-            ms[k].append(time_ms(torch, lambda: call(engs[k])))
+        rest = [k for k in fns if k != "new"]
+        ms = {k: [] for k in fns}
+        for k in [*rest, "new", "new", *reversed(rest)]:
+            ms[k].append(time_ms(torch, fns[k]))
         row = {"row": label, **{f"{k}_ms": v for k, v in ms.items()}}
         if extra is not None:
             row.update(extra(engs["new"]))
@@ -268,8 +361,107 @@ def main(argv=None) -> int:
                    lambda e, xf=xf, act=act: e.fused_predicated(xf, act), True)
             del engs
 
+    def router():
+        """K1 (MULADD, ANDOR) beside torch.mv, the row-ordered form, other
+        block sizes and the ablations; K1p (ANDOR) at three frontiers."""
+        lay, csr = lays["roll"], lays["roll_csr"]
+        xmul = torch.from_numpy(np.random.default_rng(8).random(
+            lay.num_cols).astype(np.float32)).to("cuda")
+        xbool = torch.from_numpy((np.random.default_rng(9).random(
+            lay.num_cols) < 0.05).astype(np.float32)).to("cuda")
+        nnz = csr.nnz
+        mat = torch.sparse_csr_tensor(
+            torch.from_numpy(csr.adj_indptr.astype(np.int64)),
+            torch.from_numpy(csr.adj_indices[:nnz].astype(np.int64)),
+            torch.from_numpy(csr.adj_data[:nnz].astype(np.float32)),
+            size=(csr.num_rows, csr.num_cols)).to("cuda")
+        form = lambda e: {"elements": e.entries.vals.numel(),
+                          "segments": e.entries.deps.shape[0],
+                          "blocks": e.entries.blocks.shape[0],
+                          "max_segments": e.entries.max_segments,
+                          "device_MB": e.entries.nbytes() / 1e6,
+                          "init_s": e.init_seconds}
+        for semiring, xt, label in (
+                ("ArithmeticSemiring", xmul, "K1 MULADD (googleplus)"),
+                ("LogicalSemiring", xbool, "K1 ANDOR (googleplus)")):
+            engs = engines("RouterSpMV", lay, semiring)
+            eng = engs["new"]
+            variants = {}
+            for name, kw in (("deposit", {"order": "deposit"}),
+                             ("E=2048", {"block_entries": 2048}),
+                             ("E=8192", {"block_entries": 8192})):
+                v = new.ops.RouterSpMV(lay, getattr(new, semiring),
+                                       new.EngineConfig(device="cuda"))
+                v.use_entries(new.ops.router.router_entries(v, **kw))
+                variants[name] = v
+                log(f"{label} {name}: {form(v)}")
+            for name, pkg in ablated.items():
+                if not name.startswith("k1_"):
+                    continue
+                variants[name] = pkg.ops.RouterSpMV(
+                    lay, getattr(pkg, semiring),
+                    pkg.EngineConfig(device="cuda"))
+            more = {k: (lambda v=v: v.fused_spmv(xt))
+                    for k, v in variants.items()}
+            if semiring == "ArithmeticSemiring":
+                more["torch.mv"] = lambda: torch.mv(mat, xt[:csr.num_cols])
+            ab(label, engs, lambda e: e.fused_spmv(xt),
+               semiring != "ArithmeticSemiring", form, more,
+               unchecked=("torch.mv", *ablated))
+            del engs, eng, variants, more
+        engs = engines("RouterSpMV", lay, "LogicalSemiring")
+        for kind in ("empty", "one", "5pct"):
+            xf = frontier(torch, lay.num_cols, kind, 0.0, rng)
+            act = engs["new"].activity(xf)
+            ab(f"K1p ANDOR {kind}", engs,
+               lambda e, xf=xf, act=act: e.fused_predicated(xf, act), True)
+        del engs
+
+    def tropical():
+        """K8 on pokec SSSP's layout, beside K9 on triples derived from
+        the same planes."""
+        from graphlily_tpu_torch.io.tropical_format import (
+            derive_split_triples)
+        lay = lays["tropical"]
+        t0 = time.perf_counter()
+        xsort2, triples2 = derive_split_triples(lay.planar, dict(
+            planes2=lay.planes2, rg2=lay.rg2, in_order=lay.in_order,
+            kb=lay.kb))
+        tri = dataclasses.replace(lay, xsort2=xsort2, triples2=triples2,
+                                  planes2=np.zeros((0, 0, 8, 128), np.int8))
+        log(f"K9 triples derived from the planes: "
+            f"{time.perf_counter() - t0:.1f} s")
+        engs = engines("TropicalSpMV", lay, "TropicalSemiring")
+        k9 = new.ops.TropicalSpMV(tri, new.TropicalSemiring,
+                                  new.EngineConfig(device="cuda"))
+        x = rng.integers(0, 1000, lay.num_cols).astype(np.float32)
+        x[rng.random(lay.num_cols) < 0.5] = inf
+        g1 = engs["new"].scatter(torch.from_numpy(x).to("cuda"))
+        eng = engs["new"]
+        form = lambda e: {"pieces": e.arrays.split.pieces.shape[0],
+                          "elements": e.arrays.split.lanes.numel(),
+                          "device_MB": e.arrays.split.nbytes() / 1e6,
+                          "planes_MB": lay.planes2.nbytes / 1e6,
+                          "init_s": e.init_seconds,
+                          "g2_MB": e.nchunks2 * 4096 / 1e6}
+        log(f"K8 compact form: {form(eng)}")
+        n2 = eng.nchunks2 * 1024
+        more = {"K9 triples": lambda: k9.split(g1),
+                "g2 fill": lambda: torch.zeros(n2, dtype=torch.int32,
+                                               device="cuda")}
+        k8_ablated = [name for name in ablated if name.startswith("k8_")]
+        for name in k8_ablated:
+            pkg = ablated[name]
+            v = pkg.ops.TropicalSpMV(lay, pkg.TropicalSemiring,
+                                     pkg.EngineConfig(device="cuda"))
+            more[name] = lambda v=v: v.split(g1)
+        ab("K8 split (pokec SSSP)", engs, lambda e: e.split(g1), True, form,
+           more, unchecked=("g2 fill", *k8_ablated))
+        del engs, k9, more
+
     for name in args.kernels:
-        {"chunked": chunked, "planar": planar}[name]()
+        {"chunked": chunked, "planar": planar, "router": router,
+         "tropical": tropical}[name]()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "ab_kernels.json").write_text(json.dumps(

@@ -34,7 +34,9 @@ Phases, one or more lines each:
   3. kernels   googleplus: K1, K2, K3 and their plain PyTorch versions on
                the router layout, MULADD and ANDOR, each held against
                SpMVModule.compute_reference_results; K2's flush stream
-               must equal its plain version bit for bit
+               must equal its plain version bit for bit, and ANDOR K1
+               both its plain walk of the derived form and K2 -> K3's;
+               the form's init seconds, elements and MB
   4. pagerank  googleplus PageRank.pull(0.9, 10): engine roll, fused
   5. bfs       googleplus BFS.pull(0, 7), fused and split (K2 -> K3)
   6. times     googleplus, CUDA events, min over 5 reps of a 100-call
@@ -87,7 +89,8 @@ Phases, one or more lines each:
                the pull_push_time_breakdown phase split
   18. sssp     pokec SSSP(EngineConfig(sort_rows_by_degree=True)): engine
                "auto" -> tropical, SpMSpV sharing it; layout facts, load
-               and pack seconds; pull(0, 11), push(0, 11) and
+               and pack seconds, K8's compact form (init s, MB); pull(0,
+               11), push(0, 11) and
                pull_push(0, 11, 0.05) bit-equal to the oracle
   19. kernels  pokec: K4 scatter ADDMIN's stream, K8's window stream and
                K10's maxima bit-equal to their plain versions; K4p scatter
@@ -311,6 +314,24 @@ def router_traffic(eng, act=None) -> dict:
                 stream=4 * eng.nsteps * eng.f * 1024)
 
 
+def router_forms(eng) -> str:
+    """The roll engine's derived forms for the log: K1's (row order) and
+    K1p's (deposit order), with the y atomics each issues at most on a
+    full x: one per run of one row inside a warp pass's 256 elements."""
+    import torch
+    from graphlily_tpu_torch.ops.router import entries_index
+    out = [f"derived forms: init {eng.init_seconds:.2f} s"]
+    for label, e in (("K1", eng.entries), ("K1p", eng.pred_entries)):
+        row = entries_index(e)[1]
+        pos = torch.arange(row.numel(), device=row.device)
+        head = (row[1:] != row[:-1]) | (pos[1:] % 256 == 0)
+        out.append(f"{label} {e.order} order: {e.vals.numel()} elements, "
+                   f"{e.deps.shape[0]} segments, {e.blocks.shape[0]} blocks,"
+                   f" {e.nbytes() / 1e6:.1f} MB, y atomics at most "
+                   f"{int(head.sum()) + 1}")
+    return "; ".join(out)
+
+
 def router_bounds(eng, act=None) -> dict:
     """(bytes, ops) of the fused, scatter and reduce kernels."""
     t = router_traffic(eng, act)
@@ -450,13 +471,18 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
         want = mod.compute_reference_results(x)
         y1 = eng.fused_spmv(xt)
         y1p = eng.fused_plain(xt)
+        y1e = eng.fused_entries_plain(xt)
         s2 = eng.scatter(xt)
         s2p = eng.scatter_plain(xt)
         y3 = eng.reduce(s2)
         y3p = eng.reduce_plain(s2)
         torch.cuda.synchronize()
         bit_equal(torch, f"{semiring.name}: K2 stream", s2, s2p)
-        for label, y in (("K1", y1), ("K1 plain", y1p), ("K3 (K2->K3)", y3),
+        if exact:
+            bit_equal(torch, f"{semiring.name}: K1", y1, y1e)
+            bit_equal(torch, f"{semiring.name}: K1 vs K2->K3 plain", y1, y1p)
+        for label, y in (("K1", y1), ("K1 plain (form)", y1e),
+                         ("K2->K3 plain", y1p), ("K3 (K2->K3)", y3),
                          ("K3 plain", y3p), ("engine call", mod.apply(xt))):
             y = y.cpu().numpy()
             if exact:
@@ -465,11 +491,13 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
             log(f"phase 3 {semiring.name} {label}: max|y-y64|={err:.3e} "
                 f"max|y64|={np.abs(want).max():.6e} ok")
         if not exact:
-            rec["K1_router_fused"]["err"] = float((y1 - y1p).abs().max())
+            rec["K1_router_fused"]["err"] = float((y1 - y1e).abs().max())
             rec["K2_router_scatter"]["err"] = float((s2 - s2p).abs().max())
             rec["K3_router_reduce"]["err"] = float((y3 - y3p).abs().max())
             spmv_eng, spmv_x, spmv_mod = eng, xt, mod
-        log(f"phase 3 {semiring.name}: K2 stream bit-equal to plain; ok")
+        log(f"phase 3 {semiring.name}: K2 stream bit-equal to plain"
+            f"{'; K1 bit-equal to both plain versions' if exact else ''}; "
+            f"{router_forms(eng)}; ok")
 
     # ---- 4-5. main path: PageRank and BFS through the public API ----------
     # the auto ladder picks the roll router at full size (nnz >= 2M); a
@@ -517,7 +545,7 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
     stream = eng.scatter(xt)
     timed = {
         "K1_router_fused": (lambda: eng.fused_spmv(xt),
-                            lambda: eng.fused_plain(xt)),
+                            lambda: eng.fused_entries_plain(xt)),
         "K2_router_scatter": (lambda: eng.scatter(xt),
                               lambda: eng.scatter_plain(xt)),
         "K3_router_reduce": (lambda: eng.reduce(stream),
@@ -1059,6 +1087,11 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
 
     def router_rows(label, eng, fused_name, scatter_name, reduce_name,
                     muladd_err=0.0):
+        # K1p's plain version walks its derived form (a roll engine's
+        # `entries`); K4p fused's goes through the flush stream
+        roll = hasattr(eng, "entries")
+        fused_plain = ((lambda x, a: eng.fused_entries_plain(x, a)) if roll
+                       else (lambda x, a: eng.fused_plain(x, None, a)))
         for kind in ("empty", "one", "5pct"):
             xt = frontier_x(torch, eng.num_cols, kind, 0.0, rng)
             act = eng.activity(xt)
@@ -1067,11 +1100,12 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
                 xt, None, act)
             y3, y3p = eng.reduce_predicated(s, live), eng.reduce_plain(
                 s, None, live)
-            y1, y1p = eng.fused_predicated(xt, act), eng.fused_plain(
-                xt, None, act)
+            y1, y1p = eng.fused_predicated(xt, act), fused_plain(xt, act)
             full = eng.fused_spmv(xt)
             torch.cuda.synchronize()
             bit_equal(torch, f"{label} {kind} scatter", s, sp)
+            bit_equal(torch, f"{label} {kind} fused vs K2p->K3 plain", y1,
+                      eng.fused_plain(xt, None, act))
             for name, y, yp in (("fused", y1, y1p), ("reduce", y3, y3p)):
                 bit_equal(torch, f"{label} {kind} {name}", y, yp)
                 bit_equal(torch, f"{label} {kind} {name} vs unpredicated",
@@ -1097,7 +1131,7 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
             ("scatter", lambda: eng.scatter(xt)),
             ("reduce", lambda: eng.reduce(s)))}
         plain_ms = {n: time_ms(torch, f, iters=10) for n, f in (
-            ("fused", lambda: eng.fused_plain(xt, None, act)),
+            ("fused", lambda: fused_plain(xt, act)),
             ("scatter", lambda: eng.scatter_plain(xt, None, act)),
             ("reduce", lambda: eng.reduce_plain(s, None, live)))}
         bounds = router_bounds(eng, act)
@@ -1123,10 +1157,11 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
     xt = frontier_x(torch, roll.num_cols, "5pct", 0.0, rng)
     act = roll.activity(xt)
     y, yp, full = (roll.fused_predicated(xt, act),
-                   roll.fused_plain(xt, None, act), roll.fused_spmv(xt))
+                   roll.fused_entries_plain(xt, act), roll.fused_spmv(xt))
     torch.cuda.synchronize()
     scale = float(yp.abs().max())
-    for label, ref in (("plain", yp), ("unpredicated", full)):
+    for label, ref in (("plain", yp), ("unpredicated", full),
+                       ("K2p->K3 plain", roll.fused_plain(xt, None, act))):
         err = float((y - ref).abs().max())
         if err > MULADD_RTOL * scale:
             raise AssertionError(f"MULADD K1p vs {label}: {err} > "
@@ -1236,7 +1271,7 @@ def tropical_facts(eng) -> str:
     p = eng.planar
     a = eng.arrays
     deposit = (a.xsort2.numel() * 4 + a.tri2.numel() * 4 if eng.triples
-               else a.planes2.numel())
+               else a.split.nbytes())
     live = int((a.rg2[:, :eng.dstep2, 1] > 0).sum())
     return (f"region_rows={p.region_rows} digits={p.region_rows // 128} "
             f"regions={p.num_regions} pass1 nsteps={p.nsteps} f={p.f} "
@@ -1300,7 +1335,8 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
                                                  engine=engine))
     log(f"phase 18 pokec sssp (scale={args.scale}): engine={engine} -> "
         f"tropical, SpMSpV shares it; relabel+self edges+pack+init "
-        f"{secs['load']:.1f} s, of which pack+init {secs['pack']:.1f} s; "
+        f"{secs['load']:.1f} s, of which pack+init {secs['pack']:.1f} s "
+        f"(K8's compact form {eng.init_seconds:.2f} s); "
         f"nnz={eng.nnz} {tropical_facts(eng)}")
     reset((eng,))
     runs = {"pull": sssp.pull(0, iters), "push": sssp.push(0, iters),
@@ -1443,11 +1479,13 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         log(f"phase 20 {name}: {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
             f"ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{nbytes / 1e6:.1f} MB)")
-    live = int((eng.arrays.rg2[:, :eng.dstep2, 1] > 0).sum())
-    log(f"phase 20 K8 reads its planes whole: {live} pieces x 1 KB = "
-        f"{live * 1024 / 1e6:.1f} MB of planes, "
-        f"{live * 1024 / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, against "
-        f"{eng.nnz / 1e6:.1f} MB for the entries' plane bytes")
+    split = eng.arrays.split
+    live = split.pieces.shape[0]
+    log(f"phase 20 K8 reads its compact form, not the planes: {live} "
+        f"pieces, {split.lanes.numel()} elements, {split.nbytes() / 1e6:.1f}"
+        f" MB (the planes it was derived from: {live} x 1 KB = "
+        f"{live * 1024 / 1e6:.1f} MB of live planes), derived in "
+        f"{eng.init_seconds:.2f} s")
     call_ms = time_ms(torch, lambda: eng(xt))
     log(f"phase 20 pokec tropical engine call (K4 scatter -> K8 -> K10 + "
         f"decode): {call_ms:.4f} ms ({gteps(eng.nnz, call_ms)})")

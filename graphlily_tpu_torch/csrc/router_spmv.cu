@@ -1,10 +1,11 @@
 // Roll-router SpMV kernels for Hopper (sm_90a): K1 fused, K2 scatter,
 // K3 reduce, and their frontier-predicated forms K1p, K2p, K3p (SpMSpV,
-// the `sm`/`na` launches of router_pallas.py:459-460, :1947-1963). Built by graphlily_tpu_torch/ops/_build.py with nvcc into a
-// shared library with a plain C interface; ops/router.py binds it with
-// ctypes and holds each kernel against its plain PyTorch version.
+// the `sm`/`na` launches of router_pallas.py:459-460, :1947-1963). Built
+// by graphlily_tpu_torch/ops/_build.py with nvcc into a shared library
+// with a plain C interface; ops/router.py binds it with ctypes and holds
+// each kernel against its plain PyTorch version.
 //
-// All three read the same RouterSpMVLayout arrays as their Pallas twins in
+// K2 and K3 read the same RouterSpMVLayout arrays as their Pallas twins in
 // graphlily_tpu/ops/router_pallas.py (io/router_format.py documents the
 // words). What the TPU kernels do with rolls, one-hot matrix products,
 // two accumulator banks and a grid that runs in order, these kernels do
@@ -28,8 +29,10 @@
 // independent copy, deposits never overlap (a slot cycle's runs are
 // disjoint), so K2 needs no atomics and no state across blocks; K1 and K3
 // add into y with float atomics, whose order changes from run to run
-// (ANDOR adds 0/1 counts, so it stays exact). Before its atomics each warp
-// sums its lanes' runs of equal rows (warp_add_rows).
+// (ANDOR adds 0/1 counts, so it stays exact). Before its atomics K3 sums
+// each warp's runs of equal rows (warp_add_rows), K1 each thread's and then
+// each warp's. K1 reads a device form derived from these arrays at engine
+// init (below), in which every deposit's elements already carry their row.
 //
 // Predication (kPred). x is zero outside the frontier, so a deposit whose
 // A-chunk lies on an inactive 128-column page gathers only zero products.
@@ -39,10 +42,11 @@
 // K2p skip the dead deposits (their stream elements stay zero in the
 // zeroed stream), and K3p skips the flush-stream chunks that no live
 // deposit targets (`live`, built on the device by the wrapper). The grid
-// is the full one; a dead block exits after its descriptor word and the
-// chunk's page. The page of A-chunk c is a_page[c]*8 + a_sub[c*1024]: a
-// roll chunk holds one page, so its first sublane byte is the page's
-// (router_pallas.py:_chunk_activity).
+// is the full one; a dead K2p block exits after its descriptor word and
+// the chunk's page, a dead K1p block after its deposits' records (each
+// holds its page's flag). The page of A-chunk c is
+// a_page[c]*8 + a_sub[c*1024]: a roll chunk holds one page, so its first
+// sublane byte is the page's (router_pallas.py:_chunk_activity).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -163,47 +167,174 @@ __global__ void __launch_bounds__(kThreads) router_reduce_kernel(
 // with _onehot_place (router_pallas.py:419, :166, :88): K2's deposits, but
 // each element goes straight to its row of y, so the flush stream never
 // reaches device memory.
-// Bound on the H100: the y atomics (in L2), then about 8 B of streams per
-// nnz from device memory (f32 value, int8 lane and sublane, int8 hi and lo
-// at the element's stream position) and the x gather (in L2).
-// Design: one block per (step, deposit slot) as in K2; hi/lo are read at
-// target*1024 + dst + i, contiguous like the value stream; a deposit's
-// elements are row-sorted, so warp_add_rows folds each row's run into one
-// atomic per warp; zero sums (ANDOR with x = 0) issue no atomic. The loop
-// bound is uniform across the block, so every lane reaches the shuffles.
-template <bool kAndOr, bool kPred>
-__global__ void __launch_bounds__(kThreads) router_fused_kernel(
-    const int* __restrict__ a_page, const int8_t* __restrict__ a_r,
-    const int8_t* __restrict__ a_sub, const float* __restrict__ a_vals,
-    const int2* __restrict__ rg, const int* __restrict__ target,
-    const int* __restrict__ c_code, const int8_t* __restrict__ c_hi,
-    const int8_t* __restrict__ c_lo, const float* __restrict__ x,
-    float* __restrict__ y, const uint8_t* __restrict__ act, int cb,
-    int rstep, int dstep, int region_rows) {
-  const int t = blockIdx.x / dstep;
-  const int j = blockIdx.x - t * dstep;
-  const int2 w = rg[static_cast<long long>(t) * rstep + j];
-  if (w.y <= 0) return;
-  const Deposit d = decode_deposit(w.x, w.y);
-  if (kPred && !chunk_active(act, a_page, a_sub,
-                             static_cast<long long>(t) * cb + d.k)) return;
-  const int tgt = target[static_cast<long long>(t) * dstep + j];
-  const int code = c_code[tgt];
-  if (code < 0) return;
-  float* yr = y + static_cast<long long>(code) * region_rows;
-  const long long chunk = static_cast<long long>(t) * cb + d.k;
-  const long long e0 = chunk * kChunk + d.src;
-  const long long p0 = static_cast<long long>(tgt) * kChunk + d.dst;
-  for (int base = 0; base < d.len; base += kThreads) {
-    const int i = base + static_cast<int>(threadIdx.x);
-    float g = 0.f;
-    int row = -1;
-    if (i < d.len) {
-      g = gathered<kAndOr>(x, a_page, a_r, a_sub, a_vals, chunk, e0 + i);
-      row = static_cast<int>(c_hi[p0 + i]) * 128
-          + static_cast<int>(c_lo[p0 + i]);
+//
+// What it reads. Not the layout's streams: a deposit's source offset in
+// the A stream and its destination offset in the hi/lo stream differ by
+// the roll, so no vector load lines up on both, and each element cost five
+// scalar loads behind a chain of three dependent descriptor loads. The
+// engine derives at init a padding-free form (ops/router.router_entries):
+// every element of a live deposit as its f32 value and one word
+// col | row << col_bits (the column within its segment's window, the row
+// within its region, read once from c_hi/c_lo at the element's flush
+// position), and per segment a record (first element, x offset, y offset
+// region*region_rows, page activity flag). Element e of segment d is
+//   g = val[e] (x) x[xo[d] + (w & mask)],  added into y[yo[d] + (w >> bits)]
+// (ANDOR: g = (val != 0 && x != 0) as 0/1, counts clamped by the caller).
+// K1 reads the "row" order: each region's elements sorted by row (a
+// segment per region and window of 2**col_bits columns, the whole of x on
+// the googleplus stand-in), so a row's products meet in one thread's
+// registers and across the warp, and y takes about one atomic per (row,
+// warp pass). K1p reads the "deposit" order: a segment per deposit, x
+// offset its page, so it can skip a dead page's deposits.
+// Bound on the H100: device memory, 8 B per element (the bytes
+// router_traffic in chip_smoke.py counts for K1), then the y atomics in
+// L2 and the x gather (in L2: 430 KB on the googleplus stand-in).
+// Design: the grid is a table of blocks of ENTRIES_PER_BLOCK consecutive
+// elements. A block loads its segments' records into shared memory, one
+// thread each; each thread takes 8 consecutive elements with 16-byte vector
+// loads, finds their segments by one binary search and a forward walk,
+// gathers x and sums runs of equal rows in registers (a deposit's elements
+// are row-sorted too). Its middle runs go to y with one atomic each; its
+// first run joins the previous lane's last when their rows match, and the
+// lanes' last runs fold across the warp (warp_fold_runs), one atomic per
+// run head. A zero sum issues no atomic. ANDOR adds 0/1 counts and stays
+// exact; MULADD's float atomics land in any order. Measured (ab_kernels.py,
+// PERF.md, PR 8): the row order against the deposit order, block sizes,
+// and ablations (plain stores for the atomics, a constant for the x
+// gather).
+//
+// Predication (K1p). A deposit of an inactive page gathers only zeros: its
+// record's x offset is set to -1 in shared memory and its elements are not
+// read; a block none of whose deposits is live exits after its records.
+// The full grid is launched, so nothing is read on the host.
+constexpr int kVec = 8;            // consecutive elements per thread
+constexpr int kFusedThreads = 256;
+
+// One run's sum into y. A zero sum changes nothing and issues no atomic.
+__device__ __forceinline__ void add_row(float* __restrict__ y, int row,
+                                        float v) {
+  if (v != 0.f) atomicAdd(y + row, v);
+}
+
+__device__ __forceinline__ float gather_x(const float* __restrict__ x,
+                                          int col) {
+  return __ldg(x + col);
+}
+
+// Largest j < n with start[j] <= e, given start[0] <= e.
+__device__ __forceinline__ int find_segment(const int* start, int n, int e) {
+  int lo = 0;
+  while (n > 1) {
+    const int half = n >> 1;
+    if (start[lo + half] <= e) lo += half;
+    n -= half;
+  }
+  return lo;
+}
+
+// blocks[b] = (e0, e1, g0, g1): elements [e0, e1) of segments [g0, g1);
+// deps[g] = (first element, x offset, y offset, activity flag).
+template <bool kAndOr>
+__global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
+    const int4* __restrict__ blocks, const int4* __restrict__ deps,
+    const float* __restrict__ vals, const unsigned* __restrict__ idx,
+    const float* __restrict__ x, float* __restrict__ y,
+    const uint8_t* __restrict__ act, int max_segments, int col_bits) {
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ int seg[];     // start, x offset, y offset of each
+  int* s_start = seg;
+  int* s_x = seg + max_segments;
+  int* s_y = seg + 2 * max_segments;
+  const int4 b = blocks[blockIdx.x];
+  const int ns = b.w - b.z;
+  bool live = false;
+  for (int i = threadIdx.x; i < ns; i += kFusedThreads) {
+    const int4 d = deps[b.z + i];
+    const bool on = act == nullptr || act[d.w] != 0;
+    live |= on;
+    s_start[i] = i == 0 ? b.x : d.x;
+    s_x[i] = on ? d.y : -1;        // an inactive page's elements: unread
+    s_y[i] = d.z;
+  }
+  if (act != nullptr) {
+    if (!__syncthreads_or(live)) return;
+  } else {
+    __syncthreads();
+  }
+  const unsigned mask = (1u << col_bits) - 1u;
+  const unsigned lane = threadIdx.x & 31;
+  // the loop bound is uniform across the block, so every lane reaches the
+  // shuffles
+  for (int base = b.x & ~(kVec - 1); base < b.y;
+       base += kVec * kFusedThreads) {
+    const int q = base + kVec * static_cast<int>(threadIdx.x);
+    int first_row = -1, last_row = -1;
+    float first_acc = 0.f, last_acc = 0.f;
+    if (q < b.y) {
+      int col[kVec], row[kVec];
+      bool any = false;
+      int j = find_segment(s_start, ns, max(q, b.x));
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const int e = q + k;
+        col[k] = -1;
+        if (e < b.x || e >= b.y) continue;
+        while (j + 1 < ns && s_start[j + 1] <= e) ++j;
+        col[k] = s_x[j];
+        row[k] = s_y[j];
+        any |= col[k] >= 0;
+      }
+      if (any) {
+        const uint4 w0 = *reinterpret_cast<const uint4*>(idx + q);
+        const uint4 w1 = *reinterpret_cast<const uint4*>(idx + q + 4);
+        const float4 v0 = *reinterpret_cast<const float4*>(vals + q);
+        const float4 v1 = *reinterpret_cast<const float4*>(vals + q + 4);
+        const unsigned w[kVec] = {w0.x, w0.y, w0.z, w0.w,
+                                  w1.x, w1.y, w1.z, w1.w};
+        const float v[kVec] = {v0.x, v0.y, v0.z, v0.w,
+                               v1.x, v1.y, v1.z, v1.w};
+        float xv[kVec];
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          if (col[k] < 0) continue;
+          col[k] += static_cast<int>(w[k] & mask);
+          row[k] += static_cast<int>(w[k] >> col_bits);
+          xv[k] = gather_x(x, col[k]);
+        }
+        int runs = 0;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          if (col[k] < 0) continue;
+          const float g = kAndOr ? ((v[k] != 0.f && xv[k] != 0.f) ? 1.f : 0.f)
+                                 : __fmul_rn(v[k], xv[k]);   // never fused
+          if (row[k] == last_row) {
+            last_acc += g;
+          } else {
+            if (runs == 1) {
+              first_row = last_row;      // held back for the previous lane
+              first_acc = last_acc;
+            } else if (runs > 1) {
+              add_row(y, last_row, last_acc);
+            }
+            ++runs;
+            last_row = row[k];
+            last_acc = g;
+          }
+        }
+      }
     }
-    warp_add_rows(yr, row, g);
+    // the first run joins the previous lane's last run when the rows match
+    const int prev_last = __shfl_up_sync(kAll, last_row, 1);
+    const int next_first = __shfl_down_sync(kAll, first_row, 1);
+    const float next_acc = __shfl_down_sync(kAll, first_acc, 1);
+    if (first_row >= 0 && !(lane > 0 && prev_last == first_row))
+      add_row(y, first_row, first_acc);
+    if (lane < 31 && next_first >= 0 && next_first == last_row)
+      last_acc += next_acc;
+    bool head;
+    const float sum = glt::warp_fold_runs<glt::FoldAdd>(last_row, last_acc,
+                                                        head);
+    if (head && last_row >= 0) add_row(y, last_row, sum);
   }
 }
 
@@ -219,23 +350,6 @@ void launch_scatter(const void* a_page, const void* a_r, const void* a_sub,
       static_cast<const int2*>(rg), static_cast<const int*>(target),
       static_cast<const float*>(x), static_cast<float*>(stream_out),
       static_cast<const uint8_t*>(act), cb, rstep, dstep);
-}
-
-template <bool kAndOr, bool kPred>
-void launch_fused(const void* a_page, const void* a_r, const void* a_sub,
-                  const void* a_vals, const void* rg, const void* target,
-                  const void* c_code, const void* c_hi, const void* c_lo,
-                  const void* x, void* y, const void* act, unsigned nblocks,
-                  int cb, int rstep, int dstep, int region_rows,
-                  cudaStream_t st) {
-  router_fused_kernel<kAndOr, kPred><<<nblocks, kThreads, 0, st>>>(
-      static_cast<const int*>(a_page), static_cast<const int8_t*>(a_r),
-      static_cast<const int8_t*>(a_sub), static_cast<const float*>(a_vals),
-      static_cast<const int2*>(rg), static_cast<const int*>(target),
-      static_cast<const int*>(c_code), static_cast<const int8_t*>(c_hi),
-      static_cast<const int8_t*>(c_lo), static_cast<const float*>(x),
-      static_cast<float*>(y), static_cast<const uint8_t*>(act), cb, rstep,
-      dstep, region_rows);
 }
 
 template <bool kPred>
@@ -270,23 +384,37 @@ int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPred>
-int run_fused(const void* a_page, const void* a_r, const void* a_sub,
-              const void* a_vals, const void* rg, const void* target,
-              const void* c_code, const void* c_hi, const void* c_lo,
-              const void* x, void* y, const void* act, int nsteps, int cb,
-              int rstep, int dstep, int region_rows, int and_or,
-              void* cuda_stream) {
-  const long long nblocks = static_cast<long long>(nsteps) * dstep;
-  if (nblocks > 0) {
-    auto st = static_cast<cudaStream_t>(cuda_stream);
-    auto launch = and_or ? launch_fused<true, kPred>
-                         : launch_fused<false, kPred>;
-    launch(a_page, a_r, a_sub, a_vals, rg, target, c_code, c_hi, c_lo, x, y,
-           act, static_cast<unsigned>(nblocks), cb, rstep, dstep,
-           region_rows, st);
+template <bool kAndOr>
+int launch_fused(const void* blocks, const void* deps, const void* vals,
+                 const void* idx, const void* x, void* y, const void* act,
+                 int nblocks, int max_segments, int col_bits,
+                 cudaStream_t st) {
+  const size_t smem = 3 * sizeof(int) * static_cast<size_t>(max_segments);
+  auto kernel = router_fused_kernel<kAndOr>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  kernel<<<nblocks, kFusedThreads, smem, st>>>(
+      static_cast<const int4*>(blocks), static_cast<const int4*>(deps),
+      static_cast<const float*>(vals), static_cast<const unsigned*>(idx),
+      static_cast<const float*>(x), static_cast<float*>(y),
+      static_cast<const uint8_t*>(act), max_segments, col_bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+int run_fused(const void* blocks, const void* deps, const void* vals,
+              const void* idx, const void* x, void* y, const void* act,
+              int nblocks, int max_segments, int col_bits, int and_or,
+              void* cuda_stream) {
+  if (nblocks < 0 || max_segments < 0 || col_bits < 1 || col_bits > 31)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblocks == 0) return static_cast<int>(cudaGetLastError());
+  auto fn = and_or ? launch_fused<true> : launch_fused<false>;
+  return fn(blocks, deps, vals, idx, x, y, act, nblocks, max_segments,
+            col_bits, static_cast<cudaStream_t>(cuda_stream));
 }
 
 }  // namespace
@@ -335,23 +463,18 @@ extern "C" int glt_router_reduce_pred(
 }
 
 extern "C" int glt_router_fused(
-    const void* a_page, const void* a_r, const void* a_sub,
-    const void* a_vals, const void* rg, const void* target,
-    const void* c_code, const void* c_hi, const void* c_lo, const void* x,
-    void* y, int nsteps, int cb, int rstep, int dstep, int region_rows,
+    const void* blocks, const void* deps, const void* vals, const void* idx,
+    const void* x, void* y, int nblocks, int max_segments, int col_bits,
     int and_or, void* cuda_stream) {
-  return run_fused<false>(a_page, a_r, a_sub, a_vals, rg, target, c_code,
-                          c_hi, c_lo, x, y, nullptr, nsteps, cb, rstep, dstep,
-                          region_rows, and_or, cuda_stream);
+  return run_fused(blocks, deps, vals, idx, x, y, nullptr, nblocks,
+                   max_segments, col_bits, and_or, cuda_stream);
 }
 
+// K1p: act is the (num_cols/128,) uint8 page activity.
 extern "C" int glt_router_fused_pred(
-    const void* a_page, const void* a_r, const void* a_sub,
-    const void* a_vals, const void* rg, const void* target,
-    const void* c_code, const void* c_hi, const void* c_lo, const void* x,
-    void* y, const void* act, int nsteps, int cb, int rstep, int dstep,
-    int region_rows, int and_or, void* cuda_stream) {
-  return run_fused<true>(a_page, a_r, a_sub, a_vals, rg, target, c_code,
-                         c_hi, c_lo, x, y, act, nsteps, cb, rstep, dstep,
-                         region_rows, and_or, cuda_stream);
+    const void* blocks, const void* deps, const void* vals, const void* idx,
+    const void* x, void* y, const void* act, int nblocks, int max_segments,
+    int col_bits, int and_or, void* cuda_stream) {
+  return run_fused(blocks, deps, vals, idx, x, y, act, nblocks,
+                   max_segments, col_bits, and_or, cuda_stream);
 }

@@ -40,8 +40,10 @@ using glt::warp_max_rows;
 constexpr int kChunk = 1024;
 constexpr int kLanes = 128;
 constexpr int kSub = 8;
-constexpr int kWarps = 8;      // split slots (K8, K9) or sublanes (K10)
+constexpr int kWarps = 8;      // pieces (K8), split slots (K9) or
+                               // sublanes (K10)
 constexpr int kThreads = 32 * kWarps;
+constexpr int kPasses = 2;     // K8: 32-element passes per iteration
 
 // ---------------------------------------------------------------------------
 // K8, split over deposit planes. Replaces _split_call with the body
@@ -50,41 +52,56 @@ constexpr int kThreads = 32 * kWarps;
 // every plane entry v < 0 at (s, l) moves g1[in_order[t*kb + k]][s, v & 127]
 // to g2[target2[t, j]][s, l]. Read through in_order here, where JAX takes a
 // g1-sized copy first (tropical_pallas.py:544-549).
-// Bound on the H100: device memory. Every live piece reads its whole 1 KB
-// plane (about 35 elements a piece on the pokec stand-in: 29 B of plane per
-// element against 8 B of g1 read and g2 written); padding slots cost their
-// 8-byte descriptor. The bound in chip_smoke.py counts those bytes.
-// Design: one warp per split slot, 8 per block; each lane loads 2 x 16
-// bytes of the plane (coalesced, 512 B per warp instruction) and copies its
-// taking entries; the g1 reads gather within a 512-byte sublane row.
-__global__ void __launch_bounds__(kThreads) split_planes_kernel(
-    const int2* __restrict__ rg2, const int8_t* __restrict__ planes2,
-    const int* __restrict__ in_order, const int* __restrict__ target2,
-    const int* __restrict__ g1, int* __restrict__ g2, int kb, int rstep2,
-    int dstep2, int dmax2, long long nslots) {
+// What it reads. Not the planes: each live piece's plane is 1 KB, a byte a
+// lane, for about 66 moved elements on the pokec stand-in (499.7 MB of
+// planes for 32.3 MB of entries). The engine derives at init a compact form
+// (ops/tropical.split_pieces): per live piece a record (source chunk
+// in_order[t*kb + k], target chunk target2[t, j], first element) and one
+// run word per sublane d0 << 7 | n << 14 (the layout guarantees that a
+// (piece, sublane) moves one contiguous destination run), and one
+// source-lane byte per moved element, so
+//   g2[target][s, d0 + i] = g1[source][s, lanes[first + e]]
+// for the piece's e-th element, the i-th of sublane s's run.
+// Bound on the H100: device memory. Per element 1 B of lane, 4 B of g1
+// read (within a 512-byte sublane row) and 4 B of g2 written, plus 48 B a
+// piece; the wrapper's zero fill of g2 is the largest part (chip_smoke.py
+// counts the bytes).
+// Design: K9's warp-per-piece run walk (piece_runs.cuh) with the sort
+// plane replaced by the lane byte: the piece's elements, flattened across
+// its 8 runs, 32 a pass, kPasses passes' loads issued together (a piece
+// holds 66 elements on average); a warp per live piece, no padding slot
+// launched. Measured (PERF.md, PR 8): 2 passes at once beat 1, 4 and 8,
+// and a half warp per piece; cutting the same moves by (piece, sublane)
+// run into blocks of consecutive elements, the chunked kernel's walk, ran
+// slower.
+__global__ void __launch_bounds__(kThreads) split_pieces_kernel(
+    const int4* __restrict__ pieces, const int* __restrict__ runs,
+    const uint8_t* __restrict__ lanes, const int* __restrict__ g1,
+    int* __restrict__ g2, long long npieces) {
   const unsigned lane = threadIdx.x & 31;
   const long long gp = static_cast<long long>(blockIdx.x) * kWarps
       + (threadIdx.x >> 5);
-  if (gp >= nslots) return;                       // whole warp
-  const long long t = gp / dstep2;
-  const int j = static_cast<int>(gp - t * dstep2);
-  const int2 w = rg2[t * rstep2 + j];
-  if (w.y <= 0) return;                           // whole warp: padding
-  const int* src = g1 + static_cast<long long>(in_order[t * kb + (w.x & 0xFF)])
-      * kChunk;
-  int* out = g2 + static_cast<long long>(target2[gp]) * kChunk;
-  const int8_t* plane = planes2 + (t * dmax2 + (w.x >> 8)) * kChunk;
+  if (gp >= npieces) return;                      // whole warp
+  const int4 p = pieces[gp];
+  const int* src = g1 + static_cast<long long>(p.x) * kChunk;
+  int* out = g2 + static_cast<long long>(p.y) * kChunk;
+  const uint8_t* lane_of = lanes + static_cast<unsigned>(p.z);
+  const Runs r = load_runs(runs + gp * kSub, lane);
+  const int n = r.end[kSub - 1];
+  // kPasses passes of 32 elements at once: their loads are all issued
+  // before the first store
+  for (int base = 0; base < n; base += 32 * kPasses) {
+    int v[kPasses], dst[kPasses];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int e0 = half * (kChunk / 2) + static_cast<int>(lane) * 16;
-    const int4 v = __ldg(reinterpret_cast<const int4*>(plane + e0));
-    const int words[4] = {v.x, v.y, v.z, v.w};
-    const int* row = src + (e0 & ~(kLanes - 1));  // 16 bytes in one sublane
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int b = static_cast<int8_t>(words[i >> 2] >> (8 * (i & 3)));
-      if (b < 0) out[e0 + i] = __ldg(row + (b & (kLanes - 1)));
+    for (int u = 0; u < kPasses; ++u) {
+      const int e = base + 32 * u + static_cast<int>(lane);
+      const Elem el = locate(r, e);
+      dst[u] = e < n ? el.dst : -1;
+      if (e < n) v[u] = __ldg(src + el.s * kLanes + __ldg(lane_of + e));
     }
+#pragma unroll
+    for (int u = 0; u < kPasses; ++u)
+      if (dst[u] >= 0) out[dst[u]] = v[u];
   }
 }
 
@@ -175,18 +192,17 @@ unsigned blocks_for(long long items, int per_block) {
 // does not synchronise, and returns cudaGetLastError() (0 = launched). The
 // window stream g2 and out must be zeroed by the caller.
 
+// K8 over the compact form: pieces (npieces, 4) int32, runs (npieces, 8)
+// int32, lanes one uint8 per moved element.
 extern "C" int glt_tropical_split(
-    const void* rg2, const void* planes2, const void* in_order,
-    const void* target2, const void* g1, void* g2, int nsteps2, int kb,
-    int rstep2, int dstep2, int dmax2, void* cuda_stream) {
-  const long long nslots = static_cast<long long>(nsteps2) * dstep2;
-  if (nslots > 0) {
-    split_planes_kernel<<<blocks_for(nslots, kWarps), kThreads, 0,
+    const void* pieces, const void* runs, const void* lanes, const void* g1,
+    void* g2, int npieces, void* cuda_stream) {
+  if (npieces > 0) {
+    split_pieces_kernel<<<blocks_for(npieces, kWarps), kThreads, 0,
                           static_cast<cudaStream_t>(cuda_stream)>>>(
-        static_cast<const int2*>(rg2), static_cast<const int8_t*>(planes2),
-        static_cast<const int*>(in_order), static_cast<const int*>(target2),
-        static_cast<const int*>(g1), static_cast<int*>(g2), kb, rstep2,
-        dstep2, dmax2, nslots);
+        static_cast<const int4*>(pieces), static_cast<const int*>(runs),
+        static_cast<const uint8_t*>(lanes), static_cast<const int*>(g1),
+        static_cast<int*>(g2), npieces);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,8 +42,8 @@ SIGNATURES = {
     "glt_router_scatter_pred": [_P] * 9 + [_I] * 5 + [_P],
     "glt_router_reduce": [_P] * 5 + [_I] * 2 + [_P],
     "glt_router_reduce_pred": [_P] * 6 + [_I] * 2 + [_P],
-    "glt_router_fused": [_P] * 11 + [_I] * 6 + [_P],
-    "glt_router_fused_pred": [_P] * 12 + [_I] * 6 + [_P],
+    "glt_router_fused": [_P] * 6 + [_I] * 4 + [_P],
+    "glt_router_fused_pred": [_P] * 7 + [_I] * 4 + [_P],
     # planar_spmv.cu: K4 scatter, K4 fused, K5 and K4p scatter, K4p fused
     # (K4 scatter's int is the semiring op: 2 is the tropical ADDMIN)
     "glt_planar_scatter": [_P] * 9 + [_I] * 5 + [_P],
@@ -55,7 +55,7 @@ SIGNATURES = {
     "glt_permc_reduce": [_P] * 6 + [_I] * 2 + [_P],
     "glt_permc_reduce_pred": [_P] * 7 + [_I] * 2 + [_P],
     # tropical_spmv.cu: K8 (split, planes), K9 (split, triples), K10
-    "glt_tropical_split": [_P] * 6 + [_I] * 5 + [_P],
+    "glt_tropical_split": [_P] * 5 + [_I] + [_P],
     "glt_tropical_split_triples": [_P] * 7 + [_I] * 4 + [_P],
     "glt_tropical_window_reduce": [_P] * 5 + [_I] + [_P],
 }

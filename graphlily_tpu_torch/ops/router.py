@@ -16,6 +16,22 @@ contract: gather, `index_copy_` into a zeroed flush stream through the
 deposit targets, `index_add_` into y) only when given CPU tensors. Each
 kernel launch adds one to `launches[name]`.
 
+K1 and K1p do not read the layout's streams. At init the engine derives
+two padding-free device forms (`router_entries`): every real element of
+every live deposit as an f32 value and one int32 word (its column within
+its segment's column window | its row within the region << col_bits,
+the row read once from c_hi/c_lo at the element's flush position),
+beside one record per segment (first element, x offset, y offset,
+activity flag) and a table of blocks of `ENTRIES_PER_BLOCK` consecutive
+elements. K1 reads `entries`, sorted by row within each region (one
+segment per region and window of 2**col_bits columns: the whole of x on
+the googleplus stand-in), so a row's products meet in registers and
+across the warp and reach y with few atomics. K1p reads `pred_entries`,
+in deposit order (one segment per deposit, x offset its page), so a dead
+page's deposits are skipped unread. `init_seconds` times both. Their CPU
+path (`fused_entries_plain`) walks the forms; `fused_plain` (K2's plain
+version, then K3's) stays the reference they are held to.
+
 SpMSpV (`call_predicated`, JAX `__call__(tiles_active=, fidx=)`) runs the
 frontier-predicated forms K1p, K2p -> K3p (`*_predicated`, counted as
 `fused_pred`, `scatter_pred`, `reduce_pred`). Activity is per 128-column
@@ -39,6 +55,7 @@ that the in-order Pallas grid needs.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -56,6 +73,116 @@ from . import _build
 # keeps y in L2 and the split pair is taken; which of the two is faster
 # there has not been measured.
 FUSED_MAX_Y_BYTES = 25 * 2**20
+
+# K1's grid: consecutive elements of its derived form per block (PERF.md,
+# PR 8), and the elements a kernel thread loads at once.
+ENTRIES_PER_BLOCK = 4096
+VECTOR = 8
+PAGE_COL_BITS = 10   # column within a 1024-column page
+
+
+@dataclasses.dataclass
+class RouterEntries:
+    """A padding-free device form of the roll layout for K1 ("row" order)
+    or K1p ("deposit" order), `router_entries`. A segment is a deposit
+    (the elements one descriptor slot moves) or, in row order, a (region,
+    column window)."""
+
+    # (N,) each, views of storage zeroed to a multiple of VECTOR elements
+    # (the kernel's vector loads; no block names an element past N)
+    vals: torch.Tensor     # float32
+    idx: torch.Tensor      # int32: col | row << col_bits
+    deps: torch.Tensor     # (ndep, 4) int32: first element, x offset,
+                           # y offset, activity flag of each segment
+    blocks: torch.Tensor   # (nblk, 4) int32: elements [e0, e1) of
+                           # segments [g0, g1)
+    max_segments: int      # largest g1 - g0 (the kernel's shared table)
+    col_bits: int
+    order: str             # "deposit" or "row"
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.vals, self.idx, self.deps, self.blocks))
+
+
+def _vector_storage(t: torch.Tensor) -> torch.Tensor:
+    """`t` copied into storage zeroed to a multiple of VECTOR elements."""
+    n = t.numel()
+    out = torch.zeros(-(-n // VECTOR) * VECTOR, dtype=t.dtype,
+                      device=t.device)[:n]
+    return out.copy_(t)
+
+
+def router_entries(eng: "RouterSpMV", order: str = "row",
+                   block_entries: int = ENTRIES_PER_BLOCK,
+                   col_bits: int | None = None) -> RouterEntries:
+    """A device form of `eng`'s layout for K1 or K1p, built with torch ops
+    on the engine's device from its plain index: every element of a live
+    deposit (one whose flush chunk has a region), once.
+
+    "row" (K1's): the elements of each (region, window of 2**col_bits
+    columns) sorted by (row, column), one segment each, x offset the
+    window's first column; col_bits defaults to what the word has left
+    after the row within the region (31 - its bits: 18 on the googleplus
+    stand-in, one window). "deposit" (K1p's): deposit order, one segment
+    per deposit, x offset its page, activity flag its page's."""
+    a = eng.arrays
+    idx = eng.element_index(a)
+    dev = a.a_vals.device
+    code = a.c_code.long()[idx["dst"] // CHUNK]
+    keep = code >= 0
+    src, col, dst, unit, dep = (idx[k][keep] for k in
+                                ("src", "col", "dst", "unit", "dep"))
+    code = code[keep]
+    row = a.c_hi[dst].long() * 128 + a.c_lo[dst].long()
+    if order == "deposit":
+        col_bits = PAGE_COL_BITS
+        key = dep
+        xo, flag = col // CHUNK * CHUNK, unit
+    elif order == "row":
+        if col_bits is None:
+            col_bits = 31 - int(eng.region_rows - 1).bit_length()
+        window = col >> col_bits
+        key = code * (int(eng.num_cols >> col_bits) + 1) + window
+        perm = torch.argsort((key * eng.region_rows + row) * eng.num_cols
+                             + col, stable=True)
+        src, col, row, code, key = (t[perm] for t in
+                                    (src, col, row, code, key))
+        xo = col >> col_bits << col_bits
+        flag = torch.full_like(code, -1)
+    else:
+        raise ValueError(f"unknown order {order!r}")
+    n = src.numel()
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = key[1:] != key[:-1]
+    starts = torch.nonzero(head).flatten()
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    deps = i32(torch.stack([starts, xo[starts],
+                            code[starts] * eng.region_rows, flag[starts]], 1))
+    e0 = torch.arange(0, n, block_entries, device=dev)
+    e1 = torch.clamp(e0 + block_entries, max=n)
+    g0 = torch.searchsorted(starts, e0, right=True) - 1
+    g1 = torch.searchsorted(starts, e1 - 1, right=True)
+    return RouterEntries(
+        vals=_vector_storage(a.a_vals[src]),
+        idx=_vector_storage(i32((col - xo) | row << col_bits)),
+        deps=deps, blocks=i32(torch.stack([e0, e1, g0, g1], 1)),
+        max_segments=int((g1 - g0).max()) if n else 0, col_bits=col_bits,
+        order=order)
+
+
+def entries_index(e: RouterEntries):
+    """(col, row, flag) of every element of the form `e`, int64, expanded
+    from its segment records and its elements' words."""
+    n = e.vals.numel()
+    deps = e.deps.long()
+    first = torch.cat([deps[:, 0], deps.new_tensor([n])])
+    seg = torch.repeat_interleave(
+        torch.arange(len(deps), device=deps.device), first[1:] - first[:-1],
+        output_size=n)
+    w = e.idx.long() & 0xFFFFFFFF
+    return (deps[seg, 1] + (w & ((1 << e.col_bits) - 1)),
+            deps[seg, 2] + (w >> e.col_bits), deps[seg, 3])
 
 
 @dataclasses.dataclass
@@ -93,6 +220,12 @@ class RouterSpMV:
             rg=dev(lay.rg).reshape(lay.nsteps, lay.rstep, 2),
             target=dev(target).reshape(lay.nsteps, lay.dstep),
             c_code=dev(lay.c_code), c_hi=dev(lay.c_hi), c_lo=dev(lay.c_lo))
+        t0 = time.perf_counter()
+        self.entries = router_entries(self, "row")              # K1's
+        self.pred_entries = router_entries(self, "deposit")     # K1p's
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.init_seconds = time.perf_counter() - t0   # the derived forms
         self.launches = {"fused": 0, "scatter": 0, "reduce": 0,
                          "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0}
 
@@ -117,6 +250,7 @@ class RouterSpMV:
         self.out_len = self.num_regions * self.region_rows
         self.fused = self.out_len * 4 <= FUSED_MAX_Y_BYTES
         self._plain_index = None
+        self._entries_index = None
         self._deposits = None
 
     def _dev(self, a) -> torch.Tensor:
@@ -200,23 +334,46 @@ class RouterSpMV:
         return y
 
     # ---- K1 fused ------------------------------------------------------------
+    def use_entries(self, entries: RouterEntries,
+                    pred: bool = False) -> None:
+        """K1 (K1p with `pred`, which needs deposit order) reads `entries`
+        from now on: another order or block size of `router_entries`."""
+        if pred and entries.order != "deposit":
+            raise ValueError("K1p skips dead pages by deposit: it needs the "
+                             "deposit-order form")
+        if pred:
+            self.pred_entries = entries
+        else:
+            self.entries, self._entries_index = entries, None
+
+    def _own_arrays(self, arrays: RouterArrays | None) -> None:
+        if arrays is not None and arrays is not self.arrays:
+            raise ValueError("K1 reads the form derived from the engine's "
+                             "own arrays")
+
     def fused_spmv(self, x: torch.Tensor,
                    arrays: RouterArrays | None = None) -> torch.Tensor:
         """Phases A+B+C in one kernel: (nregions*region_rows,) rows."""
-        a = self.arrays if arrays is None else arrays
+        self._own_arrays(arrays)
         x = x.reshape(-1)
         if not self._check(x, self.num_cols, "x"):
-            return self.fused_plain(x, a)
+            return self.fused_entries_plain(x)
+        return self._launch_fused(x, None, "glt_router_fused", "fused")
+
+    def _launch_fused(self, x: torch.Tensor, act: torch.Tensor | None,
+                      name: str, key: str) -> torch.Tensor:
+        """Zero y and launch K1 over `entries` (K1p over `pred_entries` when
+        `act` is given) on the current stream."""
+        e = self.entries if act is None else self.pred_entries
         y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
-        ptrs = [t.data_ptr() for t in (a.a_page, a.a_r, a.a_sub, a.a_vals,
-                                       a.rg, a.target, a.c_code, a.c_hi,
-                                       a.c_lo, x, y)]
-        rc = _build.library().glt_router_fused(
-            *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
-            self.region_rows, self._and_or,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_router_fused")
-        self.launches["fused"] += 1
+        ptrs = [t.data_ptr() for t in (e.blocks, e.deps, e.vals, e.idx, x, y)]
+        if act is not None:
+            ptrs.append(act.data_ptr())
+        rc = getattr(_build.library(), name)(
+            *ptrs, e.blocks.shape[0], e.max_segments, e.col_bits,
+            self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
+        self._raise_on(rc, name)
+        self.launches[key] += 1
         return y
 
     # ---- SpMSpV: activity and live sets ----------------------------------------
@@ -321,35 +478,34 @@ class RouterSpMV:
     def fused_predicated(self, x: torch.Tensor, act: torch.Tensor,
                          arrays: RouterArrays | None = None) -> torch.Tensor:
         """K1 over the live deposits only: (nregions*region_rows,)."""
-        a = self.arrays if arrays is None else arrays
+        self._own_arrays(arrays)
         x = x.reshape(-1)
         if not self._check(x, self.num_cols, "x"):
-            return self.fused_plain(x, a, act)
+            return self.fused_entries_plain(x, act)
         self._check_flags(act, self.num_act, "act")
-        y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
-        ptrs = [t.data_ptr() for t in (a.a_page, a.a_r, a.a_sub, a.a_vals,
-                                       a.rg, a.target, a.c_code, a.c_hi,
-                                       a.c_lo, x, y, act)]
-        rc = _build.library().glt_router_fused_pred(
-            *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
-            self.region_rows, self._and_or,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_router_fused_pred")
-        self.launches["fused_pred"] += 1
-        return y
+        return self._launch_fused(x, act, "glt_router_fused_pred",
+                                  "fused_pred")
 
     # ---- plain PyTorch versions ----------------------------------------------
     def plain_index(self, a: RouterArrays | None = None) -> dict:
         """Per-element index vectors of the plain versions, expanded once
         from the descriptor words and targets: `src` (stream element of
         each deposited nnz), `col` (its x index), `dst` (its flush-stream
-        position), `unit` (its chunk's activity flag) and `row` (output
-        row of every flush-stream position; positions of unused chunks
-        point one past the end)."""
+        position), `unit` (its chunk's activity flag), `dep` (its live
+        deposit) and `row` (output row of every flush-stream position;
+        positions of unused chunks point one past the end)."""
         own = a is None or a is self.arrays
         if own and self._plain_index is not None:
             return self._plain_index
         arr = self.arrays if a is None else a
+        idx = dict(self.element_index(arr), row=self._rows(arr))
+        if own:
+            self._plain_index = idx
+        return idx
+
+    def element_index(self, arr: RouterArrays) -> dict:
+        """`plain_index` without `row` and uncached, plus `dep` (the live
+        deposit of each element, in slot order)."""
         w1 = arr.rg[:, :self.dstep, 0].reshape(-1).long()
         w2 = arr.rg[:, :self.dstep, 1].reshape(-1).long()
         active = w2 > 0
@@ -371,11 +527,8 @@ class RouterSpMV:
         el_col = (arr.a_page.long()[chunk[rep]] * CHUNK
                   + arr.a_sub[el_src].long() * 128 + arr.a_r[el_src].long())
         el_dst = tgt[rep] * CHUNK + dst[rep] + off
-        idx = dict(src=el_src, col=el_col, dst=el_dst,
-                   unit=self.chunk_units(arr)[chunk[rep]], row=self._rows(arr))
-        if own:
-            self._plain_index = idx
-        return idx
+        return dict(src=el_src, col=el_col, dst=el_dst,
+                    unit=self.chunk_units(arr)[chunk[rep]], dep=rep)
 
     def _rows(self, arr) -> torch.Tensor:
         """Output row of every flush-stream position; positions of unused
@@ -425,8 +578,35 @@ class RouterSpMV:
 
     def fused_plain(self, x: torch.Tensor, a: RouterArrays | None = None,
                     act: torch.Tensor | None = None) -> torch.Tensor:
-        """K1's plain version: K2's then K3's; with `act`, K1p's."""
+        """K2's plain version then K3's, through the flush stream; with
+        `act`, K2p's then K3's. K1's reference."""
         return self.reduce_plain(self.scatter_plain(x, a, act), a)
+
+    def entries_index(self):
+        """`entries_index(self.entries)`, expanded once."""
+        if self._entries_index is None:
+            self._entries_index = entries_index(self.entries)
+        return self._entries_index
+
+    def fused_entries_plain(self, x: torch.Tensor,
+                            act: torch.Tensor | None = None) -> torch.Tensor:
+        """K1's plain version: gather and product over `entries`, then
+        index_add_ into y; with `act`, K1p's: the same over the elements of
+        active pages only. Both add in the order of K1's form, so where x
+        is zero off the active pages the two agree bit for bit (a skipped
+        element adds zero)."""
+        col, row, _ = self.entries_index()
+        vals = self.entries.vals
+        if act is not None:
+            keep = act.bool()[col // self.ACT_COLS]
+            col, row, vals = col[keep], row[keep], vals[keep]
+        xg = x.reshape(-1)[col]
+        if self._and_or:
+            g = torch.logical_and(vals != 0, xg != 0).to(torch.float32)
+        else:
+            g = vals * xg
+        y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
+        return y.index_add_(0, row, g)
 
     # ---- SpMV and SpMSpV -------------------------------------------------------
     def __call__(self, x: torch.Tensor, mask: torch.Tensor | None = None,

@@ -29,8 +29,17 @@ the host resolves, once, the window chunk each split deposit is flushed
 into (io/router_format.deposit_targets with the block map qblk2), so K8
 and K9 are independent copies. Each wrapper runs its kernel on CUDA
 tensors and its plain PyTorch version (`*_plain`: index copies expanded
-from the descriptors, `scatter_reduce_` amax) only when given CPU tensors;
-each launch adds one to `launches[name]`.
+from the descriptors or the pieces, `scatter_reduce_` amax) only when
+given CPU tensors; each launch adds one to `launches[name]`.
+
+K8 does not read the deposit planes (1 KB a piece, a byte a lane, almost
+all empty). At init the engine derives from them, on the device, its
+compact form (`split_pieces`): for each live piece its source and target
+chunks and first element, one run word per sublane (each (piece,
+sublane) moves one contiguous destination run: d0 << 7 | n << 14, the
+word format of csrc/piece_runs.cuh with a0 unused), and one source-lane
+byte per moved element. The planes then leave the device; `init_seconds`
+times the form.
 
 x must be >= 0 (distances): padding A-slots hold FLOAT_INF, the tropical
 annihilator, and the encoding orders only non-negative floats. SpMSpV
@@ -42,6 +51,7 @@ guard batching are TPU-only and not carried over.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -69,6 +79,57 @@ class TropicalPass1(PlanarSpMV):
 
 
 @dataclasses.dataclass
+class SplitPieces:
+    """K8's compact form of the deposit planes (`split_pieces`): the live
+    pieces in descriptor-slot order."""
+
+    pieces: torch.Tensor   # (P, 4) int32: source chunk of g1 (through
+                           # in_order), target chunk of g2, first element
+                           # in `lanes`, 0
+    runs: torch.Tensor     # (P, 8) int32: d0 << 7 | n << 14 per sublane
+    lanes: torch.Tensor    # (N,) uint8: source lane of each moved element,
+                           # piece-major, then sublane, then destination
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.pieces, self.runs, self.lanes))
+
+
+def split_pieces(rg2: torch.Tensor, planes2: torch.Tensor,
+                 in_order: torch.Tensor, target2: torch.Tensor, kb: int,
+                 dstep2: int) -> SplitPieces:
+    """K8's compact form, with torch ops on the planes' device: every plane
+    entry v < 0 of a live piece (rg2 w2 > 0; plane w1 >> 8 of its step)
+    moves g1[in_order[t*kb + (w1 & 0xFF)]][s, v & 127] to
+    g2[target2[t, j]][s, l]. Raises unless each (piece, sublane) moves one
+    contiguous run of destination lanes."""
+    nsteps2 = rg2.shape[0]
+    t, j = torch.nonzero(rg2[:, :dstep2, 1] > 0, as_tuple=True)
+    w1 = rg2[t, j, 0].long()
+    planes = planes2.view(nsteps2, -1, CHUNK)
+    piece, e = torch.nonzero(planes[t, w1 >> 8] < 0, as_tuple=True)
+    lanes = (planes[t[piece], (w1 >> 8)[piece], e] & (L - 1)).to(torch.uint8)
+    npieces = len(t)
+    run = piece * S + e // L                    # (piece, sublane) of each
+    lane = e % L
+    n = torch.bincount(run, minlength=npieces * S)
+    d0 = torch.full((npieces * S,), L, dtype=torch.int64, device=e.device)
+    d0.scatter_reduce_(0, run, lane, "amin")
+    last = torch.full_like(d0, -1).scatter_reduce_(0, run, lane, "amax")
+    if not bool(((n == 0) | (last - d0 + 1 == n)).all()):
+        raise ValueError("a split piece's destination lanes are not a run")
+    d0 = torch.where(n > 0, d0, 0)
+    count = n.view(npieces, S).sum(1)
+    first = torch.cumsum(count, 0) - count
+    src = in_order.long()[t * kb + (w1 & 0xFF)]
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    return SplitPieces(
+        pieces=i32(torch.stack([src, target2[t, j].long(), first,
+                                torch.zeros_like(first)], 1)),
+        runs=i32((d0 << 7 | n << 14).view(npieces, S)), lanes=lanes)
+
+
+@dataclasses.dataclass
 class TropicalArrays:
     """The split and reduce streams on one device, flattened, plus the
     host-built split targets. Pass 1's are its PlanarArrays."""
@@ -76,7 +137,7 @@ class TropicalArrays:
     in_order: torch.Tensor         # (nsteps2*kb,) int32
     rg2: torch.Tensor              # (nsteps2, rstep2, 2) int32
     target2: torch.Tensor          # (nsteps2, dstep2) int32
-    planes2: torch.Tensor | None   # (nsteps2*dmax2*1024,) int8; "planes"
+    split: SplitPieces | None      # K8's form of the planes; "planes"
     xsort2: torch.Tensor | None    # (nsteps2*kb*1024,) int32; "triples"
     tri2: torch.Tensor | None      # (nsteps2, dstep2, 8) int32; "triples"
     c_win: torch.Tensor            # (nchunks2,) int32
@@ -107,7 +168,7 @@ class TropicalSpMV:
         self.num_windows = lay.num_windows
         self.kb, self.f2 = lay.kb, lay.f2
         self.nsteps2, self.rstep2 = lay.nsteps2, lay.rstep2
-        self.dstep2, self.dmax2 = lay.dstep2, lay.dmax2
+        self.dstep2 = lay.dstep2
         self.nchunks2 = len(lay.c_win)           # window-stream chunks
         self.triples = lay.triples2 is not None
         if int(lay.c_win.max(initial=-1)) >= self.num_windows:
@@ -115,11 +176,17 @@ class TropicalSpMV:
         dev = self.planar._dev
         target2 = deposit_targets(lay.rg2, lay.dstep2, lay.f2,
                                   block=lay.qblk2)
+        rg2 = dev(lay.rg2).reshape(lay.nsteps2, lay.rstep2, 2)
+        target2 = dev(target2).reshape(lay.nsteps2, lay.dstep2)
+        in_order = dev(lay.in_order)
+        t0 = time.perf_counter()
+        split = None if self.triples else split_pieces(
+            rg2, dev(lay.planes2), in_order, target2, lay.kb, lay.dstep2)
+        if self.planar.device.type == "cuda":
+            torch.cuda.synchronize(self.planar.device)
+        self.init_seconds = time.perf_counter() - t0   # K8's form
         self.arrays = TropicalArrays(
-            in_order=dev(lay.in_order),
-            rg2=dev(lay.rg2).reshape(lay.nsteps2, lay.rstep2, 2),
-            target2=dev(target2).reshape(lay.nsteps2, lay.dstep2),
-            planes2=None if self.triples else dev(lay.planes2),
+            in_order=in_order, rg2=rg2, target2=target2, split=split,
             xsort2=dev(lay.xsort2) if self.triples else None,
             tri2=(dev(run_words(lay.triples2, lay.nsteps2, lay.dstep2))
                   .reshape(lay.nsteps2, lay.dstep2, S)
@@ -173,7 +240,8 @@ class TropicalSpMV:
     # ---- K8 / K9 split -------------------------------------------------------
     def split(self, g1: torch.Tensor) -> torch.Tensor:
         """g1 into the window stream g2, (nchunks2, 8, 128) int32: K8 over
-        the deposit planes, or K9 over the sort planes and run words."""
+        the planes' compact form, or K9 over the sort planes and run
+        words."""
         a = self.arrays
         g1 = g1.reshape(-1)
         if not self._check_stream(g1, self.g1_numel, "g1"):
@@ -191,11 +259,10 @@ class TropicalSpMV:
                 self.dstep2, stream)
         else:
             name = "split"
+            p = a.split
             rc = lib.glt_tropical_split(
-                a.rg2.data_ptr(), a.planes2.data_ptr(), a.in_order.data_ptr(),
-                a.target2.data_ptr(), g1.data_ptr(), g2.data_ptr(),
-                self.nsteps2, self.kb, self.rstep2, self.dstep2, self.dmax2,
-                stream)
+                p.pieces.data_ptr(), p.runs.data_ptr(), p.lanes.data_ptr(),
+                g1.data_ptr(), g2.data_ptr(), p.pieces.shape[0], stream)
         self.planar._raise_on(rc, f"glt_tropical_{name}")
         self.launches[name] += 1
         return g2.view(self.nchunks2, S, L)
@@ -221,38 +288,52 @@ class TropicalSpMV:
     # ---- plain PyTorch versions ----------------------------------------------
     def split_index(self) -> dict:
         """Per-element index vectors of the split's plain version, expanded
-        once from the descriptor words (padding slots skipped): `src` (g1
-        position of each moved element) and `dst` (its g2 position)."""
+        once from the pieces' run words (K9: the descriptor words, padding
+        slots skipped): `src` (g1 position of each moved element) and `dst`
+        (its g2 position)."""
         if self._split_index is not None:
             return self._split_index
         a = self.arrays
+        if not self.triples:
+            self._split_index = self._pieces_index(a.split)
+            return self._split_index
         w1 = a.rg2[:, :self.dstep2, 0].long()
         t, j = torch.nonzero(a.rg2[:, :self.dstep2, 1] > 0, as_tuple=True)
         w1 = w1[t, j]
         pos = t * self.kb + (w1 & 0xFF)
         chunk = a.in_order.long()[pos]
         tgt = a.target2.long()[t, j]
-        if self.triples:
-            words = a.tri2[t, w1 >> 8].long().reshape(-1)   # (pieces*8,)
-            a0, d0, n = words & 127, (words >> 7) & 127, (words >> 14) & 255
-            nel = int(n.sum())
-            run = torch.repeat_interleave(
-                torch.arange(len(n), device=n.device), n, output_size=nel)
-            off = (torch.arange(nel, device=n.device)
-                   - (torch.cumsum(n, 0) - n)[run])
-            piece, s = run // S, run % S
-            sorted_lane = (a0[run] + off) & (L - 1)
-            lane = a.xsort2.long()[pos[piece] * CHUNK + s * L + sorted_lane]
-            src = chunk[piece] * CHUNK + s * L + lane
-            dst = tgt[piece] * CHUNK + s * L + d0[run] + off
-        else:
-            planes = a.planes2.view(self.nsteps2, self.dmax2, CHUNK)
-            pc, e = torch.nonzero(planes[t, w1 >> 8] < 0, as_tuple=True)
-            v = planes[t[pc], (w1 >> 8)[pc], e].long() & (L - 1)
-            src = chunk[pc] * CHUNK + (e & ~(L - 1)) + v
-            dst = tgt[pc] * CHUNK + e
+        words = a.tri2[t, w1 >> 8].long().reshape(-1)   # (pieces*8,)
+        a0, d0, n = words & 127, (words >> 7) & 127, (words >> 14) & 255
+        nel = int(n.sum())
+        run = torch.repeat_interleave(
+            torch.arange(len(n), device=n.device), n, output_size=nel)
+        off = (torch.arange(nel, device=n.device)
+               - (torch.cumsum(n, 0) - n)[run])
+        piece, s = run // S, run % S
+        sorted_lane = (a0[run] + off) & (L - 1)
+        lane = a.xsort2.long()[pos[piece] * CHUNK + s * L + sorted_lane]
+        src = chunk[piece] * CHUNK + s * L + lane
+        dst = tgt[piece] * CHUNK + s * L + d0[run] + off
         self._split_index = dict(src=src, dst=dst)
         return self._split_index
+
+    @staticmethod
+    def _pieces_index(p: SplitPieces) -> dict:
+        """`src` and `dst` of every element of K8's form: run r = (piece,
+        sublane s) moves lanes[first + ...] of sublane s to lanes d0 + i."""
+        words = p.runs.long().reshape(-1)
+        d0, n = (words >> 7) & 127, (words >> 14) & 255
+        nel = p.lanes.numel()
+        run = torch.repeat_interleave(torch.arange(len(n), device=n.device),
+                                      n, output_size=nel)
+        off = (torch.arange(nel, device=n.device)
+               - (torch.cumsum(n, 0) - n)[run])
+        piece, s = run // S, run % S
+        src = (p.pieces[:, 0].long()[piece] * CHUNK + s * L
+               + p.lanes.long())
+        dst = p.pieces[:, 1].long()[piece] * CHUNK + s * L + d0[run] + off
+        return dict(src=src, dst=dst)
 
     def split_plain(self, g1: torch.Tensor) -> torch.Tensor:
         """K8's and K9's plain version: index_copy_ of g1's elements into

@@ -7,7 +7,10 @@ K3p, K4p, K7p and K11p (SpMSpV, for empty, 1-vertex and 5% frontiers)
 against their plain PyTorch versions and the unpredicated kernels, on the
 card. The chunked kernel also runs on small block tables that stress its
 shared tile (a hub window over many blocks, empty window groups), and K4
-fused on PERM-C, "free" and "bucket" layouts of the hub-column graph.
+fused on PERM-C, "free" and "bucket" layouts of the hub-column graph. K1
+and K1p run over their derived form in both orders and on block tables
+that cut deposits; K8 over its compact form against a walk of the deposit
+planes, on pieces longer than a warp's pass.
 
 Needs a CUDA card and nvcc; every test skips without a card. Imports only
 torch and the port (no jax), so on a machine without jax it runs as
@@ -41,6 +44,8 @@ from graphlily_tpu_torch.module import SpMVModule
 from graphlily_tpu_torch.ops import (RouterSpMV, PlanarSpMV, ChunkedSpMV,
                                      TropicalSpMV)
 from graphlily_tpu_torch.ops.chunked import chunk_entries
+from graphlily_tpu_torch.ops.router import router_entries
+from graphlily_tpu_torch.io.router_format import deposit_targets
 
 from test_torch_fixtures import (FIXTURES, PLANAR_FIXTURES, CHUNKED_FIXTURES,
                                  TROPICAL_FIXTURES, hub_window_csr)
@@ -674,3 +679,172 @@ def test_tropical_sssp_on_card(cuda):
     for key in ("scatter", "scatter_pred", "window_reduce"):
         assert eng.launches[key] > 0, key
     assert eng.launches[SPLIT_KEY["triples" if eng.triples else "planes"]] > 0
+
+
+# ---- K1 and K8 over the forms derived at engine init -------------------------
+ROUTER_ORDERS = ["deposit", "row"]
+
+
+def _router_x(ncols, seed=7):
+    rng = np.random.default_rng(seed)
+    x = rng.random(ncols).astype(np.float32) + 0.5
+    x[rng.random(ncols) < 0.3] = 0.0
+    return x
+
+
+def _router_engine(name, semiring, **entries_kw):
+    build, region_rows = FIXTURES[name]
+    csr = build()
+    lay = pack_router(csr, region_rows=region_rows)
+    eng = RouterSpMV(lay, semiring, EngineConfig(device="cuda"))
+    if entries_kw:
+        eng.use_entries(router_entries(eng, **entries_kw))
+    return csr, lay, eng
+
+
+def _check_k1(eng, xt, semiring, label, act=None):
+    """K1 (K1p with `act`) against the plain walk of its form, K2 -> K3's
+    plain versions and, predicated, the unpredicated kernel: ANDOR
+    bit-equal, MULADD within 1e-5 of max|y|."""
+    if act is None:
+        y = eng.fused_spmv(xt)
+        refs = (eng.fused_entries_plain(xt), eng.fused_plain(xt))
+    else:
+        y = eng.fused_predicated(xt, act)
+        refs = (eng.fused_entries_plain(xt, act),
+                eng.fused_plain(xt, None, act), eng.fused_spmv(xt))
+    torch.cuda.synchronize()
+    for ref in refs:
+        _check_predicated(y, ref, ref, semiring, label)
+    return y
+
+
+@pytest.mark.parametrize("order", ROUTER_ORDERS)
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("name", list(FIXTURES))
+def test_router_fused_entries_match_plain(name, semiring, order, cuda):
+    """K1 over its derived form, in row order (the engine's) or deposit
+    order (K1p's), against the form's plain walk, K2 -> K3's plain versions
+    and the float64 oracle."""
+    csr, lay, eng = _router_engine(name, semiring, order=order)
+    x = _router_x(lay.num_cols)
+    y = _check_k1(eng, torch.from_numpy(x).to(cuda), semiring, name)
+    assert eng.launches["fused"] == 1
+    _assert_close_to_oracle({"K1": y}, _oracle(csr, semiring, x),
+                            lay.num_rows, semiring)
+
+
+@pytest.mark.parametrize("kind", FRONTIERS)
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("name", list(FIXTURES))
+def test_router_fused_pred_entries_match_plain(name, semiring, kind, cuda):
+    """K1p over the deposit-order form at empty, 1-vertex and 5% frontiers
+    against the form's plain walk, K2p -> K3's plain versions and K1."""
+    _, lay, eng = _router_engine(name, semiring)
+    xt = torch.from_numpy(_frontier(lay.num_cols, kind, 0.0)).to(cuda)
+    y = _check_k1(eng, xt, semiring, f"{name} {kind}", eng.activity(xt))
+    assert eng.launches["fused_pred"] == 1
+    if kind == "empty":
+        assert not y.any()
+
+
+@pytest.mark.parametrize("kind", ["full", *FRONTIERS])
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("block_entries", [20, 100])
+@pytest.mark.parametrize("name", ["dense", "hub_page", "region_1024"])
+def test_router_fused_deposit_across_blocks(name, block_entries, semiring,
+                                            kind, cuda):
+    """Blocks that start inside a segment (a deposit for K1p, a region's
+    column window for K1), at an offset that is not a multiple of 8, and
+    K1's forms cut to windows of 1,024 columns: K1 and K1p against their
+    plain versions."""
+    _, lay, eng = _router_engine(name, semiring)
+    eng.use_entries(router_entries(eng, "row", block_entries, col_bits=10))
+    eng.use_entries(router_entries(eng, "deposit", block_entries), pred=True)
+    for e in (eng.entries, eng.pred_entries):
+        starts = set(e.deps[:, 0].tolist())
+        e0 = e.blocks[:, 0].tolist()
+        assert any(b not in starts for b in e0)
+        assert any(b % 8 for b in e0)
+    if kind == "full":
+        _check_k1(eng, torch.from_numpy(_router_x(lay.num_cols)).to(cuda),
+                  semiring, name)
+    else:
+        xt = torch.from_numpy(_frontier(lay.num_cols, kind, 0.0)).to(cuda)
+        _check_k1(eng, xt, semiring, f"{name} {kind}", eng.activity(xt))
+
+
+@pytest.mark.parametrize("order", ROUTER_ORDERS)
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+def test_router_fused_row_run_across_warps(semiring, order, cuda):
+    """Runs of one row crossing a warp's 256 elements (the RMAT graph's
+    hub rows, runs of up to 383 elements in deposit order): each folds
+    across lanes and warps; K1 against its plain versions."""
+    _, lay, eng = _router_engine("rmat", semiring, order=order)
+    row = eng.entries_index()[1].cpu().numpy()
+    edge = np.arange(256, len(row), 256)
+    assert (row[edge - 1] == row[edge]).any()
+    assert eng.entries.blocks.shape[0] > 1
+    _check_k1(eng, torch.from_numpy(_router_x(lay.num_cols)).to(cuda),
+              semiring, f"rmat {order}")
+
+
+def planes_walk(lay, g1: np.ndarray) -> np.ndarray:
+    """The split over the layout's deposit planes, in numpy: every entry
+    v < 0 of a live piece's plane at (s, l) moves g1[in_order[t*kb + k]][s,
+    v & 127] to g2[target2[t, j]][s, l] (K8 before its compact form)."""
+    g1 = np.asarray(g1).reshape(-1)
+    target = deposit_targets(lay.rg2, lay.dstep2, lay.f2, block=lay.qblk2)
+    t, j = np.nonzero(lay.rg2[:, :lay.dstep2, 1] > 0)
+    w1 = lay.rg2[t, j, 0].astype(np.int64)
+    planes = lay.planes2.reshape(lay.nsteps2, -1, 1024)[t, w1 >> 8]
+    pc, e = np.nonzero(planes < 0)
+    chunk = lay.in_order.astype(np.int64)[t * lay.kb + (w1 & 0xFF)]
+    src = chunk[pc] * 1024 + (e & ~127) + (planes[pc, e].astype(np.int64)
+                                           & 127)
+    out = np.zeros(len(lay.c_win) * 1024, np.int32)
+    out[target[t, j].astype(np.int64)[pc] * 1024 + e] = g1[src]
+    return out.reshape(-1, 8, 128)
+
+
+@pytest.mark.parametrize("deal", ["free", "bucket"])
+@pytest.mark.parametrize("name", list(TROPICAL_FIXTURES))
+def test_split_pieces_match_planes_walk(name, deal, cuda):
+    """K8 over its compact form bit-equal to its plain version and to the
+    walk of the layout's deposit planes, on a random g1 (every value
+    moves)."""
+    build, region_rows, kb = TROPICAL_FIXTURES[name]
+    lay = pack_tropical(build(), EngineConfig(planar_deal=deal),
+                        region_rows=region_rows, kb=kb,
+                        split_format="planes")
+    eng = TropicalSpMV(lay, TropicalSemiring, EngineConfig(device="cuda"))
+    g1 = np.random.default_rng(3).integers(
+        1, 2**31 - 1, eng.g1_numel).astype(np.int32)
+    g1t = torch.from_numpy(g1).to(cuda)
+    g2 = eng.split(g1t)
+    torch.cuda.synchronize()
+    assert eng.launches["split"] == 1
+    assert _same_bits(g2, eng.split_plain(g1t))
+    np.testing.assert_array_equal(g2.cpu().numpy(), planes_walk(lay, g1))
+
+
+def test_split_pieces_cross_passes_and_blocks(cuda):
+    """Pieces longer than a warp's 64 elements (two 32-element passes at
+    once) and than 128, and a last block of fewer than 8 pieces: K8
+    bit-equal to the planes walk."""
+    build, region_rows, kb = TROPICAL_FIXTURES["hub_row"]
+    lay = pack_tropical(build(), EngineConfig(), region_rows=region_rows,
+                        kb=kb, split_format="planes")
+    eng = TropicalSpMV(lay, TropicalSemiring, EngineConfig(device="cuda"))
+    p = eng.arrays.split
+    count = ((p.runs.long() >> 14) & 255).sum(1)
+    assert int(count.max()) > 128 and p.pieces.shape[0] % 8
+    g1 = np.random.default_rng(5).integers(
+        1, 2**31 - 1, eng.g1_numel).astype(np.int32)
+    g2 = eng.split(torch.from_numpy(g1).to(cuda))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(g2.cpu().numpy(), planes_walk(lay, g1))
