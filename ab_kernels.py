@@ -14,8 +14,13 @@ new, old (CUDA events, min over 5 reps of 100 calls each). Rows:
   chunked MULADD   googleplus, engine="pallas", degree-sorted
   K7p ADDMIN       SSSP's SpMSpV layout (chunk_order="col") at empty,
                    1-vertex and 5% frontiers
-  K4 fused         pokec PageRank's "free" layout, MULADD
-  K4 fused PERM-C  pokec BFS's PERM-C layout, MULADD
+  K4 fused         pokec PageRank's "free" layout, MULADD and ANDOR (a
+                   5% 0/1 x), beside torch.mv on the same MULADD SpMV,
+                   this tree's form at column windows of 2**11-2**18
+                   columns and 2,048 and 8,192 elements a block, ANDOR
+                   with its value stream and, with `--ablations`, K1's
+                   ablation trees on the same form
+  K4 fused PERM-C  pokec BFS's PERM-C layout, the same rows
   K4p fused        ANDOR engines on both layouts, empty, 1-vertex and 5%
   K1 MULADD/ANDOR  googleplus, degree-sorted (the PageRank and BFS layout),
                    beside torch.mv (cuSPARSE) on the same MULADD SpMV, K1
@@ -205,13 +210,13 @@ def capture_layouts(scale: float, kernels) -> dict:
         t0 = time.perf_counter()
         pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine=engine))
         pr.load_and_format_matrix(p, 0.9)
-        out["free"] = got[-1]
+        out["free"], out["free_csr"] = got[-1], pr.SpMV_.csr_matrix_
         log(f"pokec free layout: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         bfs = BFS(EngineConfig(sort_rows_by_degree=True, engine=engine,
                                planar_deal="permc"))
         bfs.load_and_format_matrix(p)
-        out["permc"] = got[-1]
+        out["permc"], out["permc_csr"] = got[-1], bfs.SpMV_.csr_matrix_
         log(f"pokec PERM-C layout: {time.perf_counter() - t0:.1f} s")
     finally:
         for (mod, name), fn in saved.items():
@@ -344,22 +349,75 @@ def main(argv=None) -> int:
         del engs
 
     def planar():
-        """K4 fused and K4p fused, "free" and PERM-C."""
+        """K4 fused, "free" and PERM-C: the parent's stream walk against
+        this tree's row-sorted form through K1's kernel, beside torch.mv,
+        the form cut into other column windows and block sizes, ANDOR with
+        its value stream, and the ablations; K4p fused at three
+        frontiers."""
+        import copy
+        form = lambda e: {"elements": e.entries.idx.numel(),
+                          "segments": e.entries.deps.shape[0],
+                          "blocks": e.entries.blocks.shape[0],
+                          "max_segments": e.entries.max_segments,
+                          "col_bits": e.entries.col_bits,
+                          "device_MB": e.entries.nbytes() / 1e6,
+                          "init_s": e.init_seconds}
+
+        def variant(eng, **kw):
+            """`eng` sharing its arrays, over another cut of its form."""
+            v = copy.copy(eng)
+            e = eng.entries
+            v.use_entries(new.ops.router.router_entries(v, "row", **{
+                "col_bits": e.col_bits, "values": e.vals is not None, **kw}))
+            log(f"  form {kw}: {form(v)}")
+            return v
+
         for key, label in (("free", "K4 fused"), ("permc", "K4 fused PERM-C")):
-            lay = lays[key]
+            lay, csr = lays[key], lays[f"{key}_csr"]
             xt = torch.from_numpy(np.random.default_rng(9).random(
                 lay.num_cols).astype(np.float32)).to("cuda")
-            engs = engines("PlanarSpMV", lay, "ArithmeticSemiring")
-            ab(f"{label} MULADD (pokec)", engs, lambda e: e.fused_spmv(xt),
-               False, lambda e: {"a_col_MB": 2 * e.arrays.a_col.numel() / 1e6})
-            del engs
+            xbool = torch.from_numpy((np.random.default_rng(10).random(
+                lay.num_cols) < 0.05).astype(np.float32)).to("cuda")
+            nnz = csr.nnz
+            mat = torch.sparse_csr_tensor(
+                torch.from_numpy(csr.adj_indptr.astype(np.int64)),
+                torch.from_numpy(csr.adj_indices[:nnz].astype(np.int64)),
+                torch.from_numpy(csr.adj_data[:nnz].astype(np.float32)),
+                size=(csr.num_rows, csr.num_cols)).to("cuda")
+            for semiring, x, name in (
+                    ("ArithmeticSemiring", xt, "MULADD"),
+                    ("LogicalSemiring", xbool, "ANDOR")):
+                engs = engines("PlanarSpMV", lay, semiring)
+                eng = engs["new"]
+                log(f"{label} {name} form: {form(eng)}")
+                vs = {f"col_bits={b}": variant(eng, col_bits=b)
+                      for b in (11, 12, 13, 15, 16, 18)}
+                vs.update({f"E={n}": variant(eng, block_entries=n)
+                           for n in (2048, 8192)})
+                if name == "ANDOR":
+                    vs["with values"] = variant(eng, values=True)
+                for abl, pkg in ablated.items():
+                    if abl.startswith("k1_"):
+                        vs[abl] = pkg.ops.PlanarSpMV(
+                            lay, getattr(pkg, semiring),
+                            pkg.EngineConfig(device="cuda"))
+                more = {k: (lambda v=v: v.fused_spmv(x))
+                        for k, v in vs.items()}
+                if name == "MULADD":
+                    more["torch.mv"] = lambda: torch.mv(
+                        mat, x[:csr.num_cols])
+                ab(f"{label} {name} (pokec)", engs,
+                   lambda e: e.fused_spmv(x), name == "ANDOR", form, more,
+                   unchecked=("torch.mv", *[k for k in vs
+                                            if k.startswith("k1_")]))
+                del engs, eng, vs, more
             engs = engines("PlanarSpMV", lay, "LogicalSemiring")
             for kind in ("empty", "one", "5pct"):
                 xf = frontier(torch, lay.num_cols, kind, 0.0, rng)
                 act = engs["new"].activity(xf)
                 ab(f"K4p{label[2:]} ANDOR {kind}", engs,
                    lambda e, xf=xf, act=act: e.fused_predicated(xf, act), True)
-            del engs
+            del engs, mat
 
     def router():
         """K1 (MULADD, ANDOR) beside torch.mv, the row-ordered form, other

@@ -7,9 +7,10 @@ calls, and checks every result against the float64 oracles:
   * the googleplus stand-in (RMAT, 107,614 vertices, 13,673,453 edges,
     seed 0, degree-sorted) through the roll router (K1, K2, K3);
   * the pokec stand-in (RMAT, 1,632,803 vertices, 30,622,564 edges,
-    seed 0, degree-sorted) through the planar router (K4 fused, K4
-    scatter -> K3, and K5 under planar_deal="bucket" on a quarter of
-    it);
+    seed 0, degree-sorted) through the planar router (K4 fused, which
+    is K1's kernel over the engine's row-sorted element form, K4 scatter
+    -> K3, and K5 under planar_deal="bucket" on a quarter of it, in its
+    split branch);
   * SSSP on the googleplus stand-in (self edges added: 13,780,368 nnz),
     through the chunked engine (the K6/K7 kernel), and PageRank and BFS
     on the googleplus stand-in at scale 0.1, which the ladder also sends
@@ -24,8 +25,8 @@ calls, and checks every result against the float64 oracles:
     tropical engine by name in the "triples" split format (K9);
   * BFS pull, push and pull_push on the full pokec stand-in and PageRank
     on a quarter of it with planar_deal="permc" (PERM-C layouts, packed
-    by the C++ greedy): K4 fused and K4p fused on PERM-C rows, K4 scatter
-    -> K11 and K4p scatter -> K11p.
+    by the C++ greedy): K4 fused over the same form, K4p fused on PERM-C
+    rows, K4 scatter -> K11 and K4p scatter -> K11p.
 
 Phases, one or more lines each:
 
@@ -44,16 +45,20 @@ Phases, one or more lines each:
                ms/iter, BFS pull ms
   7. pokec     the graph, then PageRank and BFS formatted through
                EngineConfig(sort_rows_by_degree=True) (engine "auto" ->
-               planar, deal "free"), layout facts and pack seconds, K4
-               fused's tile columns (init seconds, bytes);
+               planar, deal "free"), layout facts and pack seconds, the
+               derived forms (K4 fused's row form: init seconds, MB,
+               segments, blocks, the y atomics it issues at most; K4p
+               fused's tile columns);
                a third BFS packs the "bucket" deal on the stand-in at
                scale 0.25 (BUCKET_SCALE)
   8. apps      pokec PageRank.pull(0.9, 10) and BFS.pull(0, 11) fused and
-               split, and BFS.pull(0, 11) on the bucket layout (K5)
+               split, and BFS.pull(0, 11) on the bucket layout fused and
+               split (K5 -> K4 scatter -> K3)
   9. kernels   pokec, on the apps' engines: K4 fused and K4 scatter -> K3
                against their plain versions and the oracle, MULADD
                (PageRank's engine) and ANDOR (BFS's); K4's flush stream
-               and K5's x2 bit-equal to their plain versions
+               and K5's x2 bit-equal to their plain versions; bucket
+               ANDOR K4 fused bit-equal to its plain versions
   10. times    pokec, as phase 6, plus the planar engine call fused and
                split
   11. sssp     googleplus SSSP(EngineConfig(sort_rows_by_degree=True)):
@@ -111,7 +116,7 @@ Phases, one or more lines each:
                planar_deal="permc")) on the full graph (engine "auto" ->
                planar; SpMSpV shares it): g++ build, C++ greedy, pack and
                load seconds, layout facts (row runs, elements a run),
-               K4 fused's tile columns;
+               the derived forms as in phase 7;
                pull(0, 11) fused and split, push(0, 11) fused and split,
                pull_push(0, 11, 0.05) bit-equal to the oracle; PageRank
                pull(0.9, 10) on PERM-C on the quarter graph of phase 7; a
@@ -166,7 +171,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K2_router_scatter": (ROUTER_SRC,
                           "graphlily_tpu/ops/router_pallas.py:368"),
     "K3_router_reduce": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:756"),
-    "K4_planar_fused": (PLANAR_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
+    # K4 fused runs K1's kernel over the planar engine's row-sorted form
+    "K4_planar_fused": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
     "K4_planar_scatter": (PLANAR_SRC,
                           "graphlily_tpu/ops/router_pallas.py:1398"),
     "K5_planar_xperm": (PLANAR_SRC, "graphlily_tpu/ops/router_pallas.py:924"),
@@ -207,7 +213,7 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K11_permc_reduce": (PERMC_SRC, "graphlily_tpu/ops/router_pallas.py:851"),
     "K11p_permc_reduce_pred": (PERMC_SRC,
                                "graphlily_tpu/ops/router_pallas.py:851"),
-    "K4_planar_fused_permc": (PLANAR_SRC,
+    "K4_planar_fused_permc": (ROUTER_SRC,
                               "graphlily_tpu/ops/router_pallas.py:1459"),
     "K4p_planar_fused_pred_permc": (
         PLANAR_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
@@ -314,22 +320,27 @@ def router_traffic(eng, act=None) -> dict:
                 stream=4 * eng.nsteps * eng.f * 1024)
 
 
-def router_forms(eng) -> str:
-    """The roll engine's derived forms for the log: K1's (row order) and
-    K1p's (deposit order), with the y atomics each issues at most on a
-    full x: one per run of one row inside a warp pass's 256 elements."""
+def form_facts(label: str, e) -> str:
+    """One element form (ops/router.RouterEntries) for the log, with the y
+    atomics K1's kernel issues on it at most on a full x: one per run of
+    one row inside a warp pass's 256 elements."""
     import torch
     from graphlily_tpu_torch.ops.router import entries_index
-    out = [f"derived forms: init {eng.init_seconds:.2f} s"]
-    for label, e in (("K1", eng.entries), ("K1p", eng.pred_entries)):
-        row = entries_index(e)[1]
-        pos = torch.arange(row.numel(), device=row.device)
-        head = (row[1:] != row[:-1]) | (pos[1:] % 256 == 0)
-        out.append(f"{label} {e.order} order: {e.vals.numel()} elements, "
-                   f"{e.deps.shape[0]} segments, {e.blocks.shape[0]} blocks,"
-                   f" {e.nbytes() / 1e6:.1f} MB, y atomics at most "
-                   f"{int(head.sum()) + 1}")
-    return "; ".join(out)
+    row = entries_index(e)[1]
+    pos = torch.arange(row.numel(), device=row.device)
+    head = (row[1:] != row[:-1]) | (pos[1:] % 256 == 0)
+    return (f"{label} {e.order} order: {e.idx.numel()} elements, "
+            f"{e.deps.shape[0]} segments, {e.blocks.shape[0]} blocks, "
+            f"col_bits {e.col_bits}, {e.nbytes() / 1e6:.1f} MB, y atomics "
+            f"at most {int(head.sum()) + 1}")
+
+
+def router_forms(eng) -> str:
+    """The roll engine's derived forms for the log: K1's (row order) and
+    K1p's (deposit order)."""
+    return "; ".join([f"derived forms: init {eng.init_seconds:.2f} s",
+                      form_facts("K1", eng.entries),
+                      form_facts("K1p", eng.pred_entries)])
 
 
 def router_bounds(eng, act=None) -> dict:
@@ -644,12 +655,17 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     dist_split = bfs.pull(0, iters)
     bfs_eng.fused = True
     dist_bucket = bfsb.pull(0, iters)
+    bfsb_eng.fused = False   # K5 runs in the bucket deal's split branch
+    dist_bucket_split = bfsb.pull(0, iters)
+    bfsb_eng.fused = True
     torch.cuda.synchronize()
     engines = (pr_eng, bfs_eng, bfsb_eng)
     rec["K4_planar_fused"]["launches"] = sum(e.launches["fused"]
                                              for e in engines)
-    rec["K4_planar_scatter"]["launches"] = bfs_eng.launches["scatter"]
-    rec["K3_router_reduce"]["launches"] += bfs_eng.launches["reduce"]
+    rec["K4_planar_scatter"]["launches"] = sum(e.launches["scatter"]
+                                               for e in engines)
+    rec["K3_router_reduce"]["launches"] += sum(e.launches["reduce"]
+                                               for e in engines)
     rec["K5_planar_xperm"]["launches"] = bfsb_eng.launches["xperm"]
     log(f"phase 8 launches: pagerank {pr_eng.launches} bfs "
         f"{bfs_eng.launches} bfs bucket {bfsb_eng.launches}")
@@ -664,8 +680,11 @@ def pokec(torch, args, rec: dict, card: str) -> None:
         f"({int((want > 0).sum())} reached) ok")
     want_b = bfsb.compute_reference_results(0, iters)
     check_close("pokec bfs bucket", dist_bucket, want_b, exact=True)
+    check_close("pokec bfs bucket split", dist_bucket_split, want_b,
+                exact=True)
     log(f"phase 8 bfs pull(0, {iters}) deal=bucket (scale "
-        f"{BUCKET_SCALE * args.scale:g}): equal to the oracle "
+        f"{BUCKET_SCALE * args.scale:g}): fused (K4 fused, no K5) and split "
+        f"(K5 -> K4 scatter -> K3) equal to the oracle "
         f"({int((want_b > 0).sum())} reached) ok")
 
     # ---- 9. kernels vs plain versions, on the apps' engines ---------------
@@ -681,14 +700,20 @@ def pokec(torch, args, rec: dict, card: str) -> None:
         want = mod.compute_reference_results(x)
         y4 = eng.fused_spmv(xt)
         y4p = eng.fused_plain(xt)
+        y4e = eng.fused_entries_plain(xt)
         s4 = eng.scatter(xt)
         s4p = eng.scatter_plain(xt)
         y3 = eng.reduce(s4)
         y3p = eng.reduce_plain(s4)
         torch.cuda.synchronize()
         bit_equal(torch, f"pokec {label}: K4 stream", s4, s4p)
-        for name, y in (("K4 fused", y4), ("K4 fused plain", y4p),
-                        ("K3 (K4->K3)", y3), ("K3 plain", y3p)):
+        if exact:
+            bit_equal(torch, f"pokec {label}: K4 fused", y4, y4e)
+            bit_equal(torch, f"pokec {label}: K4 fused vs K4->K3 plain", y4,
+                      y4p)
+        for name, y in (("K4 fused", y4), ("K4 fused plain (form)", y4e),
+                        ("K4->K3 plain", y4p), ("K3 (K4->K3)", y3),
+                        ("K3 plain", y3p)):
             y = y.cpu().numpy()
             if exact:
                 y = (y != 0).astype(np.float64)
@@ -709,9 +734,16 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     bit_equal(torch, "pokec K5 x2", x2, x2p)
     rec["K5_planar_xperm"]["err"] = float((x2 - x2p).abs().max())
     sb, sbp = bfsb_eng.scatter(xb), bfsb_eng.scatter_plain(xb)
+    xbb = (xb < 0.05).to(torch.float32)
+    yb = bfsb_eng.fused_spmv(xbb)
     torch.cuda.synchronize()
     bit_equal(torch, "pokec bucket K5 -> K4 stream", sb, sbp)
-    log("phase 9 bucket: K5 x2 and K5 -> K4 stream bit-equal to plain; ok")
+    for name, yp in (("walk", bfsb_eng.fused_entries_plain(xbb)),
+                     ("K4 scatter -> K3", bfsb_eng.fused_plain(xbb))):
+        bit_equal(torch, f"pokec bucket ANDOR K4 fused ({name})", yb, yp)
+    log("phase 9 bucket: K5 x2 and K5 -> K4 stream bit-equal to plain; "
+        "ANDOR K4 fused (x columns resolved at init, no K5) bit-equal to "
+        "its form's walk and to K5 -> K4 scatter -> K3's plain versions ok")
 
     # ---- 10. times ----------------------------------------------------------
     eng, xt = pr_eng, spmv_x
@@ -719,7 +751,7 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     stream = eng.scatter(xt)
     timed = {
         "K4_planar_fused": (lambda: eng.fused_spmv(xt),
-                            lambda: eng.fused_plain(xt)),
+                            lambda: eng.fused_entries_plain(xt)),
         "K4_planar_scatter": (lambda: eng.scatter(xt),
                               lambda: eng.scatter_plain(xt)),
         "K3_router_reduce": (lambda: eng.reduce(stream),
@@ -755,7 +787,7 @@ def pokec(torch, args, rec: dict, card: str) -> None:
                      iters=5, reps=3)
     log(f"phase 10 pokec planar engine call: fused {spmv_ms:.4f} ms "
         f"({gteps(nnz, spmv_ms)}); split K4->K3 {split_ms:.4f} ms "
-        f"({gteps(nnz, split_ms)}); bucket ANDOR (K5 + K4 fused) "
+        f"({gteps(nnz, split_ms)}); bucket ANDOR (K4 fused) "
         f"{bucket_ms:.4f} ms ({gteps(bfsb_eng.nnz, bucket_ms)})")
     rec["K4_planar_fused"]["library_ms"] = library_mv(
         torch, pr.SpMV_.csr_matrix_, xt,
@@ -963,8 +995,10 @@ def chunked_form(eng, slots: int) -> str:
 
 
 def planar_form(eng) -> str:
-    """K4 fused's derived tile columns, for the log: init seconds, MB."""
-    return (f"K4 fused tile columns: init {eng.init_seconds:.2f} s, device "
+    """The planar engine's derived forms for the log: K4 fused's row form
+    and K4p fused's tile columns, their init seconds and MB."""
+    return (f"derived forms: init {eng.init_seconds:.2f} s; "
+            f"{form_facts('K4 fused', eng.entries)}; K4p fused tile columns "
             f"{2 * eng.arrays.a_col.numel() / 1e6:.1f} MB")
 
 
@@ -1652,10 +1686,12 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
     s, sp = muladd.scatter(xt), muladd.scatter_plain(xt)
     y11, y11p = muladd.reduce(s), muladd.reduce_plain(s)
     y4, y4p = muladd.fused_spmv(xt), muladd.fused_plain(xt)
+    y4e = muladd.fused_entries_plain(xt)
     torch.cuda.synchronize()
     bit_equal(torch, "PERM-C MULADD K4 stream", s, sp)
     for label, y in (("K4 scatter -> K11", y11), ("K11 plain", y11p),
-                     ("K4 fused PERM-C", y4), ("K4 fused plain", y4p),
+                     ("K4 fused PERM-C", y4), ("K4 fused plain (form)", y4e),
+                     ("K4->K3 plain", y4p),
                      ("engine call", muladd(xt))):
         err = check_close(f"PERM-C MULADD {label}", y.cpu().numpy(), want,
                           exact=False)
@@ -1666,8 +1702,10 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
     xa = (rng.random(eng.num_cols) < 0.05).astype(np.float32)
     xat = torch.from_numpy(xa).to(dev)
     sa = eng.scatter(xat)
+    y4a = eng.fused_spmv(xat)
     pairs = (("K11", eng.reduce(sa), eng.reduce_plain(sa)),
-             ("K4 fused PERM-C", eng.fused_spmv(xat), eng.fused_plain(xat)))
+             ("K4 fused PERM-C", y4a, eng.fused_plain(xat)),
+             ("K4 fused PERM-C (form)", y4a, eng.fused_entries_plain(xat)))
     torch.cuda.synchronize()
     want = bfs.SpMV_.compute_reference_results(xa)
     for label, y, yp in pairs:
@@ -1741,7 +1779,7 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
                                   lambda: muladd.reduce_plain(s),
                                   bounds["reduce"]),
              "K4_planar_fused_permc": (lambda: muladd.fused_spmv(xt),
-                                       lambda: muladd.fused_plain(xt),
+                                       lambda: muladd.fused_entries_plain(xt),
                                        bounds["fused"])}
     for name, (kernel, plain, (nbytes, nops)) in timed.items():
         r = rec[name]

@@ -1,6 +1,8 @@
-// Planar-router SpMV kernels for Hopper (sm_90a): K4 scatter, K4 fused,
-// K5 xperm, and the frontier-predicated K4p scatter and K4p fused (SpMSpV,
-// the `sm`/`na` launches of router_pallas.py:1747-1774). Built by
+// Planar-router SpMV kernels for Hopper (sm_90a): K4 scatter, K5 xperm,
+// and the frontier-predicated K4p scatter and K4p fused (SpMSpV, the
+// `sm`/`na` launches of router_pallas.py:1747-1774). K4 fused runs K1's
+// kernel (router_spmv.cu) over a row-sorted element form that the engine
+// derives from these arrays at init (ops/planar.py). Built by
 // graphlily_tpu_torch/ops/_build.py with nvcc into a shared library with a
 // plain C interface; ops/planar.py binds it with ctypes and holds each
 // kernel against its plain PyTorch version. The split branch reduces K4's
@@ -8,7 +10,7 @@
 // (ops/tropical.py) runs K4 scatter and K4p scatter in ADDMIN mode and
 // reduces their int32 stream with K8 or K9 and K10 (tropical_spmv.cu).
 //
-// All three read the PlanarSpMVLayout arrays of their Pallas twins in
+// All of them read the PlanarSpMVLayout arrays of their Pallas twins in
 // graphlily_tpu/ops/router_pallas.py (io/planar_format.py documents the
 // words), except the deposit planes: K4 reads each piece's 8 triple-run
 // words (io/planar_format.planes_to_triples), 32 B instead of the 1 KB
@@ -40,18 +42,19 @@
 // zeroes its slot, so every flushed element comes from exactly one piece
 // and unused elements stay zero: K4 scatter is a set of independent copies
 // into a zeroed stream (no atomics, bit-equal to its plain version), and
-// K4 fused adds each product straight into y with float atomics, summed
+// K4p fused adds each product straight into y with float atomics, summed
 // first over runs of equal rows within the warp (glt::warp_add_rows; a
-// piece's lanes are row-sorted within each sublane). K4 fused gathers
+// piece's lanes are row-sorted within each sublane). K4p fused gathers
 // through one int16 tile column per A slot, derived at engine init
 // (ops/planar.tile_columns), instead of the chain a_r -> a_sub -> x.
 //
-// Predication (kPred). A planar A-chunk mixes the 8 pages of its column
-// tile, so activity is per 1024-column tile (act[a_page[c]],
-// PlanarSpMV._normalize_act). A piece of an inactive tile gathers only
-// the semiring zero's products (for ADDMIN x = FLOAT_INF, encoded 0): K4p
-// skips it, so its stream elements stay zero, and the split branch's K3p
-// skips the flush chunks no live piece targets. The grid is the full one;
+// Predication (kPred; K4p fused always). A planar A-chunk mixes the 8
+// pages of its column tile, so activity is per 1024-column tile
+// (act[a_page[c]], PlanarSpMV._normalize_act). A piece of an inactive
+// tile gathers only the semiring zero's products (for ADDMIN x =
+// FLOAT_INF, encoded 0): K4p skips it, so its stream elements stay zero,
+// and the split branch's K3p skips the flush chunks no live piece
+// targets. The grid is the full one;
 // a dead warp exits after its descriptor word and the chunk's tile. K5 is
 // unchanged.
 
@@ -179,16 +182,19 @@ __global__ void __launch_bounds__(kThreads) planar_scatter_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K4 fused. Replaces _planar_fused_call with the bodies
+// K4p fused. Replaces _planar_fused_call with `sm`/`na` and the bodies
 // _make_planar_kernel / _make_planar_kernel_looped(fuse=True) and the
 // inline one-hot reduce _onehot_place (router_pallas.py:1459 -> pallas_call
-// :1509, :981, :1190, :88): K4 scatter's pieces, but each product goes
-// straight to its row of y, so the flush stream never reaches device
-// memory.
-// Bound on the H100: about 7 B of streams per nnz (fp32 value, int16 tile
-// column, int8 c_hi and c_lo at the element's stream position) plus 32 B
-// of triple words per piece; x (6.5 MB on the pokec stand-in) and y (6.6
-// MB, the atomics) stay in the 50 MB L2.
+// :1509, :1758, :981, :1190, :88): K4 scatter's pieces of active tiles,
+// each product going straight to its row of y, so the flush stream never
+// reaches device memory. (K4 fused, the unpredicated launch, runs K1's
+// kernel over the engine's row-sorted form, PERF.md §6: it reads its
+// own 8 bytes an element in order; a row-sorted form would make a dead
+// tile's elements unskippable, so K4p keeps the stream-order walk.)
+// Bound on the H100: about 7 B of streams per nnz of the active tiles
+// (fp32 value, int16 tile column, int8 c_hi and c_lo at the element's
+// stream position) plus 32 B of triple words per live piece; x (6.5 MB
+// on the pokec stand-in) and y (6.6 MB, the atomics) stay in the 50 MB L2.
 // Design: one warp per deposit piece, in stream order, as K4 scatter: the
 // pieces of one step read neighbouring runs of the same A-chunks, so the
 // A streams are read close to once from device memory. The gather reads
@@ -197,14 +203,10 @@ __global__ void __launch_bounds__(kThreads) planar_scatter_kernel(
 // of two dependent byte loads. hi/lo are read at target*1024 + s*128 +
 // d0 + i; warp_add_rows folds each run of equal rows among the warp's
 // lanes into one global atomic. The pass bound is uniform across the
-// warp, so every lane reaches the shuffles.
-// Measured against its redesign for this card, pieces grouped by
-// destination region with a shared-memory tile of the region's rows
-// (PERF.md, PR 7): the grouped walk reads the A streams in scattered
-// order and lost even with its shared atomics taken out, and Hopper adds
-// floats into shared memory by a compare-and-swap loop.
-template <Op kOp, bool kPred>
-__global__ void __launch_bounds__(kThreads) planar_fused_kernel(
+// warp, so every lane reaches the shuffles. A dead piece's warp exits
+// after its descriptor word and its chunk's tile.
+template <Op kOp>
+__global__ void __launch_bounds__(kThreads) planar_fused_pred_kernel(
     const int* __restrict__ a_page, const int16_t* __restrict__ a_col,
     const float* __restrict__ a_vals, const int2* __restrict__ rg,
     const int* __restrict__ tri, const int* __restrict__ target,
@@ -222,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) planar_fused_kernel(
   if (w.y <= 0) return;                          // whole warp
   const long long c = t * cb + (w.x & 0xFF);
   const int page = a_page[c];
-  if (kPred && !act[page]) return;               // whole warp
+  if (!act[page]) return;                        // whole warp
   const long long tgt = target[gp];
   const int code = c_code[tgt];
   if (code < 0) return;                          // whole warp
@@ -298,14 +300,15 @@ void launch_scatter(const void* a_page, const void* a_r, const void* a_sub,
           static_cast<const uint8_t*>(act), cb, rstep, dstep, npieces);
 }
 
-template <Op kOp, bool kPred>
-void launch_fused(const void* a_page, const void* a_col, const void* a_vals,
-                  const void* rg, const void* tri, const void* target,
-                  const void* c_code, const void* c_hi, const void* c_lo,
-                  const void* x, void* y, const void* act, long long npieces,
-                  int cb, int rstep, int dstep, int region_rows,
-                  cudaStream_t st) {
-  planar_fused_kernel<kOp, kPred>
+template <Op kOp>
+void launch_fused_pred(const void* a_page, const void* a_col,
+                       const void* a_vals, const void* rg, const void* tri,
+                       const void* target, const void* c_code,
+                       const void* c_hi, const void* c_lo, const void* x,
+                       void* y, const void* act, long long npieces, int cb,
+                       int rstep, int dstep, int region_rows,
+                       cudaStream_t st) {
+  planar_fused_pred_kernel<kOp>
       <<<blocks_for(npieces, kWarps), kThreads, 0, st>>>(
           static_cast<const int*>(a_page), static_cast<const int16_t*>(a_col),
           static_cast<const float*>(a_vals), static_cast<const int2*>(rg),
@@ -342,37 +345,16 @@ int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
   return static_cast<int>(cudaGetLastError());
 }
 
-// and_or: 0 MULADD, 1 ANDOR; there is no ADDMIN instance.
-template <bool kPred>
-int run_fused(const void* a_page, const void* a_col, const void* a_vals,
-              const void* rg, const void* tri, const void* target,
-              const void* c_code, const void* c_hi, const void* c_lo,
-              const void* x, void* y, const void* act, int nsteps, int cb,
-              int rstep, int dstep, int region_rows, int and_or,
-              void* cuda_stream) {
-  if (and_or < 0 || and_or > 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long npieces = static_cast<long long>(nsteps) * dstep;
-  if (npieces > 0) {
-    auto st = static_cast<cudaStream_t>(cuda_stream);
-    auto launch = and_or ? launch_fused<Op::kAndOr, kPred>
-                         : launch_fused<Op::kMulAdd, kPred>;
-    launch(a_page, a_col, a_vals, rg, tri, target, c_code, c_hi, c_lo, x, y,
-           act, npieces, cb, rstep, dstep, region_rows, st);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C entry points. Each launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (0 = launched).
-// Outputs of K4 must be zeroed by the caller. For K4 scatter a_sub ==
+// Outputs of K4 and K4p must be zeroed by the caller. For K4 scatter a_sub ==
 // nullptr selects the "bucket" gather (x is then K5's x2); otherwise the
 // chained "free" gather.
 // K4 scatter's `op` is semiring.OpType (0 MULADD, 1 ANDOR: a float stream;
-// 2 ADDMIN: an int32 stream of encodings); K4 fused takes and_or (0 or 1).
+// 2 ADDMIN: an int32 stream of encodings); K4p fused takes and_or (0 or 1).
 
 extern "C" int glt_planar_scatter(
     const void* a_page, const void* a_r, const void* a_sub,
@@ -395,29 +377,27 @@ extern "C" int glt_planar_scatter_pred(
                            cuda_stream);
 }
 
-// K4 fused: a_col is the (nsteps*cb*1024,) int16 tile column of every A
-// slot (ops/planar.tile_columns); x is K5's x2 for "bucket" layouts.
-extern "C" int glt_planar_fused(
-    const void* a_page, const void* a_col, const void* a_vals,
-    const void* rg, const void* tri, const void* target, const void* c_code,
-    const void* c_hi, const void* c_lo, const void* x, void* y, int nsteps,
-    int cb, int rstep, int dstep, int region_rows, int and_or,
-    void* cuda_stream) {
-  return run_fused<false>(a_page, a_col, a_vals, rg, tri, target, c_code,
-                          c_hi, c_lo, x, y, nullptr, nsteps, cb, rstep, dstep,
-                          region_rows, and_or, cuda_stream);
-}
-
-// K4p fused: act is the (num_col_tiles,) uint8 tile activity.
+// K4p fused: a_col is the (nsteps*cb*1024,) int16 tile column of every A
+// slot (ops/planar.tile_columns), x is K5's x2 for "bucket" layouts, act
+// the (num_col_tiles,) uint8 tile activity; and_or 0 MULADD, 1 ANDOR
+// (there is no ADDMIN instance).
 extern "C" int glt_planar_fused_pred(
     const void* a_page, const void* a_col, const void* a_vals,
     const void* rg, const void* tri, const void* target, const void* c_code,
     const void* c_hi, const void* c_lo, const void* x, void* y,
     const void* act, int nsteps, int cb, int rstep, int dstep,
     int region_rows, int and_or, void* cuda_stream) {
-  return run_fused<true>(a_page, a_col, a_vals, rg, tri, target, c_code, c_hi,
-                         c_lo, x, y, act, nsteps, cb, rstep, dstep,
-                         region_rows, and_or, cuda_stream);
+  if (and_or < 0 || and_or > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long npieces = static_cast<long long>(nsteps) * dstep;
+  if (npieces > 0) {
+    auto launch = and_or ? launch_fused_pred<Op::kAndOr>
+                         : launch_fused_pred<Op::kMulAdd>;
+    launch(a_page, a_col, a_vals, rg, tri, target, c_code, c_hi, c_lo, x, y,
+           act, npieces, cb, rstep, dstep, region_rows,
+           static_cast<cudaStream_t>(cuda_stream));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int glt_planar_xperm(const void* xperm, const void* x, void* x2,

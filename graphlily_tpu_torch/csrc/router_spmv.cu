@@ -166,7 +166,14 @@ __global__ void __launch_bounds__(kThreads) router_reduce_kernel(
 // K1 fused. Replaces _router_fused_call / _make_scatter_kernel(fuse=True)
 // with _onehot_place (router_pallas.py:419, :166, :88): K2's deposits, but
 // each element goes straight to its row of y, so the flush stream never
-// reaches device memory.
+// reaches device memory. The same kernel is K4 fused: it replaces
+// _planar_fused_call (router_pallas.py:1459 -> :1509, and its PERM-C
+// instance with `beg`) over the planar engine's form, derived the same way
+// from the planar layout's pieces (ops/planar.py; PERF.md §6: 8 B an
+// element read in order, 4 B for ANDOR, against the old walk's 7 B of
+// streams, 32 B of triple words a piece and one atomic per warp row-run).
+// Its segments are windows of 2**14 columns (2**13 for ANDOR), so a
+// warp's x gathers (6.5 MB of x on pokec, in L2) stay close together.
 //
 // What it reads. Not the layout's streams: a deposit's source offset in
 // the A stream and its destination offset in the hi/lo stream differ by
@@ -203,6 +210,9 @@ __global__ void __launch_bounds__(kThreads) router_reduce_kernel(
 // and ablations (plain stores for the atomics, a constant for the x
 // gather).
 //
+// Without values (kVals false, a null `vals`): the ANDOR form of a matrix
+// whose stored values are all nonzero (checked at init), 4 B an element.
+//
 // Predication (K1p). A deposit of an inactive page gathers only zeros: its
 // record's x offset is set to -1 in shared memory and its elements are not
 // read; a block none of whose deposits is live exits after its records.
@@ -234,7 +244,7 @@ __device__ __forceinline__ int find_segment(const int* start, int n, int e) {
 
 // blocks[b] = (e0, e1, g0, g1): elements [e0, e1) of segments [g0, g1);
 // deps[g] = (first element, x offset, y offset, activity flag).
-template <bool kAndOr>
+template <bool kAndOr, bool kVals>
 __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
     const int4* __restrict__ blocks, const int4* __restrict__ deps,
     const float* __restrict__ vals, const unsigned* __restrict__ idx,
@@ -287,12 +297,15 @@ __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
       if (any) {
         const uint4 w0 = *reinterpret_cast<const uint4*>(idx + q);
         const uint4 w1 = *reinterpret_cast<const uint4*>(idx + q + 4);
-        const float4 v0 = *reinterpret_cast<const float4*>(vals + q);
-        const float4 v1 = *reinterpret_cast<const float4*>(vals + q + 4);
         const unsigned w[kVec] = {w0.x, w0.y, w0.z, w0.w,
                                   w1.x, w1.y, w1.z, w1.w};
-        const float v[kVec] = {v0.x, v0.y, v0.z, v0.w,
-                               v1.x, v1.y, v1.z, v1.w};
+        float v[kVec];
+        if constexpr (kVals) {
+          const float4 v0 = *reinterpret_cast<const float4*>(vals + q);
+          const float4 v1 = *reinterpret_cast<const float4*>(vals + q + 4);
+          v[0] = v0.x; v[1] = v0.y; v[2] = v0.z; v[3] = v0.w;
+          v[4] = v1.x; v[5] = v1.y; v[6] = v1.z; v[7] = v1.w;
+        }
         float xv[kVec];
 #pragma unroll
         for (int k = 0; k < kVec; ++k) {
@@ -305,8 +318,13 @@ __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
 #pragma unroll
         for (int k = 0; k < kVec; ++k) {
           if (col[k] < 0) continue;
-          const float g = kAndOr ? ((v[k] != 0.f && xv[k] != 0.f) ? 1.f : 0.f)
-                                 : __fmul_rn(v[k], xv[k]);   // never fused
+          float g;
+          if constexpr (!kVals)      // every stored value is nonzero
+            g = xv[k] != 0.f ? 1.f : 0.f;
+          else if constexpr (kAndOr)
+            g = (v[k] != 0.f && xv[k] != 0.f) ? 1.f : 0.f;
+          else
+            g = __fmul_rn(v[k], xv[k]);   // never fused
           if (row[k] == last_row) {
             last_acc += g;
           } else {
@@ -384,13 +402,13 @@ int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kAndOr>
+template <bool kAndOr, bool kVals>
 int launch_fused(const void* blocks, const void* deps, const void* vals,
                  const void* idx, const void* x, void* y, const void* act,
                  int nblocks, int max_segments, int col_bits,
                  cudaStream_t st) {
   const size_t smem = 3 * sizeof(int) * static_cast<size_t>(max_segments);
-  auto kernel = router_fused_kernel<kAndOr>;
+  auto kernel = router_fused_kernel<kAndOr, kVals>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -405,14 +423,17 @@ int launch_fused(const void* blocks, const void* deps, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A null `vals` is the ANDOR form without values (and_or must be 1).
 int run_fused(const void* blocks, const void* deps, const void* vals,
               const void* idx, const void* x, void* y, const void* act,
               int nblocks, int max_segments, int col_bits, int and_or,
               void* cuda_stream) {
-  if (nblocks < 0 || max_segments < 0 || col_bits < 1 || col_bits > 31)
+  if (nblocks < 0 || max_segments < 0 || col_bits < 1 || col_bits > 31 ||
+      (vals == nullptr && !and_or))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nblocks == 0) return static_cast<int>(cudaGetLastError());
-  auto fn = and_or ? launch_fused<true> : launch_fused<false>;
+  auto fn = vals == nullptr ? launch_fused<true, false>
+      : and_or ? launch_fused<true, true> : launch_fused<false, true>;
   return fn(blocks, deps, vals, idx, x, y, act, nblocks, max_segments,
             col_bits, static_cast<cudaStream_t>(cuda_stream));
 }

@@ -7,7 +7,9 @@ plain numpy and identical), for the graphs the roll router serves badly:
 hypersparse ones, whose (128-column page x region) runs are a handful of
 elements. Kernels, in csrc/planar_spmv.cu unless named otherwise:
 
-  K4 fused    `fused_spmv`: gather, deposit, add into y in one pass;
+  K4 fused    `fused_spmv` (inherited from RouterSpMV: K1's kernel,
+              csrc/router_spmv.cu): gather, product, add into y in one
+              pass over the engine's row-sorted element form;
   K4 scatter  `scatter`: gather and deposit into the flush stream;
   K3 reduce   `reduce` (inherited from RouterSpMV, csrc/router_spmv.cu):
               add the flush stream into y;
@@ -16,9 +18,19 @@ elements. Kernels, in csrc/planar_spmv.cu unless named otherwise:
 
 The deposits read each piece's 8 triple-run words instead of its 1 KB
 plane (io/planar_format.planes_to_triples; 32 B per piece). K4 fused
-and K4p fused gather through one int16 tile column per A slot, derived
-once at init (`tile_columns`, `PlanarArrays.a_col`): the chained
-a_r -> a_sub gather resolved once.
+reads none of the layout's streams: at init the engine decodes every
+deposited element (`element_index`) and derives K1's row-sorted form
+from it (ops/router.router_entries: f32 value and one int32 word, column
+in its window | row in its region << col_bits, sorted by row within each
+region and column window, FORM_COL_BITS; ANDOR engines drop the value
+stream, and raise at init if a stored value is zero). The form holds the
+matrix's (row, column, value) triples and nothing of the deal: the
+"free", "bucket" and PERM-C layouts of one graph give the same arrays,
+and a "bucket" element's x2 slot is resolved to its x column once
+(`x_columns`), so K4 fused never needs K5. K4p
+fused keeps the stream-order walk and gathers through one int16 tile
+column per A slot, derived once at init (`tile_columns`,
+`PlanarArrays.a_col`): the chained a_r -> a_sub gather resolved once.
 `__call__` is RouterSpMV's: K4 fused or K4 scatter -> K3 by the same fused
 rule (ops/router.FUSED_MAX_Y_BYTES), then the ANDOR 0/1 clamp and the SpMV
 mask, as the JAX engine does (router_pallas.py:1757-1782). Each wrapper
@@ -32,8 +44,8 @@ in JAX `PlanarSpMV._normalize_act`; K5 runs unpredicated.
 
 PERM-C layouts (`planar_deal="permc"`, io/permc_format.py; `permc`)
 key phase C by destination lane. The engine re-keys those streams by
-stream position once at init (io/permc_format.permc_stream_rows), so K4
-fused, K4p fused, K4 scatter and every plain version run on them
+stream position once at init (io/permc_format.permc_stream_rows), so the
+form, K4p fused, K4 scatter and every plain version run on them
 unchanged; the split branch reduces with K11 (`reduce`, or K11p
 `reduce_predicated`; csrc/permc_spmv.cu), which reads the destination-
 lane keys and sums each row's run of the flushed chunk. K11's plain
@@ -59,7 +71,17 @@ from ..io.permc_format import permc_stream_rows
 from ..io.router_format import CHUNK, deposit_targets
 from ..semiring import Semiring, MaskType
 from . import _build
-from .router import RouterSpMV
+from .router import RouterSpMV, router_entries
+
+
+# K4 fused's column windows: its form's segments cover 2**col_bits columns
+# of x, so a warp's gathers stay close: 16,384 columns (64 KB of x) for a
+# form with values, 8,192 for the ANDOR form without, whose 4-byte
+# elements leave the gather a larger share (the fastest of 2**11-2**18 on
+# the pokec stand-in, ab_kernels.py, PERF.md §6); fewer where the row
+# within a region needs more of the word's 31 bits
+FORM_COL_BITS = 14
+FORM_COL_BITS_NO_VALUES = 13
 
 
 @dataclasses.dataclass
@@ -78,8 +100,8 @@ class PlanarArrays:
     c_hi: torch.Tensor           # (nsteps*f*1024,) int8, by stream position
     c_lo: torch.Tensor           # (nsteps*f*1024,) int8, by stream position
     xperm: torch.Tensor | None   # (ntiles*8*8*128,) int8; "bucket" only
-    # (nsteps*cb*1024,) int16, K4 fused's gather index (tile_columns); None
-    # on the tropical engine's pass 1, which never fuses
+    # (nsteps*cb*1024,) int16, K4p fused's gather index (tile_columns);
+    # None on the tropical engine's pass 1, which never fuses
     a_col: torch.Tensor | None = None
     # PERM-C only, (nsteps*f*1024,) int8 keyed by destination lane: the
     # layout's c_hi, c_end and c_beg, which K11 reads
@@ -90,7 +112,7 @@ class PlanarArrays:
 
 def tile_columns(a_r: torch.Tensor,
                  a_sub: torch.Tensor | None) -> torch.Tensor:
-    """K4 fused's gather index, int16 per A slot (c, s, l): the x column
+    """K4p fused's gather index, int16 per A slot (c, s, l): the x column
     within the chunk's tile, a_sub[c, s, r]*128 + r with r = a_r[c, s, l]
     ("free" and PERM-C), or s*128 + r ("bucket", over K5's x2). Torch ops
     on the arrays' device."""
@@ -153,11 +175,17 @@ class PlanarSpMV(RouterSpMV):
                          "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0}
         if self.permc:
             self.launches.update(permc_reduce=0, permc_reduce_pred=0)
-        self.init_seconds = 0.0        # of the derived a_col
+        self.init_seconds = 0.0        # of the derived a_col and form
         if not self.TROPICAL:          # the tropical engine never fuses
             t0 = time.perf_counter()
             a = self.arrays
-            a.a_col = tile_columns(a.a_r, a.a_sub)
+            a.a_col = tile_columns(a.a_r, a.a_sub)      # K4p fused's
+            values = not self._and_or
+            col_bits = min(FORM_COL_BITS if values else
+                           FORM_COL_BITS_NO_VALUES,
+                           31 - int(self.region_rows - 1).bit_length())
+            self.entries = router_entries(             # K4 fused's
+                self, "row", col_bits=col_bits, values=values)
             if a.a_r.is_cuda:
                 torch.cuda.synchronize(a.a_r.device)
             self.init_seconds = time.perf_counter() - t0
@@ -209,38 +237,6 @@ class PlanarSpMV(RouterSpMV):
         self._raise_on(rc, "glt_planar_scatter")
         self.launches["scatter"] += 1
         return stream.view(self.nsteps, self.f, S, L)
-
-    # ---- K4 fused ----------------------------------------------------------------
-    def fused_spmv(self, x: torch.Tensor,
-                   arrays: PlanarArrays | None = None) -> torch.Tensor:
-        """Gather, deposits and reduce in one kernel:
-        (nregions*region_rows,) rows."""
-        return self._fused(x, None, arrays)
-
-    def _fused(self, x: torch.Tensor, act: torch.Tensor | None,
-               arrays: PlanarArrays | None) -> torch.Tensor:
-        """K4 fused, or K4p fused with `act`."""
-        a = self.arrays if arrays is None else arrays
-        x = x.reshape(-1)
-        if not self._check(x, self.num_cols, "x"):
-            return self.fused_plain(x, a, act)
-        if act is not None:
-            self._check_flags(act, self.num_act, "act")
-        xs = self._gather_source(x, a)
-        y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
-        ptrs = [t.data_ptr() for t in (a.a_page, a.a_col, a.a_vals, a.rg,
-                                       a.tri, a.target, a.c_code, a.c_hi,
-                                       a.c_lo, xs, y)]
-        key = "fused" if act is None else "fused_pred"
-        if act is not None:
-            ptrs.append(act.data_ptr())
-        rc = getattr(_build.library(), f"glt_planar_{key}")(
-            *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
-            self.region_rows, self._and_or,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, f"glt_planar_{key}")
-        self.launches[key] += 1
-        return y
 
     # ---- K11 and K11p: PERM-C phase C ---------------------------------------------
     def reduce(self, stream: torch.Tensor,
@@ -321,9 +317,29 @@ class PlanarSpMV(RouterSpMV):
 
     def fused_predicated(self, x: torch.Tensor, act: torch.Tensor,
                          arrays: PlanarArrays | None = None) -> torch.Tensor:
-        """K4 fused over the pieces of active tiles only:
-        (nregions*region_rows,) rows."""
-        return self._fused(x, act, arrays)
+        """K4p fused: the layout's pieces of active tiles only, in stream
+        order, through the tile columns (K5 first for "bucket" layouts):
+        (nregions*region_rows,) rows. Its CPU path walks K4 fused's form
+        over the active tiles' elements (`fused_entries_plain`), so on a
+        frontier x it equals K4 fused's bit for bit, as K1p's does K1's."""
+        self._own_arrays(arrays)
+        a = self.arrays
+        x = x.reshape(-1)
+        if not self._check(x, self.num_cols, "x"):
+            return self.fused_entries_plain(x, act)
+        self._check_flags(act, self.num_act, "act")
+        xs = self._gather_source(x, a)
+        y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
+        ptrs = [t.data_ptr() for t in (a.a_page, a.a_col, a.a_vals, a.rg,
+                                       a.tri, a.target, a.c_code, a.c_hi,
+                                       a.c_lo, xs, y, act)]
+        rc = _build.library().glt_planar_fused_pred(
+            *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
+            self.region_rows, self._and_or,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        self._raise_on(rc, "glt_planar_fused_pred")
+        self.launches["fused_pred"] += 1
+        return y
 
     @staticmethod
     def _stream_ptrs(a: PlanarArrays) -> list:
@@ -335,18 +351,13 @@ class PlanarSpMV(RouterSpMV):
                 a.target.data_ptr()]
 
     # ---- plain PyTorch versions --------------------------------------------------
-    def plain_index(self, a: PlanarArrays | None = None) -> dict:
-        """Per-element index vectors of the plain versions, expanded once
-        from the descriptor words, triple-run words and targets: `src`
-        (A-stream element of each deposited nnz), `col` (its index into
-        x, or into x2 for "bucket" layouts), `dst` (its flush-stream
-        position), `unit` (its chunk's tile, the activity flag) and `row`
-        (output row of every flush-stream position; positions of unused
-        chunks point one past the end)."""
-        own = a is None or a is self.arrays
-        if own and self._plain_index is not None:
-            return self._plain_index
-        arr = self.arrays if a is None else a
+    def element_index(self, arr: PlanarArrays) -> dict:
+        """Every deposited element, decoded from the descriptor words,
+        triple-run words and targets (uncached): `src` (its A-stream
+        element), `col` (its index into x, or into x2 for "bucket"
+        layouts), `dst` (its flush-stream position), `unit` (its chunk's
+        tile, the activity flag) and `dep` (its live piece, in slot
+        order). `plain_index` adds `row` (RouterSpMV's)."""
         w1 = arr.rg[:, :self.dstep, 0].reshape(-1).long()
         w2 = arr.rg[:, :self.dstep, 1].reshape(-1).long()
         active = w2 > 0
@@ -367,21 +378,41 @@ class PlanarSpMV(RouterSpMV):
         el_src = base + ((a0[run] + off) & (L - 1))
         r = arr.a_r[el_src].long()
         sub = arr.a_sub[base + r].long() if self.chained else s
-        el_col = arr.a_page.long()[chunk[piece]] * CHUNK + sub * L + r
-        el_dst = tgt[piece] * CHUNK + s * L + d0[run] + off
-        idx = dict(src=el_src, col=el_col, dst=el_dst,
-                   unit=arr.a_page.long()[chunk[piece]], row=self._rows(arr))
-        if own:
-            self._plain_index = idx
-        return idx
+        unit = arr.a_page.long()[chunk[piece]]
+        return dict(src=el_src, col=unit * CHUNK + sub * L + r,
+                    dst=tgt[piece] * CHUNK + s * L + d0[run] + off,
+                    unit=unit, dep=piece)
+
+    def x_columns(self, col: torch.Tensor) -> torch.Tensor:
+        """x index of each element whose gather index is `col`: the same
+        for "free" and PERM-C layouts; for "bucket" ones, `col` is an x2
+        slot (t, d, l), resolved to x[t*1024 + s*128 + (v & 127)] of the
+        last plane s with xperm[t, s, d, l] = v < 0, as K5 fills it.
+        Raises if an element's slot is filled by no plane."""
+        if self.chained:
+            return col
+        nct = self.num_col_tiles
+        pv = self.arrays.xperm.view(nct, S, S * L).long()
+        tile = torch.arange(nct, device=col.device)[:, None] * CHUNK
+        src = torch.full((nct, S * L), -1, dtype=torch.long,
+                         device=col.device)
+        for s in range(S):
+            src = torch.where(pv[:, s] < 0,
+                              tile + s * L + (pv[:, s] & (L - 1)), src)
+        out = src.reshape(-1)[col]
+        if bool((out < 0).any()):
+            raise ValueError("a deposited element reads an x2 slot that no "
+                             "xperm plane fills")
+        return out
 
     def fused_plain(self, x: torch.Tensor, a: PlanarArrays | None = None,
                     act: torch.Tensor | None = None) -> torch.Tensor:
-        """K4 fused's plain version: (K5's x2 for "bucket" layouts) gathered
-        through a_col, the products copied to their flush-stream positions
-        and added into y by K3's plain version, so it equals K4 scatter ->
-        K3's plain versions bit for bit. With `act` (per tile), K4p
-        fused's: active tiles' pieces only."""
+        """K4p fused's plain version, and the reference K4 fused and its
+        plain walk (`fused_entries_plain`) are held to: (K5's x2 for
+        "bucket" layouts) gathered through a_col, the products copied to
+        their flush-stream positions and added into y by K3's plain
+        version, so it equals K4 scatter -> K3's plain versions bit for
+        bit. With `act` (per tile): active tiles' pieces only."""
         arr = self.arrays if a is None else a
         x = x.reshape(-1)
         xs = x if self.chained else self.xperm_plain(x, arr)

@@ -90,7 +90,8 @@ class RouterEntries:
 
     # (N,) each, views of storage zeroed to a multiple of VECTOR elements
     # (the kernel's vector loads; no block names an element past N)
-    vals: torch.Tensor     # float32
+    vals: torch.Tensor | None  # float32; None in the ANDOR form without
+                               # values (every stored value nonzero)
     idx: torch.Tensor      # int32: col | row << col_bits
     deps: torch.Tensor     # (ndep, 4) int32: first element, x offset,
                            # y offset, activity flag of each segment
@@ -102,7 +103,7 @@ class RouterEntries:
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (
-            self.vals, self.idx, self.deps, self.blocks))
+            self.vals, self.idx, self.deps, self.blocks) if t is not None)
 
 
 def _vector_storage(t: torch.Tensor) -> torch.Tensor:
@@ -115,17 +116,23 @@ def _vector_storage(t: torch.Tensor) -> torch.Tensor:
 
 def router_entries(eng: "RouterSpMV", order: str = "row",
                    block_entries: int = ENTRIES_PER_BLOCK,
-                   col_bits: int | None = None) -> RouterEntries:
-    """A device form of `eng`'s layout for K1 or K1p, built with torch ops
-    on the engine's device from its plain index: every element of a live
-    deposit (one whose flush chunk has a region), once.
+                   col_bits: int | None = None,
+                   values: bool = True) -> RouterEntries:
+    """A device form of `eng`'s layout for K1 or K1p (or, on a planar
+    engine, K4 fused), built with torch ops on the engine's device from
+    its element index: every element of a live deposit (one whose flush
+    chunk has a region), once, with its x column (`eng.x_columns`).
 
-    "row" (K1's): the elements of each (region, window of 2**col_bits
-    columns) sorted by (row, column), one segment each, x offset the
-    window's first column; col_bits defaults to what the word has left
-    after the row within the region (31 - its bits: 18 on the googleplus
-    stand-in, one window). "deposit" (K1p's): deposit order, one segment
-    per deposit, x offset its page, activity flag its page's."""
+    "row" (K1's, K4 fused's): the elements of each (region, window of
+    2**col_bits columns) sorted by (row, column), one segment each, x
+    offset the window's first column; col_bits defaults to what the word
+    has left after the row within the region (31 - its bits: 18 on the
+    googleplus stand-in, one window; 18 on the pokec stand-in, 7). It holds
+    the matrix's (row, column, value) triples and nothing of the layout's
+    deal. "deposit" (K1p's): deposit order, one segment per deposit, x
+    offset its page, activity flag its page's. `values=False` (ANDOR only)
+    drops the value stream; it raises unless every stored value is
+    nonzero."""
     a = eng.arrays
     idx = eng.element_index(a)
     dev = a.a_vals.device
@@ -133,6 +140,7 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
     keep = code >= 0
     src, col, dst, unit, dep = (idx[k][keep] for k in
                                 ("src", "col", "dst", "unit", "dep"))
+    col = eng.x_columns(col)
     code = code[keep]
     row = a.c_hi[dst].long() * 128 + a.c_lo[dst].long()
     if order == "deposit":
@@ -144,8 +152,11 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
             col_bits = 31 - int(eng.region_rows - 1).bit_length()
         window = col >> col_bits
         key = code * (int(eng.num_cols >> col_bits) + 1) + window
-        perm = torch.argsort((key * eng.region_rows + row) * eng.num_cols
-                             + col, stable=True)
+        # repeated (row, column) pairs in value order, so the form does
+        # not depend on the order the layout deals them in
+        perm = torch.argsort(a.a_vals[src].view(torch.int32), stable=True)
+        perm = perm[torch.argsort(((key * eng.region_rows + row)
+                                   * eng.num_cols + col)[perm], stable=True)]
         src, col, row, code, key = (t[perm] for t in
                                     (src, col, row, code, key))
         xo = col >> col_bits << col_bits
@@ -163,8 +174,15 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
     e1 = torch.clamp(e0 + block_entries, max=n)
     g0 = torch.searchsorted(starts, e0, right=True) - 1
     g1 = torch.searchsorted(starts, e1 - 1, right=True)
+    vals = a.a_vals[src]
+    if not values:
+        if eng.semiring.op != OpType.ANDOR:
+            raise ValueError("only the ANDOR form drops its values")
+        if not bool((vals != 0).all()):
+            raise ValueError("a stored value is zero: the ANDOR form "
+                             "without values would count its element")
     return RouterEntries(
-        vals=_vector_storage(a.a_vals[src]),
+        vals=_vector_storage(vals) if values else None,
         idx=_vector_storage(i32((col - xo) | row << col_bits)),
         deps=deps, blocks=i32(torch.stack([e0, e1, g0, g1], 1)),
         max_segments=int((g1 - g0).max()) if n else 0, col_bits=col_bits,
@@ -174,7 +192,7 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
 def entries_index(e: RouterEntries):
     """(col, row, flag) of every element of the form `e`, int64, expanded
     from its segment records and its elements' words."""
-    n = e.vals.numel()
+    n = e.idx.numel()
     deps = e.deps.long()
     first = torch.cat([deps[:, 0], deps.new_tensor([n])])
     seg = torch.repeat_interleave(
@@ -363,10 +381,12 @@ class RouterSpMV:
     def _launch_fused(self, x: torch.Tensor, act: torch.Tensor | None,
                       name: str, key: str) -> torch.Tensor:
         """Zero y and launch K1 over `entries` (K1p over `pred_entries` when
-        `act` is given) on the current stream."""
+        `act` is given) on the current stream. A form without values
+        passes a null value pointer."""
         e = self.entries if act is None else self.pred_entries
         y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
-        ptrs = [t.data_ptr() for t in (e.blocks, e.deps, e.vals, e.idx, x, y)]
+        ptrs = [None if t is None else t.data_ptr()
+                for t in (e.blocks, e.deps, e.vals, e.idx, x, y)]
         if act is not None:
             ptrs.append(act.data_ptr())
         rc = getattr(_build.library(), name)(
@@ -530,6 +550,11 @@ class RouterSpMV:
         return dict(src=el_src, col=el_col, dst=el_dst,
                     unit=self.chunk_units(arr)[chunk[rep]], dep=rep)
 
+    def x_columns(self, col: torch.Tensor) -> torch.Tensor:
+        """x index of each element whose gather index is `col`: the same
+        on the roll router."""
+        return col
+
     def _rows(self, arr) -> torch.Tensor:
         """Output row of every flush-stream position; positions of unused
         chunks point one past the end."""
@@ -597,6 +622,8 @@ class RouterSpMV:
         element adds zero)."""
         col, row, _ = self.entries_index()
         vals = self.entries.vals
+        if vals is None:          # the ANDOR form without values
+            vals = torch.ones(col.numel(), device=col.device)
         if act is not None:
             keep = act.bool()[col // self.ACT_COLS]
             col, row, vals = col[keep], row[keep], vals[keep]

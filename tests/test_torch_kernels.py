@@ -10,7 +10,11 @@ shared tile (a hub window over many blocks, empty window groups), and K4
 fused on PERM-C, "free" and "bucket" layouts of the hub-column graph. K1
 and K1p run over their derived form in both orders and on block tables
 that cut deposits; K8 over its compact form against a walk of the deposit
-planes, on pieces longer than a warp's pass.
+planes, on pieces longer than a warp's pass. K4 fused runs K1's kernel
+over the planar engine's row-sorted form on all three deals, MULADD and
+ANDOR (without and with the value stream), on a graph with an empty
+region, an all-zero x, hub rows that cross block edges and regions cut
+into several column windows.
 
 Needs a CUDA card and nvcc; every test skips without a card. Imports only
 torch and the port (no jax), so on a machine without jax it runs as
@@ -38,7 +42,7 @@ from graphlily_tpu_torch import (ArithmeticSemiring, LogicalSemiring,
                                  TropicalSemiring, EngineConfig)
 from graphlily_tpu_torch.io import (rmat_csr, pack_router, pack_planar,
                                     pack_permc, pack_csr_chunks,
-                                    pack_tropical,
+                                    pack_tropical, csr_from_coo,
                                     util_round_csr_matrix_dim)
 from graphlily_tpu_torch.module import SpMVModule
 from graphlily_tpu_torch.ops import (RouterSpMV, PlanarSpMV, ChunkedSpMV,
@@ -163,7 +167,8 @@ def test_planar_kernels_match_plain(name, semiring, deal, cuda):
     y_fused = eng.fused_spmv(xt)
     y_fused_plain = eng.fused_plain(xt)
     torch.cuda.synchronize()
-    xperms = 3 if deal == "bucket" else 0   # xperm, scatter, fused
+    # xperm, scatter; K4 fused reads its form, whose columns index x
+    xperms = 2 if deal == "bucket" else 0
     assert eng.launches == {"fused": 1, "scatter": 1, "reduce": 1,
                             "xperm": xperms, "fused_pred": 0,
                             "scatter_pred": 0, "reduce_pred": 0}
@@ -176,7 +181,8 @@ def test_planar_kernels_match_plain(name, semiring, deal, cuda):
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
 def test_planar_engine_call_on_card(fused, deal, cuda):
     """The planar engine's public call on CUDA tensors launches the kernels
-    of its branch (K5 first for bucket layouts), never the plain versions."""
+    of its branch (K5 first for the split branch of bucket layouts; K4
+    fused gathers x itself), never the plain versions."""
     csr = rmat_csr(50000, 150000, seed=5)
     lay = pack_planar(csr, deal=deal)
     eng = PlanarSpMV(lay, LogicalSemiring, EngineConfig(device="cuda"))
@@ -187,7 +193,7 @@ def test_planar_engine_call_on_card(fused, deal, cuda):
     np.testing.assert_array_equal(y, _oracle(csr, LogicalSemiring, x))
     want = ({"fused": 1, "scatter": 0, "reduce": 0} if fused
             else {"fused": 0, "scatter": 1, "reduce": 1})
-    want["xperm"] = int(deal == "bucket")
+    want["xperm"] = int(deal == "bucket" and not fused)
     assert eng.launches == {**want, "fused_pred": 0, "scatter_pred": 0,
                             "reduce_pred": 0}
 
@@ -358,7 +364,9 @@ def test_planar_predicated_kernels_match_plain(name, semiring, deal, kind,
     y4 = eng.fused_predicated(xt, act)
     full = eng.fused_spmv(xt)
     torch.cuda.synchronize()
-    xperms = 3 if deal == "bucket" else 0
+    # K4p scatter and K4p fused; K4 fused reads its form, whose columns
+    # index x
+    xperms = 2 if deal == "bucket" else 0
     assert eng.launches == {"fused": 1, "scatter": 0, "reduce": 0,
                             "xperm": xperms, "fused_pred": 1,
                             "scatter_pred": 1, "reduce_pred": 1}
@@ -544,6 +552,96 @@ def test_planar_fused_tile_columns_match_plain(name, semiring, deal, kind,
         _check_predicated(y, ref, ref, semiring, f"{deal} {kind}")
     if kind == "empty":
         assert not y.any()
+
+
+def _empty_region_csr():
+    """RMAT 20000/120k with rows 2048..3071, a whole region of 1,024 rows,
+    left without entries."""
+    g = rmat_csr(20000, 120000, seed=9)
+    rows, nnz = g.row_ids(), g.nnz
+    keep = (rows < 2048) | (rows >= 3072)
+    return csr_from_coo(rows[keep], g.adj_indices[:nnz][keep],
+                        g.adj_data[:nnz][keep], g.num_rows, g.num_cols)
+
+
+# K4 fused's form on the card: name -> (builder, region_rows,
+# router_entries arguments); "windows" cuts each region into windows of
+# 1,024 columns, "block_edges" cuts the form into blocks of 100 elements,
+# which the RMAT graph's hub rows cross
+PLANAR_FORM_CASES = {
+    "region_4096": (PLANAR_FIXTURES["region_4096"][0], 4096, {}),
+    "hub_columns": (PLANAR_FIXTURES["hub_columns"][0], None, {}),
+    "windows": (PLANAR_FIXTURES["region_1024"][0], 1024, {"col_bits": 10}),
+    "block_edges": (PLANAR_FIXTURES["rmat"][0], None,
+                    {"block_entries": 100}),
+    "empty_region": (_empty_region_csr, 1024, {}),
+}
+def _planar_form_engine(case, deal, semiring, **extra):
+    build, region_rows, kw = PLANAR_FORM_CASES[case]
+    csr = build()
+    lay = (pack_permc(csr, region_rows=region_rows) if deal == "permc"
+           else pack_planar(csr, region_rows=region_rows, deal=deal))
+    eng = PlanarSpMV(lay, semiring, EngineConfig(device="cuda"))
+    if kw or extra:      # the engine's form, cut otherwise
+        e = eng.entries
+        eng.use_entries(router_entries(eng, "row", **{
+            "col_bits": e.col_bits, "values": e.vals is not None, **kw,
+            **extra}))
+    return csr, lay, eng
+
+
+@pytest.mark.parametrize("deal", ["free", "bucket", "permc"])
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("case", list(PLANAR_FORM_CASES))
+def test_planar_form_kernel_matches_plain(case, semiring, deal, cuda):
+    """K4 fused (K1's kernel over the planar engine's row-sorted form;
+    ANDOR's without values) against the form's plain walk, K4 scatter ->
+    K3's plain versions and the float64 oracle (ANDOR bit-equal, MULADD
+    within 1e-5 of max|y|), with no K5 launch on any deal; an all-zero x
+    gives zeros."""
+    csr, lay, eng = _planar_form_engine(case, deal, semiring)
+    e = eng.entries
+    assert (e.vals is None) == (semiring is LogicalSemiring)
+    if case == "windows":
+        assert e.deps.shape[0] > lay.num_regions
+    if case == "block_edges":
+        row = eng.entries_index()[1].cpu().numpy()
+        e0 = e.blocks[1:, 0].cpu().numpy()
+        assert (row[e0 - 1] == row[e0]).any()     # a row crosses a block
+    if case == "empty_region":
+        assert not (eng.entries_index()[1] // 1024 == 2).any()
+    x = _router_x(lay.num_cols)
+    xt = torch.from_numpy(x).to(cuda)
+    y = eng.fused_spmv(xt)
+    zero = eng.fused_spmv(torch.zeros_like(xt))
+    refs = (eng.fused_entries_plain(xt), eng.fused_plain(xt))
+    torch.cuda.synchronize()
+    for ref in refs:
+        _check_predicated(y, ref, ref, semiring, f"{case} {deal}")
+    assert not zero.any()
+    assert eng.launches["fused"] == 2 and eng.launches["xperm"] == 0
+    _assert_close_to_oracle({"K4 fused": y}, _oracle(csr, semiring, x),
+                            lay.num_rows, semiring)
+
+
+@pytest.mark.parametrize("deal", ["free", "bucket", "permc"])
+@pytest.mark.parametrize("case", ["region_4096", "windows", "block_edges"])
+def test_planar_form_kernel_with_values(case, deal, cuda):
+    """ANDOR K4 fused over the form with its value stream (the instance
+    that reads values) gives the engine's form without values' y bit for
+    bit, and its own plain walk's."""
+    _, lay, eng = _planar_form_engine(case, deal, LogicalSemiring)
+    assert eng.entries.vals is None
+    xt = torch.from_numpy(_frontier(lay.num_cols, "5pct", 0.0)).to(cuda)
+    y = eng.fused_spmv(xt)
+    _, _, full = _planar_form_engine(case, deal, LogicalSemiring,
+                                     values=True)
+    assert full.entries.vals is not None
+    yv = full.fused_spmv(xt)
+    torch.cuda.synchronize()
+    _check_predicated(yv, y, full.fused_entries_plain(xt), LogicalSemiring,
+                      f"{case} {deal}")
 
 
 @pytest.mark.parametrize("engine", ["roll", "planar", "chunked"])

@@ -120,7 +120,7 @@ def test_plain_versions_compose(deal):
     stream = eng.scatter(x)
     assert stream.shape == (lay.nsteps, lay.f, 8, 128)
     assert int((stream != 0).sum()) == lay.nnz
-    np.testing.assert_array_equal(eng.fused_spmv(x).numpy(),
+    np.testing.assert_array_equal(eng.fused_plain(x).numpy(),
                                   eng.reduce(stream).numpy())
 
 

@@ -1,5 +1,5 @@
-"""The device forms that the chunked kernel (K6/K7, K7p), K4 fused (and
-K4p fused), K1 (and K1p) and K8 read, derived at engine init from the
+"""The device forms that the chunked kernel (K6/K7, K7p), K4 fused and
+K4p fused, K1 (and K1p) and K8 read, derived at engine init from the
 packed layouts, and their plain versions, on the CPU.
 
 Chunked (`ops/chunked.chunk_entries`): every real entry of the layout
@@ -9,10 +9,21 @@ ranges inside one window group, and walking it as the kernel does covers
 every entry once, in its own segment. Planar (`ops/planar.tile_columns`):
 the int16 tile column equals the chained a_r -> a_sub gather of the plain
 index. The plain versions over the derived forms equal the plain versions
-over the layouts (bit for bit for ANDOR and ADDMIN, and for K4 fused in
-every semiring: it adds through the flush stream), JAX `spmv_coo` on the
-padded graph and the float64 oracle, with the tolerances of
-test_torch_chunked.py and test_torch_planar.py.
+over the layouts (bit for bit for ANDOR and ADDMIN, and for K4p fused's
+reference in every semiring: it adds through the flush stream), JAX
+`spmv_coo` on the padded graph and the float64 oracle, with the
+tolerances of test_torch_chunked.py and test_torch_planar.py.
+
+K4 fused's row-sorted form (`ops/router.router_entries` over
+`PlanarSpMV.element_index`): on the "free", "bucket" and PERM-C layouts
+it holds exactly the CSR's (row, col, value) triples, each deposited
+element once; the forms of one graph's three layouts are equal array for
+array; its blocks cover the elements once at two block sizes and with
+several column windows; the CPU walk (`fused_spmv` on CPU tensors)
+matches `fused_plain`, JAX `spmv_coo` and the float64 oracle (ANDOR
+bit-equal, MULADD within 1e-5 * max|ref|); the ANDOR form without values
+walks to the same y; PageRank and BFS through the public API on the
+fused planar engine ("free" and PERM-C) equal the JAX apps.
 
 Roll router (`ops/router.router_entries`): every element of every live
 deposit appears once with its own value, column and row (against the
@@ -41,7 +52,9 @@ from graphlily_tpu_torch.io import (pack_csr_chunks, pack_planar, pack_permc,
 from graphlily_tpu_torch.ops import (ChunkedSpMV, PlanarSpMV, RouterSpMV,
                                      TropicalSpMV)
 from graphlily_tpu_torch.ops.chunked import chunk_entries, entry_slots
-from graphlily_tpu_torch.ops.planar import tile_columns
+from graphlily_tpu_torch.ops.planar import (FORM_COL_BITS,
+                                            FORM_COL_BITS_NO_VALUES,
+                                            tile_columns)
 from graphlily_tpu_torch.ops.router import router_entries
 from graphlily_tpu_torch.ops.tropical import split_pieces
 
@@ -198,7 +211,7 @@ def test_chunked_plain_matches_padded_plain_and_references(fixture, name):
                        eng.spmv_plain(xf).view(torch.int32))
 
 
-# ---- K4 fused: pieces grouped by destination ------------------------------
+# ---- K4p fused: the tile columns ---------------------------------------------
 def _planar(name, deal):
     build, region_rows = PLANAR_CASES[name]
     csr = build()
@@ -230,11 +243,11 @@ def test_tile_column_equals_the_chained_gather(name, deal):
 @pytest.mark.parametrize("fixture", list(PLANAR_CASES))
 def test_fused_plain_matches_composed_plain_and_references(fixture, deal,
                                                            name):
-    """K4 fused's plain version over its derived form equals K4 scatter ->
-    K3's plain versions bit for bit (it adds in flush-stream order), and
-    JAX spmv_coo and the float64 oracle; K4p fused's plain version at a
-    frontier of half the tiles equals the composed one with the same
-    activity."""
+    """`fused_plain`, the tile-column gather through the flush stream
+    (K4p fused's reference), equals K4 scatter -> K3's plain versions bit
+    for bit (it adds in flush-stream order), and the engine call equals
+    JAX spmv_coo and the float64 oracle; at a frontier of half the tiles
+    it equals the composed one with the same activity."""
     csr, lay = _planar(fixture, deal)
     eng = PlanarSpMV(lay, tg.SEMIRINGS[name], CPU)
     x, mask = test_torch_router._vectors(lay)
@@ -250,6 +263,198 @@ def test_fused_plain_matches_composed_plain_and_references(fixture, deal,
     old = eng.reduce_plain(eng.scatter_plain(xt, None, act))
     assert torch.equal(yp.view(torch.int32), old.view(torch.int32))
     assert eng.launches["fused"] == eng.launches["fused_pred"] == 0
+
+
+# ---- K4 fused: the planar layouts' row-sorted element form -----------------
+def _csr_triples(csr):
+    """(row, col, value) of every stored entry, sorted by (row, col,
+    value): RMAT graphs hold repeated (row, col) pairs."""
+    nnz = csr.nnz
+    rows = csr.row_ids().astype(np.int64)
+    cols = csr.adj_indices[:nnz].astype(np.int64)
+    vals = csr.adj_data[:nnz].astype(np.float32)
+    order = np.lexsort((vals, cols, rows))
+    return rows[order], cols[order], vals[order]
+
+
+@pytest.mark.parametrize("deal", LAYOUTS)
+@pytest.mark.parametrize("name", list(PLANAR_CASES))
+def test_planar_form_holds_the_csr_triples(name, deal):
+    """K4 fused's form holds every deposited element once, and its
+    expansion is the matrix's (row, col, value) triples, sorted by row
+    within each region and column window; a "bucket" element's x2 slot is
+    resolved to its x column."""
+    csr, lay = _planar(name, deal)
+    eng = PlanarSpMV(lay, tg.ArithmeticSemiring, CPU)
+    e = eng.entries
+    assert e.order == "row" and e.vals.numel() == lay.nnz == csr.nnz
+    assert e.col_bits == min(FORM_COL_BITS,
+                             31 - int(eng.region_rows - 1).bit_length())
+    bare = PlanarSpMV(lay, tg.LogicalSemiring, CPU).entries
+    assert bare.vals is None and bare.col_bits == min(
+        FORM_COL_BITS_NO_VALUES, 31 - int(eng.region_rows - 1).bit_length())
+    col, row, _ = (t.numpy() for t in eng.entries_index())
+    val = e.vals.numpy()
+    rows, cols, vals = _csr_triples(csr)
+    key = (row // eng.region_rows * ((eng.num_cols >> e.col_bits) + 1) + (
+        col >> e.col_bits)) * eng.out_len + row
+    assert (np.diff(key) >= 0).all()
+    order = np.lexsort((val, col, row))
+    np.testing.assert_array_equal(row[order], rows)
+    np.testing.assert_array_equal(col[order], cols)
+    np.testing.assert_array_equal(val[order], vals)
+    idx = eng.plain_index()
+    assert len(idx["src"]) == lay.nnz == len(np.unique(idx["src"]))
+    assert set(idx) == {"src", "col", "dst", "unit", "dep", "row"}
+    np.testing.assert_array_equal(
+        idx["dep"].numpy(), np.repeat(np.arange(int(idx["dep"].max()) + 1),
+                                      np.bincount(idx["dep"].numpy())))
+
+
+@pytest.mark.parametrize("name", list(PLANAR_CASES))
+def test_planar_forms_equal_across_deals(name):
+    """The forms derived from the "free", "bucket" and PERM-C layouts of
+    one graph are equal array for array: they hold the triples and
+    nothing of the deal."""
+    forms = {}
+    for deal in LAYOUTS:
+        _, lay = _planar(name, deal)
+        forms[deal] = PlanarSpMV(lay, tg.ArithmeticSemiring, CPU).entries
+    a = forms["free"]
+    for deal in ("bucket", "permc"):
+        b = forms[deal]
+        for field in ("vals", "idx", "deps", "blocks"):
+            np.testing.assert_array_equal(getattr(a, field).numpy(),
+                                          getattr(b, field).numpy(),
+                                          f"{deal} {field}")
+        assert (a.max_segments, a.col_bits) == (b.max_segments, b.col_bits)
+
+
+@pytest.mark.parametrize("col_bits", [None, 10], ids=["window", "narrow"])
+@pytest.mark.parametrize("block_entries", [100, 4096])
+@pytest.mark.parametrize("deal", LAYOUTS)
+@pytest.mark.parametrize("name", ["rmat", "hub_columns"])
+def test_planar_form_blocks_cover_the_elements_once(name, deal,
+                                                    block_entries, col_bits):
+    """The planar form's blocks tile its elements as the kernel walks
+    them, at two block sizes, with one column window per region or with
+    windows of 1,024 columns (several per region)."""
+    _, lay = _planar(name, deal)
+    eng = PlanarSpMV(lay, tg.ArithmeticSemiring, CPU)
+    eng.use_entries(router_entries(eng, "row", block_entries, col_bits))
+    if col_bits is not None:
+        assert eng.entries.deps.shape[0] > lay.num_regions
+    _assert_blocks_cover(eng, block_entries)
+
+
+@pytest.mark.parametrize("name", ["arithmetic", "logical"])
+@pytest.mark.parametrize("deal", LAYOUTS)
+@pytest.mark.parametrize("fixture", list(PLANAR_CASES))
+def test_planar_fused_walk_matches_fused_plain_and_references(fixture, deal,
+                                                              name):
+    """K4 fused on CPU tensors walks its form: against `fused_plain` (K4
+    scatter -> K3's plain versions through the flush stream), JAX
+    spmv_coo on the padded graph and the float64 oracle, ANDOR bit-equal
+    and MULADD within 1e-5 * max|ref|; it needs no K5."""
+    csr, lay = _planar(fixture, deal)
+    eng = PlanarSpMV(lay, tg.SEMIRINGS[name], CPU)
+    x, mask = test_torch_router._vectors(lay)
+    xt = torch.from_numpy(x)
+    y = eng.fused_spmv(xt)
+    np.testing.assert_array_equal(y.numpy(), eng.fused_entries_plain(xt))
+    old = eng.fused_plain(xt)
+    want, want64 = _references(csr, name, x, mask, tg.MaskType.NO_MASK)
+    n = lay.num_rows
+    if name == "logical":
+        assert torch.equal(y.view(torch.int32), old.view(torch.int32))
+    else:
+        assert (y - old).abs().max() <= 1e-5 * old.abs().max()
+    clamped = (y[:n] != 0).to(torch.float32) if name == "logical" else y[:n]
+    test_torch_router._assert_matches(clamped, want, want64, name)
+    assert not any(eng.launches.values())
+
+
+@pytest.mark.parametrize("deal", LAYOUTS)
+def test_planar_fused_walk_on_edge_inputs(deal):
+    """An all-zero x gives a zero y; x = 1 gives each row's sum of
+    values, zero on rows without entries."""
+    csr, lay = _planar("region_1024", deal)
+    eng = PlanarSpMV(lay, tg.ArithmeticSemiring, CPU)
+    assert not eng.fused_spmv(torch.zeros(lay.num_cols)).any()
+    y = eng.fused_spmv(torch.ones(lay.num_cols))
+    want = np.bincount(csr.row_ids(), csr.adj_data[:csr.nnz].astype(
+        np.float64), minlength=eng.out_len)
+    assert np.abs(y.numpy() - want).max() <= 1e-5 * want.max()
+
+
+def test_planar_form_refuses_unfilled_x2_slots():
+    """A "bucket" element whose x2 slot no xperm plane fills cannot be
+    resolved to an x column: the form raises instead of reading 0."""
+    _, lay = _planar("rmat", "bucket")
+    eng = PlanarSpMV(lay, tg.ArithmeticSemiring, CPU)
+    col = eng.element_index(eng.arrays)["col"]
+    xp = eng.arrays.xperm.view(-1, 8, 1024)
+    t, d = int(col[0]) // 1024, int(col[0]) % 1024
+    xp[t, :, d] = 0                     # no plane takes that slot now
+    with pytest.raises(ValueError, match="x2 slot"):
+        router_entries(eng, "row")
+
+
+def test_andor_form_without_values():
+    """ANDOR engines build K4 fused's form without its value stream (every
+    stored value is nonzero); its walk equals the form with values'. The
+    form refuses MULADD, and a stored zero raises at init instead of
+    being counted."""
+    csr, lay = _planar("hub_columns", "free")
+    eng = PlanarSpMV(lay, tg.LogicalSemiring, CPU)
+    assert eng.entries.vals is None
+    assert eng.entries.nbytes() < PlanarSpMV(
+        lay, tg.ArithmeticSemiring, CPU).entries.nbytes()
+    x, _ = test_torch_router._vectors(lay)
+    xt = torch.from_numpy(x)
+    y = eng.fused_spmv(xt)
+    eng.use_entries(router_entries(eng, "row", col_bits=eng.entries.col_bits))
+    assert eng.entries.vals is not None
+    assert torch.equal(eng.fused_spmv(xt).view(torch.int32),
+                       y.view(torch.int32))
+    with pytest.raises(ValueError, match="ANDOR"):
+        router_entries(PlanarSpMV(lay, tg.ArithmeticSemiring, CPU), "row",
+                       values=False)
+    lay.a_vals.reshape(-1)[eng.plain_index()["src"][5].item()] = 0.0
+    with pytest.raises(ValueError, match="zero"):
+        PlanarSpMV(lay, tg.LogicalSemiring, CPU)
+
+
+@pytest.mark.parametrize("deal", ["free", "permc"])
+@pytest.mark.parametrize("app_name", ["pagerank", "bfs"])
+def test_planar_fused_apps_match_jax(app_name, deal):
+    """PageRank and BFS pull through the public API on the fused planar
+    engine (its form walked on the CPU) equal the JAX apps: PageRank
+    within rtol 1e-5, BFS exactly."""
+    from graphlily_tpu.apps import BFS as JaxBFS, PageRank as JaxPageRank
+    from graphlily_tpu_torch.apps import BFS, PageRank
+    from graphlily_tpu_torch.io import rmat_csr
+    g = rmat_csr(50000, 150000, seed=5)
+    cfg = tg.EngineConfig(engine="planar", sort_rows_by_degree=True,
+                          device="cpu", planar_deal=deal)
+    jcfg = jg.EngineConfig(engine="xla")
+    if app_name == "pagerank":
+        app, jax_app = PageRank(cfg), JaxPageRank(jcfg)
+        app.load_and_format_matrix(g, 0.9)
+        jax_app.load_and_format_matrix(to_jax(g), 0.9)
+        got, want = app.pull(0.9, 10), np.asarray(jax_app.pull(0.9, 10))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    else:
+        app, jax_app = BFS(cfg), JaxBFS(jcfg)
+        app.load_and_format_matrix(g)
+        jax_app.load_and_format_matrix(to_jax(g))
+        got, want = app.pull(3, 8), np.asarray(jax_app.pull(3, 8))
+        np.testing.assert_array_equal(got, want)
+        assert (want > 0).sum() > 1
+    eng = app.SpMV_.engine
+    assert app.SpMV_.engine_name == "planar" and eng.fused
+    assert eng.permc == (deal == "permc")
+    assert eng.entries.idx.numel() == eng.nnz
 
 
 # ---- K1: the roll router's elements in row or deposit order -----------------
@@ -275,7 +480,8 @@ def test_router_entries_hold_every_deposited_element_once(name, form):
     """The form's elements are the plain index's (every element of a live
     deposit, whose flush chunk has a region), each once, with its own
     value, column and row; deposit order keeps the plain index's order,
-    row order sorts each (region, column window) by (row, column)."""
+    row order sorts each (region, column window) by (row, column) and
+    repeated pairs by value."""
     order, col_bits = ROUTER_FORMS[form]
     _, lay, eng = _router(name, order=order, col_bits=col_bits)
     e = eng.entries
@@ -285,12 +491,14 @@ def test_router_entries_hold_every_deposited_element_once(name, form):
     row = idx["row"][idx["dst"]][live]
     assert e.vals.numel() == len(src) == lay.nnz
     got_col, got_row, flag = eng.entries_index()
-    if order == "row":
+    if order == "row":   # repeated (row, column) pairs in value order
         window = col >> e.col_bits
         region = row // eng.region_rows
-        perm = torch.argsort(((region * (window.max() + 1) + window)
-                              * eng.out_len + row) * eng.num_cols + col,
+        perm = torch.argsort(eng.arrays.a_vals[src].view(torch.int32),
                              stable=True)
+        perm = perm[torch.argsort((((region * (window.max() + 1) + window)
+                                    * eng.out_len + row) * eng.num_cols
+                                   + col)[perm], stable=True)]
         src, col, row = src[perm], col[perm], row[perm]
         assert bool((flag == -1).all())
         key = region * (window.max() + 1) + window
@@ -323,10 +531,19 @@ def test_router_blocks_cover_the_elements_once(name, form, block_entries):
     order, col_bits = ROUTER_FORMS[form]
     _, lay, eng = _router(name, order=order, block_entries=block_entries,
                           col_bits=col_bits)
+    _assert_blocks_cover(eng, block_entries,
+                         1024 if order == "deposit" else None)
+
+
+def _assert_blocks_cover(eng, block_entries, width=None):
+    """The block table of `eng.entries` tiles its elements as the kernel
+    walks them, each element once in its own segment, and each segment's
+    record holds its column window (`width` columns; the form's window
+    when None) and its region."""
     e = eng.entries
     blocks = e.blocks.numpy().astype(np.int64)
-    start = np.r_[e.deps[:, 0].numpy().astype(np.int64), e.vals.numel()]
-    n = e.vals.numel()
+    n = e.idx.numel()
+    start = np.r_[e.deps[:, 0].numpy().astype(np.int64), n]
     assert blocks[0, 0] == 0 and blocks[-1, 1] == n
     np.testing.assert_array_equal(blocks[1:, 0], blocks[:-1, 1])
     assert ((blocks[:, 1] > blocks[:, 0])
@@ -349,7 +566,7 @@ def test_router_blocks_cover_the_elements_once(name, form, block_entries):
     deps = e.deps.numpy().astype(np.int64)
     region = row.numpy() // eng.region_rows
     np.testing.assert_array_equal(deps[seg, 2], region * eng.region_rows)
-    width = 1024 if order == "deposit" else 2 ** e.col_bits
+    width = 2 ** e.col_bits if width is None else width
     np.testing.assert_array_equal(deps[seg, 1], col.numpy() // width * width)
 
 
