@@ -25,7 +25,10 @@ new, old (CUDA events, min over 5 reps of 100 calls each). Rows:
   K1 MULADD/ANDOR  googleplus, degree-sorted (the PageRank and BFS layout),
                    beside torch.mv (cuSPARSE) on the same MULADD SpMV, K1
                    over the deposit-ordered form (K1p's), at 2,048 and
-                   8,192 elements a block, and, with `--ablations`, this
+                   8,192 elements a block, at column windows of 2**12,
+                   2**13, 2**14 and 2**16 columns (K4 fused's widths
+                   against the one window the word leaves, 2**18), and,
+                   with `--ablations`, this
                    tree's kernel built from patched copies of its source
                    (ABLATIONS): the y atomics as plain stores, the x
                    gather as a constant
@@ -447,7 +450,9 @@ def main(argv=None) -> int:
             variants = {}
             for name, kw in (("deposit", {"order": "deposit"}),
                              ("E=2048", {"block_entries": 2048}),
-                             ("E=8192", {"block_entries": 8192})):
+                             ("E=8192", {"block_entries": 8192}),
+                             *((f"col_bits={b}", {"col_bits": b})
+                               for b in (12, 13, 14, 16))):
                 v = new.ops.RouterSpMV(lay, getattr(new, semiring),
                                        new.EngineConfig(device="cuda"))
                 v.use_entries(new.ops.router.router_entries(v, **kw))

@@ -138,7 +138,9 @@ kernel its launches on the app paths, its largest difference from its
 plain version, its time, its plain version's, its bound (the larger of
 the bytes it must move over 3.35 TB/s and its fp32 operations over
 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's
-inputs; a predicated kernel's from its 5% frontier; the tropical
+inputs; K1's and K4 fused's from the SpMV function itself, 8 B an entry
+plus row words, x and y, the same for every deal (`mv_bound`); a
+predicated kernel's from its 5% frontier; the tropical
 kernels' max_abs_err on their int32 encodings decoded to floats) and, for
 the MULADD
 SpMVs, the time of `torch.mv` on a CSR tensor of the same matrix (cuSPARSE;
@@ -352,6 +354,16 @@ def router_bounds(eng, act=None) -> dict:
         "scatter": (t["a"] + t["desc"] + t["x"] + t["stream"], t["elems"]),
         "reduce": (t["live"] * 1024 * 6 + t["y"], t["elems"]),
     }
+
+
+def mv_bound(csr) -> tuple:
+    """(bytes, ops) of the MULADD SpMV y = A x as a function, the same for
+    every layout, deal and derived form of one matrix: each stored entry's
+    4 B value and 4 B column, one 4 B row word a row (CSR's row
+    pointer), x read once and y written once; a multiply and an add an
+    entry. K1 and K4 fused (both deals) are held to it."""
+    return (8 * csr.nnz + 4 * (csr.num_rows + 1) + 4 * csr.num_cols
+            + 4 * csr.num_rows, 2 * csr.nnz)
 
 
 def library_mv(torch, csr, xt, want: np.ndarray) -> float:
@@ -569,6 +581,7 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
     split_ms = time_ms(torch, lambda: eng.reduce(eng.scatter(xt)))
     for name, (nbytes, nops) in zip(timed, router_bounds(eng).values()):
         set_bound(rec[name], nbytes, nops)
+    set_bound(rec["K1_router_fused"], *mv_bound(gs))
     rec["K1_router_fused"]["library_ms"] = library_mv(
         torch, gs, xt, spmv_mod.compute_reference_results(xt.cpu().numpy()))
     log(f"phase 6 library torch.mv (CSR, cuSPARSE) on the same MULADD "
@@ -760,7 +773,7 @@ def pokec(torch, args, rec: dict, card: str) -> None:
                             lambda: bfsb_eng.xperm_plain(xb)),
     }
     bounds = router_bounds(eng)
-    set_bound(rec["K4_planar_fused"], *bounds["fused"])
+    set_bound(rec["K4_planar_fused"], *mv_bound(pr.SpMV_.csr_matrix_))
     set_bound(rec["K4_planar_scatter"], *bounds["scatter"])
     set_bound(rec["K5_planar_xperm"],
               bfsb_eng.num_col_tiles * 8 * 1024 + 8 * bfsb_eng.num_cols, 0)
@@ -1556,7 +1569,8 @@ def permc_bounds(eng, act=None) -> dict:
     """(bytes, ops) of K11 or K11p and of K4 fused on a PERM-C layout. K11
     reads, per live flushed chunk, its 4 KB of stream, its 3 KB of int8
     destination-lane keys and its code, writes y once, and adds each
-    element of the live chunks once; K4 fused is router_bounds' count."""
+    element of the live chunks once; K4p fused is router_bounds' count
+    (K4 fused's is mv_bound's)."""
     t = router_traffic(eng, act)
     return {"reduce": (t["live"] * (7 * 1024 + 4) + t["y"], t["elems"]),
             "fused": router_bounds(eng, act)["fused"]}
@@ -1780,7 +1794,7 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
                                   bounds["reduce"]),
              "K4_planar_fused_permc": (lambda: muladd.fused_spmv(xt),
                                        lambda: muladd.fused_entries_plain(xt),
-                                       bounds["fused"])}
+                                       mv_bound(bfs.SpMV_.csr_matrix_))}
     for name, (kernel, plain, (nbytes, nops)) in timed.items():
         r = rec[name]
         r["ms"] = time_ms(torch, kernel)

@@ -22,8 +22,10 @@ reads none of the layout's streams: at init the engine decodes every
 deposited element (`element_index`) and derives K1's row-sorted form
 from it (ops/router.router_entries: f32 value and one int32 word, column
 in its window | row in its region << col_bits, sorted by row within each
-region and column window, FORM_COL_BITS; ANDOR engines drop the value
-stream, and raise at init if a stored value is zero). The form holds the
+region and column window, FORM_COL_BITS; an ANDOR engine drops the value
+stream where every stored value is nonzero, and keeps it, with its
+column windows, where one is zero: v != 0 && x != 0 then counts no edge
+there, as JAX's spmv does). The form holds the
 matrix's (row, column, value) triples and nothing of the deal: the
 "free", "bucket" and PERM-C layouts of one graph give the same arrays,
 and a "bucket" element's x2 slot is resolved to its x column once
@@ -77,9 +79,11 @@ from .router import RouterSpMV, router_entries
 # K4 fused's column windows: its form's segments cover 2**col_bits columns
 # of x, so a warp's gathers stay close: 16,384 columns (64 KB of x) for a
 # form with values, 8,192 for the ANDOR form without, whose 4-byte
-# elements leave the gather a larger share (the fastest of 2**11-2**18 on
-# the pokec stand-in, ab_kernels.py, PERF.md §6); fewer where the row
-# within a region needs more of the word's 31 bits
+# elements leave the gather a larger share; fewer where the row within a
+# region needs more of the word's 31 bits. Measured on the pokec stand-in
+# only (the fastest of 2**11-2**18, ab_kernels.py, PERF.md §6): the other
+# planar graphs, whose x sizes and column spreads differ, take the same
+# widths unmeasured
 FORM_COL_BITS = 14
 FORM_COL_BITS_NO_VALUES = 13
 
@@ -180,12 +184,10 @@ class PlanarSpMV(RouterSpMV):
             t0 = time.perf_counter()
             a = self.arrays
             a.a_col = tile_columns(a.a_r, a.a_sub)      # K4p fused's
-            values = not self._and_or
-            col_bits = min(FORM_COL_BITS if values else
-                           FORM_COL_BITS_NO_VALUES,
-                           31 - int(self.region_rows - 1).bit_length())
+            cap = 31 - int(self.region_rows - 1).bit_length()
             self.entries = router_entries(             # K4 fused's
-                self, "row", col_bits=col_bits, values=values)
+                self, "row", col_bits=min(FORM_COL_BITS, cap), values=None,
+                col_bits_no_values=min(FORM_COL_BITS_NO_VALUES, cap))
             if a.a_r.is_cuda:
                 torch.cuda.synchronize(a.a_r.device)
             self.init_seconds = time.perf_counter() - t0

@@ -117,7 +117,8 @@ def _vector_storage(t: torch.Tensor) -> torch.Tensor:
 def router_entries(eng: "RouterSpMV", order: str = "row",
                    block_entries: int = ENTRIES_PER_BLOCK,
                    col_bits: int | None = None,
-                   values: bool = True) -> RouterEntries:
+                   values: bool | None = True,
+                   col_bits_no_values: int | None = None) -> RouterEntries:
     """A device form of `eng`'s layout for K1 or K1p (or, on a planar
     engine, K4 fused), built with torch ops on the engine's device from
     its element index: every element of a live deposit (one whose flush
@@ -132,7 +133,9 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
     deal. "deposit" (K1p's): deposit order, one segment per deposit, x
     offset its page, activity flag its page's. `values=False` (ANDOR only)
     drops the value stream; it raises unless every stored value is
-    nonzero."""
+    nonzero. `values=None` drops it where it may (an ANDOR engine whose
+    stored values are all nonzero) and keeps it otherwise; a form without
+    it takes `col_bits_no_values` where given."""
     a = eng.arrays
     idx = eng.element_index(a)
     dev = a.a_vals.device
@@ -142,6 +145,18 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
                                 ("src", "col", "dst", "unit", "dep"))
     col = eng.x_columns(col)
     code = code[keep]
+    vals = a.a_vals[src]
+    and_or = eng.semiring.op == OpType.ANDOR
+    if values is None:
+        values = not (and_or and bool((vals != 0).all()))
+    elif not values:
+        if not and_or:
+            raise ValueError("only the ANDOR form drops its values")
+        if not bool((vals != 0).all()):
+            raise ValueError("a stored value is zero: the ANDOR form "
+                             "without values would count its element")
+    if not values and col_bits_no_values is not None:
+        col_bits = col_bits_no_values
     row = a.c_hi[dst].long() * 128 + a.c_lo[dst].long()
     if order == "deposit":
         col_bits = PAGE_COL_BITS
@@ -154,11 +169,11 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
         key = code * (int(eng.num_cols >> col_bits) + 1) + window
         # repeated (row, column) pairs in value order, so the form does
         # not depend on the order the layout deals them in
-        perm = torch.argsort(a.a_vals[src].view(torch.int32), stable=True)
+        perm = torch.argsort(vals.view(torch.int32), stable=True)
         perm = perm[torch.argsort(((key * eng.region_rows + row)
                                    * eng.num_cols + col)[perm], stable=True)]
-        src, col, row, code, key = (t[perm] for t in
-                                    (src, col, row, code, key))
+        col, row, code, key, vals = (t[perm] for t in
+                                     (col, row, code, key, vals))
         xo = col >> col_bits << col_bits
         flag = torch.full_like(code, -1)
     else:
@@ -174,13 +189,6 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
     e1 = torch.clamp(e0 + block_entries, max=n)
     g0 = torch.searchsorted(starts, e0, right=True) - 1
     g1 = torch.searchsorted(starts, e1 - 1, right=True)
-    vals = a.a_vals[src]
-    if not values:
-        if eng.semiring.op != OpType.ANDOR:
-            raise ValueError("only the ANDOR form drops its values")
-        if not bool((vals != 0).all()):
-            raise ValueError("a stored value is zero: the ANDOR form "
-                             "without values would count its element")
     return RouterEntries(
         vals=_vector_storage(vals) if values else None,
         idx=_vector_storage(i32((col - xo) | row << col_bits)),

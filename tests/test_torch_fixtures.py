@@ -161,6 +161,14 @@ def empty_rows_csr() -> CSRMatrix:
                         np.abs(base.adj_data[:base.nnz][keep]), 4000, 4000)
 
 
+def stored_zeros_csr() -> CSRMatrix:
+    """RMAT 9000/60k (the planar "rmat" graph) with every seventh stored
+    value an explicit zero, which an ANDOR SpMV counts as no edge."""
+    g = rmat_csr(9000, 60000, seed=3)
+    g.adj_data[:g.nnz:7] = 0.0
+    return g
+
+
 # the JAX tropical tests' graphs (tests/test_tropical.py): name -> (builder,
 # explicit region_rows or None, split-pass kb); kb=4 keeps the interpret-
 # mode kernels small, 16 is the production geometry
@@ -177,9 +185,10 @@ def test_fixture_is_well_formed_and_deterministic(name):
     _check_well_formed_and_deterministic(FIXTURES[name][0])
 
 
-@pytest.mark.parametrize("name", list(PLANAR_FIXTURES))
+@pytest.mark.parametrize("name", [*PLANAR_FIXTURES, "stored_zeros"])
 def test_planar_fixture_is_well_formed_and_deterministic(name):
-    _check_well_formed_and_deterministic(PLANAR_FIXTURES[name][0])
+    _check_well_formed_and_deterministic(
+        PLANAR_FIXTURES.get(name, (stored_zeros_csr,))[0])
 
 
 @pytest.mark.parametrize("name", [*CHUNKED_FIXTURES, "hub_window"])

@@ -52,7 +52,8 @@ from graphlily_tpu_torch.ops.router import router_entries
 from graphlily_tpu_torch.io.router_format import deposit_targets
 
 from test_torch_fixtures import (FIXTURES, PLANAR_FIXTURES, CHUNKED_FIXTURES,
-                                 TROPICAL_FIXTURES, hub_window_csr)
+                                 TROPICAL_FIXTURES, hub_window_csr,
+                                 stored_zeros_csr)
 
 pytestmark = pytest.mark.gpu
 
@@ -567,7 +568,8 @@ def _empty_region_csr():
 # K4 fused's form on the card: name -> (builder, region_rows,
 # router_entries arguments); "windows" cuts each region into windows of
 # 1,024 columns, "block_edges" cuts the form into blocks of 100 elements,
-# which the RMAT graph's hub rows cross
+# which the RMAT graph's hub rows cross; "stored_zeros" holds explicit
+# zeros, so its ANDOR form keeps the value stream
 PLANAR_FORM_CASES = {
     "region_4096": (PLANAR_FIXTURES["region_4096"][0], 4096, {}),
     "hub_columns": (PLANAR_FIXTURES["hub_columns"][0], None, {}),
@@ -575,6 +577,7 @@ PLANAR_FORM_CASES = {
     "block_edges": (PLANAR_FIXTURES["rmat"][0], None,
                     {"block_entries": 100}),
     "empty_region": (_empty_region_csr, 1024, {}),
+    "stored_zeros": (stored_zeros_csr, None, {}),
 }
 def _planar_form_engine(case, deal, semiring, **extra):
     build, region_rows, kw = PLANAR_FORM_CASES[case]
@@ -596,13 +599,14 @@ def _planar_form_engine(case, deal, semiring, **extra):
 @pytest.mark.parametrize("case", list(PLANAR_FORM_CASES))
 def test_planar_form_kernel_matches_plain(case, semiring, deal, cuda):
     """K4 fused (K1's kernel over the planar engine's row-sorted form;
-    ANDOR's without values) against the form's plain walk, K4 scatter ->
-    K3's plain versions and the float64 oracle (ANDOR bit-equal, MULADD
-    within 1e-5 of max|y|), with no K5 launch on any deal; an all-zero x
-    gives zeros."""
+    ANDOR's without values unless a stored value is zero) against the
+    form's plain walk, K4 scatter -> K3's plain versions and the float64
+    oracle (ANDOR bit-equal, MULADD within 1e-5 of max|y|), with no K5
+    launch on any deal; an all-zero x gives zeros."""
     csr, lay, eng = _planar_form_engine(case, deal, semiring)
     e = eng.entries
-    assert (e.vals is None) == (semiring is LogicalSemiring)
+    assert (e.vals is None) == (semiring is LogicalSemiring and bool(
+        (csr.adj_data[:csr.nnz] != 0).all()))
     if case == "windows":
         assert e.deps.shape[0] > lay.num_regions
     if case == "block_edges":

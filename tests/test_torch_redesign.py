@@ -59,7 +59,8 @@ from graphlily_tpu_torch.ops.router import router_entries
 from graphlily_tpu_torch.ops.tropical import split_pieces
 
 from test_torch_fixtures import (CHUNKED_FIXTURES, FIXTURES, PLANAR_FIXTURES,
-                                 TROPICAL_FIXTURES, hub_window_csr)
+                                 TROPICAL_FIXTURES, hub_window_csr,
+                                 stored_zeros_csr)
 from test_torch_io import to_jax
 from test_torch_kernels import planes_walk
 from test_torch_router import CPU, _references
@@ -401,10 +402,11 @@ def test_planar_form_refuses_unfilled_x2_slots():
 
 
 def test_andor_form_without_values():
-    """ANDOR engines build K4 fused's form without its value stream (every
-    stored value is nonzero); its walk equals the form with values'. The
-    form refuses MULADD, and a stored zero raises at init instead of
-    being counted."""
+    """ANDOR engines build K4 fused's form without its value stream where
+    every stored value is nonzero; its walk equals the form with values'.
+    The form without values refuses MULADD, and, asked for by name, a
+    stored zero instead of counting it; the engine then keeps the values
+    (test_andor_form_keeps_values_for_stored_zeros)."""
     csr, lay = _planar("hub_columns", "free")
     eng = PlanarSpMV(lay, tg.LogicalSemiring, CPU)
     assert eng.entries.vals is None
@@ -421,8 +423,47 @@ def test_andor_form_without_values():
         router_entries(PlanarSpMV(lay, tg.ArithmeticSemiring, CPU), "row",
                        values=False)
     lay.a_vals.reshape(-1)[eng.plain_index()["src"][5].item()] = 0.0
+    zeroed = PlanarSpMV(lay, tg.LogicalSemiring, CPU)
+    assert zeroed.entries.vals is not None
     with pytest.raises(ValueError, match="zero"):
-        PlanarSpMV(lay, tg.LogicalSemiring, CPU)
+        router_entries(zeroed, "row", values=False)
+
+
+@pytest.mark.parametrize("deal", LAYOUTS)
+def test_andor_form_keeps_values_for_stored_zeros(deal):
+    """An ANDOR engine over a matrix with explicit zeros keeps K4 fused's
+    value stream, at the windows of the form with values, so that
+    v != 0 && x != 0 counts no edge there: its walk equals `fused_plain`
+    bit for bit, and the engine call and the module's product equal JAX
+    spmv_coo and the float64 oracle, which differ from the same graph's
+    with every value 1."""
+    from graphlily_tpu_torch.module import SpMVModule
+    csr = stored_zeros_csr()
+    lay = (pack_permc(csr) if deal == "permc"
+           else pack_planar(csr, deal=deal))
+    eng = PlanarSpMV(lay, tg.LogicalSemiring, CPU)
+    e = eng.entries
+    assert e.vals is not None and (e.vals.numpy() == 0).any()
+    assert e.col_bits == min(FORM_COL_BITS,
+                             31 - int(eng.region_rows - 1).bit_length())
+    x, mask = test_torch_router._vectors(lay)
+    xt = torch.from_numpy(x)
+    y = eng.fused_spmv(xt)
+    assert torch.equal(y.view(torch.int32),
+                       eng.fused_plain(xt).view(torch.int32))
+    refs = _references(csr, "logical", x, mask, tg.MaskType.NO_MASK)
+    ones = csr.copy()
+    ones.adj_data[:] = 1.0
+    assert (refs[0] != _references(ones, "logical", x, mask,
+                                   tg.MaskType.NO_MASK)[0]).any()
+    test_torch_router._assert_matches(eng(xt), *refs, "logical")
+    mod = SpMVModule(tg.EngineConfig(engine="planar", device="cpu",
+                                     planar_deal=deal))
+    mod.set_semiring(tg.LogicalSemiring)
+    mod.load_and_format_matrix(csr)
+    assert mod.engine_name == "planar" and mod.engine.entries.vals is not None
+    test_torch_router._assert_matches(mod.apply(xt), *refs, "logical")
+    assert not any(eng.launches.values())
 
 
 @pytest.mark.parametrize("deal", ["free", "permc"])
