@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Old/new A/B of the chunked kernel (K6/K7, K7p), K4 fused (K4p fused), K1
-(K1p) and K8 on one GPU, and the sizes their device forms are cut to.
+"""Old/new A/B of the chunked kernel (K6/K7, K7p), K4 fused, K4 scatter
+(K4p scatter), K4p fused, K1 (K1p) and K8 on one GPU, and the sizes their
+device forms are cut to.
 
 Packs the full stand-ins once with this tree's packers (which are
 array-equal to every earlier tree's), builds each kernel's engine from the
@@ -21,7 +22,24 @@ new, old (CUDA events, min over 5 reps of 100 calls each). Rows:
                    with its value stream and, with `--ablations`, K1's
                    ablation trees on the same form
   K4 fused PERM-C  pokec BFS's PERM-C layout, the same rows
-  K4p fused        ANDOR engines on both layouts, empty, 1-vertex and 5%
+  K4p fused        ("planar") ANDOR engines on both layouts, empty,
+                   1-vertex and 5%
+  K4 scatter       ("scatter") pokec: "free" MULADD and ANDOR, "bucket"
+                   (BFS's layout of the full stand-in) MULADD, PERM-C
+                   MULADD, and the tropical engine's ADDMIN pass 1 (SSSP's
+                   layout), each beside the zero fill of the flush stream
+                   alone, the kernel after that fill in place of its own
+                   zeros of the unfilled lanes (no tails), the kernel alone
+                   into a stream allocated once, and, with `--ablations`,
+                   the store walk with a constant
+                   for its x gather; K4p scatter ANDOR ("free") and ADDMIN
+                   (pass 1) at empty, 1-vertex and 5% frontiers
+  K4p fused        ("tile") ANDOR on pokec "free" and PERM-C at empty,
+                   1-vertex and 5% frontiers: the tile form (windows of
+                   2**10 columns) against windows of 2**11-2**13 columns
+                   (each flagged by its window, with the tile activity
+                   folded to windows), the piece-ordered form (K1p's
+                   "deposit" order) and K4 fused's whole product
   K1 MULADD/ANDOR  googleplus, degree-sorted (the PageRank and BFS layout),
                    beside torch.mv (cuSPARSE) on the same MULADD SpMV, K1
                    over the deposit-ordered form (K1p's), at 2,048 and
@@ -49,7 +67,8 @@ before and after the new tree, as the parent).
 
 Usage: python3 ab_kernels.py --parent _archive_check/parent [--scale S]
        [--variant DIR ...] [--entries 1024 2048 4096]
-       [--kernels chunked planar router tropical] [--ablations]
+       [--kernels chunked planar router tropical scatter tile]
+       [--ablations]
 """
 from __future__ import annotations
 
@@ -67,7 +86,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ["chunked", "planar", "router", "tropical"]
+KERNELS = ["chunked", "planar", "router", "tropical", "scatter", "tile"]
 
 
 def log(msg: str) -> None:
@@ -91,11 +110,15 @@ def load_package(root: Path, name: str):
     return mod
 
 
-# Ablations of K1 and K8: name -> (source under csrc/, [(old, new)]);
-# K1's atomics as plain stores, its x gather as a constant; K8's stores
-# skipped (kept only for a value that never occurs), its g1 gather
-# replaced by the lane byte
+# Ablations of K1, K8 and K4 scatter: name -> (source under csrc/,
+# [(old, new)]); K1's atomics as plain stores, its x gather as a
+# constant; K8's stores skipped (kept only for a value that never occurs),
+# its g1 gather replaced by the lane byte; K4 scatter's x gather as a
+# constant. The name's prefix selects the rows that use it (ABLATION_ROWS)
 ABLATIONS = {
+    "k4_no_gather": ("planar_spmv.cu", [(
+        "xv[k] = __ldg(x + col[k] + static_cast<int>(w[k] & mask));",
+        "xv[k] = 1.0f;")]),
     "k1_no_atomics": ("router_spmv.cu", [(
         "if (v != 0.f) atomicAdd(y + row, v);", "if (v != 0.f) y[row] = v;")]),
     "k1_no_gather": ("router_spmv.cu", [(
@@ -107,6 +130,10 @@ ABLATIONS = {
         "if (e < n) v[u] = __ldg(src + el.s * kLanes + __ldg(lane_of + e));",
         "if (e < n) v[u] = __ldg(lane_of + e);")]),
 }
+
+
+ABLATION_ROWS = {"k1_": ("planar", "router"), "k8_": ("tropical",),
+                 "k4_": ("scatter",)}
 
 
 def ablation_tree(name: str):
@@ -195,10 +222,10 @@ def capture_layouts(scale: float, kernels) -> dict:
             out["roll"] = got[-1]
             out["roll_csr"] = pr.SpMV_.csr_matrix_
         log(f"googleplus layouts: {time.perf_counter() - t0:.1f} s")
-        if "planar" not in kernels and "tropical" not in kernels:
+        if not {"planar", "tropical", "scatter", "tile"} & set(kernels):
             return out
         p = iccad_standin("pokec", scale=scale, seed=0)
-        if "tropical" in kernels:
+        if {"tropical", "scatter"} & set(kernels):
             t0 = time.perf_counter()
             sp = SSSP(EngineConfig(sort_rows_by_degree=True,
                                    engine="auto" if scale >= 1 else "router"))
@@ -208,7 +235,7 @@ def capture_layouts(scale: float, kernels) -> dict:
                                      f"{sp.SpMV_.engine_name!r}")
             out["tropical"] = got[-1]
             log(f"pokec tropical layout: {time.perf_counter() - t0:.1f} s")
-        if "planar" not in kernels:
+        if not {"planar", "scatter", "tile"} & set(kernels):
             return out
         t0 = time.perf_counter()
         pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine=engine))
@@ -221,6 +248,13 @@ def capture_layouts(scale: float, kernels) -> dict:
         bfs.load_and_format_matrix(p)
         out["permc"], out["permc_csr"] = got[-1], bfs.SpMV_.csr_matrix_
         log(f"pokec PERM-C layout: {time.perf_counter() - t0:.1f} s")
+        if "scatter" in kernels:
+            t0 = time.perf_counter()
+            bfs = BFS(EngineConfig(sort_rows_by_degree=True, engine=engine,
+                                   planar_deal="bucket"))
+            bfs.load_and_format_matrix(p)
+            out["bucket"] = got[-1]
+            log(f"pokec bucket layout: {time.perf_counter() - t0:.1f} s")
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
@@ -273,7 +307,8 @@ def main(argv=None) -> int:
     for i, path in enumerate(args.variant):
         others[path.name] = load_package(path.resolve(), f"glt_variant{i}")
     trees = {**others, "new": new}
-    ablated = ({name: ablation_tree(name) for name in ABLATIONS}
+    ablated = ({name: ablation_tree(name) for name in ABLATIONS
+                if set(ABLATION_ROWS[name[:3]]) & set(args.kernels)}
                if args.ablations else {})
     for pkg in (*trees.values(), *ablated.values()):
         pkg.ops._build.library()
@@ -522,9 +557,142 @@ def main(argv=None) -> int:
            more, unchecked=("g2 fill", *k8_ablated))
         del engs, k9, more
 
+    def scatter():
+        """K4 scatter on pokec's "free", "bucket" and PERM-C layouts and
+        the tropical pass 1, beside the stream's zero fill alone, the
+        kernel alone and the constant-x ablation; K4p scatter at three
+        frontiers."""
+        import copy
+
+        def store_only(eng, x):
+            """K4 scatter into one stream, allocated once: the kernel
+            without the wrapper's allocation."""
+            buf = torch.zeros(eng.nsteps * eng.f * 1024,
+                              dtype=eng._stream_dtype, device="cuda")
+            return lambda: eng._launch_store(x, None, buf)
+
+        def filled(eng):
+            """`eng` over its store form without tails: the stream zeroed
+            whole by the wrapper first, as K4p scatter's is."""
+            v = copy.copy(eng)
+            v.store_entries = dataclasses.replace(eng.store_entries,
+                                                  tails=None)
+            return v
+
+        form = lambda e: {"elements": e.store_entries.idx.numel(),
+                          "pieces": e.store_entries.deps.shape[0],
+                          "blocks": e.store_entries.blocks.shape[0],
+                          "max_segments": e.store_entries.max_segments,
+                          "device_MB": e.store_entries.nbytes() / 1e6,
+                          "stream_MB": e.nsteps * e.f * 4096 / 1e6,
+                          "init_s": e.init_seconds}
+        xmul = lambda n: torch.from_numpy(np.random.default_rng(9).random(
+            n).astype(np.float32)).to("cuda")
+        xbool = lambda n: torch.from_numpy((np.random.default_rng(10).random(
+            n) < 0.05).astype(np.float32)).to("cuda")
+
+        def xmin(n):
+            x = rng.integers(0, 1000, n).astype(np.float32)
+            x[rng.random(n) < 0.5] = inf
+            return torch.from_numpy(x).to("cuda")
+
+        rows_ = [("free", "PlanarSpMV", "ArithmeticSemiring", xmul, "MULADD"),
+                 ("free", "PlanarSpMV", "LogicalSemiring", xbool, "ANDOR"),
+                 ("bucket", "PlanarSpMV", "ArithmeticSemiring", xmul,
+                  "MULADD"),
+                 ("permc", "PlanarSpMV", "ArithmeticSemiring", xmul,
+                  "MULADD"),
+                 ("tropical", "TropicalSpMV", "TropicalSemiring", xmin,
+                  "ADDMIN")]
+        for key, cls, semiring, make_x, name in rows_:
+            engs = engines(cls, lays[key], semiring)
+            pass1 = lambda e: e.planar if cls == "TropicalSpMV" else e
+            eng = pass1(engs["new"])
+            x = make_x(eng.num_cols)
+            n = eng.nsteps * eng.f * 1024
+            dtype = eng._stream_dtype
+            log(f"K4 scatter {name} ({key}) store form: {form(eng)}")
+            zf = filled(eng)
+            more = {"fill alone": lambda n=n, dtype=dtype: torch.zeros(
+                        n, dtype=dtype, device="cuda"),
+                    "fill + kernel (no tails)": lambda: zf.scatter(x),
+                    "kernel alone": store_only(eng, x)}
+            for abl, pkg in ablated.items():
+                if abl.startswith("k4_"):
+                    v = getattr(pkg.ops, cls)(lays[key], getattr(pkg, semiring),
+                                              pkg.EngineConfig(device="cuda"))
+                    more[abl] = lambda v=v: v.scatter(x)
+            ab(f"K4 scatter {name} (pokec {key})", engs,
+               lambda e: e.scatter(x), True, lambda e: form(pass1(e)), more,
+               unchecked=("fill alone",
+                          *[k for k in more if k.startswith("k4_")]))
+            if key in ("free", "tropical") and name != "MULADD":
+                zero = eng.semiring.zero
+                for kind in ("empty", "one", "5pct"):
+                    xf = frontier(torch, eng.num_cols, kind, zero, rng)
+                    act = (xf.reshape(-1, 1024) != zero).any(1).to(
+                        torch.uint8)
+                    ab(f"K4p scatter {name} {kind} (pokec {key})", engs,
+                       lambda e, xf=xf, act=act: e.scatter_predicated(
+                           xf, act), True)
+            del engs, eng, more
+
+    def tile():
+        """K4p fused (ANDOR) on pokec "free" and PERM-C at three
+        frontiers: the tile form against wider windows, the piece-ordered
+        form and K4 fused's whole product, in the same turns."""
+        import copy
+        for key in ("free", "permc"):
+            engs = engines("PlanarSpMV", lays[key], "LogicalSemiring")
+            eng = engs["new"]
+            e = eng.pred_entries
+            log(f"K4p fused ({key}) tile form: elements {e.idx.numel()}, "
+                f"segments {e.deps.shape[0]}, blocks {e.blocks.shape[0]}, "
+                f"max_segments {e.max_segments}, "
+                f"{e.nbytes() / 1e6:.1f} MB, init {eng.init_seconds:.2f} s")
+            vs = {}
+            for bits in (11, 12, 13):
+                v = copy.copy(eng)
+                f = new.ops.router.router_entries(
+                    v, "row", col_bits=bits, values=e.vals is not None)
+                f.deps[:, 3] = f.deps[:, 1] >> bits     # flag: the window
+                v.pred_entries = f
+                vs[f"window 2**{bits}"] = (v, bits)
+                log(f"  window 2**{bits}: segments {f.deps.shape[0]}, "
+                    f"max_segments {f.max_segments}")
+            v = copy.copy(eng)
+            v.use_entries(new.ops.router.router_entries(
+                v, "deposit", values=e.vals is not None), pred=True)
+            vs["piece order"] = (v, None)
+            log(f"  piece order: segments {v.pred_entries.deps.shape[0]}, "
+                f"max_segments {v.pred_entries.max_segments}")
+            for kind in ("empty", "one", "5pct"):
+                xf = frontier(torch, eng.num_cols, kind, 0.0, rng)
+                act = eng.activity(xf)
+                more = {}
+                for name, (v, bits) in vs.items():
+                    if bits is None:
+                        more[name] = (lambda v=v, xf=xf, act=act:
+                                      v.fused_predicated(xf, act))
+                        continue
+                    k = 1 << (bits - 10)
+                    pad = -act.numel() % k
+                    coarse = torch.cat([act, act.new_zeros(pad)]).view(
+                        -1, k).amax(1).contiguous()
+                    more[name] = (lambda v=v, xf=xf, c=coarse:
+                                  v._launch_fused(xf, c,
+                                                  "glt_router_fused_pred",
+                                                  "fused_pred"))
+                more["K4 fused (whole product)"] = (
+                    lambda xf=xf: eng.fused_spmv(xf))
+                ab(f"K4p fused ANDOR {kind} (pokec {key})", engs,
+                   lambda e, xf=xf, act=act: e.fused_predicated(xf, act),
+                   True, more=more)
+            del engs, eng, vs
+
     for name in args.kernels:
         {"chunked": chunked, "planar": planar, "router": router,
-         "tropical": tropical}[name]()
+         "tropical": tropical, "scatter": scatter, "tile": tile}[name]()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "ab_kernels.json").write_text(json.dumps(

@@ -8,16 +8,19 @@ calls, and checks every result against the float64 oracles:
     seed 0, degree-sorted) through the roll router (K1, K2, K3);
   * the pokec stand-in (RMAT, 1,632,803 vertices, 30,622,564 edges,
     seed 0, degree-sorted) through the planar router (K4 fused, which
-    is K1's kernel over the engine's row-sorted element form, K4 scatter
-    -> K3, and K5 under planar_deal="bucket" on a quarter of it, in its
-    split branch);
+    is K1's kernel over the engine's row-sorted element form, and K4
+    scatter, a store walk over its piece-ordered store form, -> K3), also
+    under planar_deal="bucket" on a quarter of it, whose forms resolve x2
+    slots to x columns at init: K5 (xperm) is held to its plain version
+    but no app path launches it;
   * SSSP on the googleplus stand-in (self edges added: 13,780,368 nnz),
     through the chunked engine (the K6/K7 kernel), and PageRank and BFS
     on the googleplus stand-in at scale 0.1, which the ladder also sends
     to the chunked engine;
   * push and pull_push (SpMSpV) of BFS on both stand-ins and of SSSP on
     googleplus, through the frontier-predicated kernels: K1p, K2p -> K3p
-    (roll), K4p fused and K4p scatter -> K3p (planar), K7p (chunked);
+    (roll), K4p fused (K1p's kernel over the planar tile form) and K4p
+    scatter -> K3p (planar), K7p (chunked);
   * SSSP pull, push and pull_push on the pokec stand-in (self edges
     added: 32,254,873 nnz), which the ladder sends to the tropical engine
     (K4 scatter and K4p scatter in ADDMIN mode, K8 split, K10 window
@@ -46,19 +49,23 @@ Phases, one or more lines each:
   7. pokec     the graph, then PageRank and BFS formatted through
                EngineConfig(sort_rows_by_degree=True) (engine "auto" ->
                planar, deal "free"), layout facts and pack seconds, the
-               derived forms (K4 fused's row form: init seconds, MB,
-               segments, blocks, the y atomics it issues at most; K4p
-               fused's tile columns);
+               derived forms (init seconds; K4 fused's row form, K4p
+               fused's tile form and K4 scatter's store form: elements,
+               segments, blocks, the largest block's segments, MB, the y
+               atomics the row forms issue at most);
                a third BFS packs the "bucket" deal on the stand-in at
                scale 0.25 (BUCKET_SCALE)
   8. apps      pokec PageRank.pull(0.9, 10) and BFS.pull(0, 11) fused and
                split, and BFS.pull(0, 11) on the bucket layout fused and
-               split (K5 -> K4 scatter -> K3)
+               split (K4 scatter -> K3, no K5); K5's launches (0)
   9. kernels   pokec, on the apps' engines: K4 fused and K4 scatter -> K3
                against their plain versions and the oracle, MULADD
                (PageRank's engine) and ANDOR (BFS's); K4's flush stream
-               and K5's x2 bit-equal to their plain versions; bucket
-               ANDOR K4 fused bit-equal to its plain versions
+               bit-equal to its plain version through the layout and to
+               its store form's walk; K5's x2 bit-equal to its plain
+               version; bucket K4 scatter (no K5) bit-equal to K5 -> K4
+               scatter's plain versions, bucket ANDOR K4 fused to its
+               plain versions
   10. times    pokec, as phase 6, plus the planar engine call fused and
                split
   11. sssp     googleplus SSSP(EngineConfig(sort_rows_by_degree=True)):
@@ -81,7 +88,7 @@ Phases, one or more lines each:
                fused (K1p) and split (K2p -> K3p), bit-equal to the oracle
   15. push     pokec BFS push(0, 11) and pull_push(0, 11) on the free deal,
                fused (K4p fused) and split (K4p scatter -> K3p), and push
-               on the bucket deal (K5 -> K4p fused)
+               on the bucket deal (K4p fused, no K5); K5's launches (0)
   16. push     googleplus SSSP (the phase 11 app; SpMSpV packs its own
                chunk_order="col" layout) push(0, 7) and pull_push(0, 7)
                (K7p, ADDMIN) and BFS push on googleplus at scale 0.1 (K7p,
@@ -94,9 +101,9 @@ Phases, one or more lines each:
                the pull_push_time_breakdown phase split
   18. sssp     pokec SSSP(EngineConfig(sort_rows_by_degree=True)): engine
                "auto" -> tropical, SpMSpV sharing it; layout facts, load
-               and pack seconds, K8's compact form (init s, MB); pull(0,
-               11), push(0, 11) and
-               pull_push(0, 11, 0.05) bit-equal to the oracle
+               and pack seconds, K8's compact form (init s, MB) and the
+               pass-1 store form (init s, MB); pull(0, 11), push(0, 11)
+               and pull_push(0, 11, 0.05) bit-equal to the oracle
   19. kernels  pokec: K4 scatter ADDMIN's stream, K8's window stream and
                K10's maxima bit-equal to their plain versions; K4p scatter
                ADDMIN against its plain version and the unpredicated
@@ -133,7 +140,10 @@ Phases, one or more lines each:
 
 The launch counters are set to 0 right before each path's app runs
 (phases 4-5, 8, 11, 12, 14-16, 18, 19's googleplus SSSP and 21) and read
-right after; every kernel of the path must have run there. Then it prints the kernels' JSON line: per
+right after; every kernel of the path must have run there (K5, which no
+app path runs since K4 scatter and K4p fused read x columns resolved at
+init, keeps its row with 0 launches). Then it prints the kernels' JSON
+line: per
 kernel its launches on the app paths, its largest difference from its
 plain version, its time, its plain version's, its bound (the larger of
 the bytes it must move over 3.35 TB/s and its fp32 operations over
@@ -194,7 +204,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                                 "graphlily_tpu/ops/router_pallas.py:368"),
     "K3p_router_reduce_pred": (ROUTER_SRC,
                                "graphlily_tpu/ops/router_pallas.py:756"),
-    "K4p_planar_fused_pred": (PLANAR_SRC,
+    # K4p fused runs K1p's kernel over the planar engine's tile form
+    "K4p_planar_fused_pred": (ROUTER_SRC,
                               "graphlily_tpu/ops/router_pallas.py:1459"),
     "K4p_planar_scatter_pred": (PLANAR_SRC,
                                 "graphlily_tpu/ops/router_pallas.py:1398"),
@@ -218,9 +229,12 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K4_planar_fused_permc": (ROUTER_SRC,
                               "graphlily_tpu/ops/router_pallas.py:1459"),
     "K4p_planar_fused_pred_permc": (
-        PLANAR_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
+        ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
 }
-BUCKET_SCALE = 0.25  # the pokec stand-in's cut for the "bucket" deal (K5)
+BUCKET_SCALE = 0.25  # the pokec stand-in's cut for the "bucket" deal
+# kernels held to their plain versions that no app path launches: K5, whose
+# x2 the planar forms resolve at engine init
+OFF_PATH = {"K5_planar_xperm"}
 TRIPLES_SCALE = 0.5  # the googleplus stand-in's cut for the "triples" SSSP
 MULADD_RTOL = 1e-4   # fp32 atomics in any order over hub rows of ~1e5 terms
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks at 700 W
@@ -323,18 +337,20 @@ def router_traffic(eng, act=None) -> dict:
 
 
 def form_facts(label: str, e) -> str:
-    """One element form (ops/router.RouterEntries) for the log, with the y
-    atomics K1's kernel issues on it at most on a full x: one per run of
-    one row inside a warp pass's 256 elements."""
+    """One element form (ops/router.RouterEntries) for the log, with, for
+    a row-ordered form, the y atomics K1's kernel issues on it at most on
+    a full x: one per run of one row inside a warp pass's 256 elements."""
     import torch
     from graphlily_tpu_torch.ops.router import entries_index
     row = entries_index(e)[1]
     pos = torch.arange(row.numel(), device=row.device)
     head = (row[1:] != row[:-1]) | (pos[1:] % 256 == 0)
+    atomics = ("" if e.order == "stream" else
+               f", y atomics at most {int(head.sum()) + 1}")
     return (f"{label} {e.order} order: {e.idx.numel()} elements, "
-            f"{e.deps.shape[0]} segments, {e.blocks.shape[0]} blocks, "
-            f"col_bits {e.col_bits}, {e.nbytes() / 1e6:.1f} MB, y atomics "
-            f"at most {int(head.sum()) + 1}")
+            f"{e.deps.shape[0]} segments, {e.blocks.shape[0]} blocks "
+            f"(at most {e.max_segments} segments), col_bits {e.col_bits}, "
+            f"{e.nbytes() / 1e6:.1f} MB{atomics}")
 
 
 def router_forms(eng) -> str:
@@ -425,7 +441,7 @@ def main(argv=None) -> int:
     permc(torch, args, rec, card, pk)
 
     for name, r in rec.items():
-        if r.get("launches", 0) == 0:
+        if r.get("launches", 0) == 0 and name not in OFF_PATH:
             raise AssertionError(f"{name} was not launched on an app path")
     kernels = [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -668,7 +684,7 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     dist_split = bfs.pull(0, iters)
     bfs_eng.fused = True
     dist_bucket = bfsb.pull(0, iters)
-    bfsb_eng.fused = False   # K5 runs in the bucket deal's split branch
+    bfsb_eng.fused = False   # the bucket deal's split branch (no K5)
     dist_bucket_split = bfsb.pull(0, iters)
     bfsb_eng.fused = True
     torch.cuda.synchronize()
@@ -681,7 +697,8 @@ def pokec(torch, args, rec: dict, card: str) -> None:
                                                for e in engines)
     rec["K5_planar_xperm"]["launches"] = bfsb_eng.launches["xperm"]
     log(f"phase 8 launches: pagerank {pr_eng.launches} bfs "
-        f"{bfs_eng.launches} bfs bucket {bfsb_eng.launches}")
+        f"{bfs_eng.launches} bfs bucket {bfsb_eng.launches}; K5 on the "
+        f"apps' paths {sum(e.launches['xperm'] for e in engines)}")
     err = check_close("pokec pagerank", rank,
                       pr.compute_reference_results(0.9, 10), exact=False)
     log(f"phase 8 pagerank pull(0.9, 10): engine=planar fused "
@@ -696,8 +713,8 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     check_close("pokec bfs bucket split", dist_bucket_split, want_b,
                 exact=True)
     log(f"phase 8 bfs pull(0, {iters}) deal=bucket (scale "
-        f"{BUCKET_SCALE * args.scale:g}): fused (K4 fused, no K5) and split "
-        f"(K5 -> K4 scatter -> K3) equal to the oracle "
+        f"{BUCKET_SCALE * args.scale:g}): fused (K4 fused) and split "
+        f"(K4 scatter -> K3), no K5, equal to the oracle "
         f"({int((want_b > 0).sum())} reached) ok")
 
     # ---- 9. kernels vs plain versions, on the apps' engines ---------------
@@ -716,10 +733,13 @@ def pokec(torch, args, rec: dict, card: str) -> None:
         y4e = eng.fused_entries_plain(xt)
         s4 = eng.scatter(xt)
         s4p = eng.scatter_plain(xt)
+        s4e = eng.scatter_entries_plain(xt)
         y3 = eng.reduce(s4)
         y3p = eng.reduce_plain(s4)
         torch.cuda.synchronize()
         bit_equal(torch, f"pokec {label}: K4 stream", s4, s4p)
+        bit_equal(torch, f"pokec {label}: K4 stream (store form walk)", s4,
+                  s4e)
         if exact:
             bit_equal(torch, f"pokec {label}: K4 fused", y4, y4e)
             bit_equal(torch, f"pokec {label}: K4 fused vs K4->K3 plain", y4,
@@ -733,7 +753,8 @@ def pokec(torch, args, rec: dict, card: str) -> None:
             err = check_close(f"pokec {label} {name}", y, want, exact)
             log(f"phase 9 {label} {name}: max|y-y64|={err:.3e} "
                 f"max|y64|={np.abs(want).max():.6e} ok")
-        log(f"phase 9 {label}: K4 stream bit-equal to plain; ok")
+        log(f"phase 9 {label}: K4 stream bit-equal to its plain version "
+            f"through the layout and to its store form's walk; ok")
         if not exact:
             rec["K4_planar_fused"]["err"] = float((y4 - y4p).abs().max())
             rec["K4_planar_scatter"]["err"] = float((s4 - s4p).abs().max())
@@ -746,17 +767,22 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     torch.cuda.synchronize()
     bit_equal(torch, "pokec K5 x2", x2, x2p)
     rec["K5_planar_xperm"]["err"] = float((x2 - x2p).abs().max())
+    launched = bfsb_eng.launches["xperm"]
     sb, sbp = bfsb_eng.scatter(xb), bfsb_eng.scatter_plain(xb)
+    sbe = bfsb_eng.scatter_entries_plain(xb)
     xbb = (xb < 0.05).to(torch.float32)
     yb = bfsb_eng.fused_spmv(xbb)
     torch.cuda.synchronize()
-    bit_equal(torch, "pokec bucket K5 -> K4 stream", sb, sbp)
+    if bfsb_eng.launches["xperm"] != launched:
+        raise AssertionError("bucket K4 scatter or K4 fused launched K5")
+    bit_equal(torch, "pokec bucket K4 stream vs K5 -> K4 plain", sb, sbp)
+    bit_equal(torch, "pokec bucket K4 stream (store form walk)", sb, sbe)
     for name, yp in (("walk", bfsb_eng.fused_entries_plain(xbb)),
                      ("K4 scatter -> K3", bfsb_eng.fused_plain(xbb))):
         bit_equal(torch, f"pokec bucket ANDOR K4 fused ({name})", yb, yp)
-    log("phase 9 bucket: K5 x2 and K5 -> K4 stream bit-equal to plain; "
-        "ANDOR K4 fused (x columns resolved at init, no K5) bit-equal to "
-        "its form's walk and to K5 -> K4 scatter -> K3's plain versions ok")
+    log("phase 9 bucket: K5 x2 bit-equal to plain; K4 scatter and ANDOR K4 "
+        "fused (x columns resolved at init, no K5) bit-equal to their "
+        "forms' walks and to K5 -> K4 scatter (-> K3)'s plain versions ok")
 
     # ---- 10. times ----------------------------------------------------------
     eng, xt = pr_eng, spmv_x
@@ -1008,11 +1034,14 @@ def chunked_form(eng, slots: int) -> str:
 
 
 def planar_form(eng) -> str:
-    """The planar engine's derived forms for the log: K4 fused's row form
-    and K4p fused's tile columns, their init seconds and MB."""
-    return (f"derived forms: init {eng.init_seconds:.2f} s; "
-            f"{form_facts('K4 fused', eng.entries)}; K4p fused tile columns "
-            f"{2 * eng.arrays.a_col.numel() / 1e6:.1f} MB")
+    """The planar engine's derived forms for the log: K4 fused's row form,
+    K4p fused's tile form and K4 scatter's store form, with their init
+    seconds."""
+    forms = ([("K4 fused", eng.entries), ("K4p fused", eng.pred_entries)]
+             if hasattr(eng, "entries") else [])
+    return "; ".join([f"derived forms: init {eng.init_seconds:.2f} s",
+                      *(form_facts(label, e) for label, e in (
+                          *forms, ("K4 scatter", eng.store_entries)))])
 
 
 def frontier_x(torch, ncols: int, kind: str, zero: float, rng):
@@ -1079,7 +1108,8 @@ def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict) -> None:
     rec["K4p_planar_scatter_pred"]["launches"] = eng.launches["scatter_pred"]
     rec["K3p_router_reduce_pred"]["launches"] += eng.launches["reduce_pred"]
     log(f"phase 15 launches: pokec bfs {eng.launches} bfs bucket "
-        f"{engb.launches}")
+        f"{engb.launches}; K5 on the apps' paths "
+        f"{eng.launches['xperm'] + engb.launches['xperm']}")
     for label, dist in runs.items():
         check_close(f"pokec bfs {label}", dist, want, exact=True)
     check_close("pokec bfs push bucket", dist_bucket,
@@ -1134,17 +1164,21 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
 
     def router_rows(label, eng, fused_name, scatter_name, reduce_name,
                     muladd_err=0.0):
-        # K1p's plain version walks its derived form (a roll engine's
-        # `entries`); K4p fused's goes through the flush stream
-        roll = hasattr(eng, "entries")
-        fused_plain = ((lambda x, a: eng.fused_entries_plain(x, a)) if roll
-                       else (lambda x, a: eng.fused_plain(x, None, a)))
+        # K1p's and K4p fused's plain versions walk a derived form (K1's
+        # row form; the planar tile form), K4p scatter's its store form;
+        # each kernel is also held to the plain versions through the
+        # layout (K2p/K4p scatter -> K3)
+        fused_plain = (lambda x, a: eng.fused_entries_plain(
+            x, a, eng.pred_plain_entries()))
         for kind in ("empty", "one", "5pct"):
             xt = frontier_x(torch, eng.num_cols, kind, 0.0, rng)
             act = eng.activity(xt)
             live = eng.live_chunks(act)
             s, sp = eng.scatter_predicated(xt, act), eng.scatter_plain(
                 xt, None, act)
+            if hasattr(eng, "store_entries"):
+                bit_equal(torch, f"{label} {kind} scatter (store form)", s,
+                          eng.scatter_entries_plain(xt, act))
             y3, y3p = eng.reduce_predicated(s, live), eng.reduce_plain(
                 s, None, live)
             y1, y1p = eng.fused_predicated(xt, act), fused_plain(xt, act)
@@ -1233,8 +1267,8 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
     for y, yp, full in pairs:
         bit_equal(torch, "pokec bucket K4p", y, yp)
         bit_equal(torch, "pokec bucket K4p vs unpredicated", y, full)
-    log("phase 17 pokec planar bucket ANDOR 5%: K5 -> K4p fused and K4p "
-        "scatter bit-equal to plain and unpredicated ok")
+    log("phase 17 pokec planar bucket ANDOR 5%: K4p fused and K4p scatter "
+        "(no K5) bit-equal to plain and unpredicated ok")
 
     # chunked K7p on the SSSP SpMSpV engine (ADDMIN) and the small BFS one
     seng = ch["sssp"].SpMSpV_.engine
@@ -1384,7 +1418,8 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         f"tropical, SpMSpV shares it; relabel+self edges+pack+init "
         f"{secs['load']:.1f} s, of which pack+init {secs['pack']:.1f} s "
         f"(K8's compact form {eng.init_seconds:.2f} s); "
-        f"nnz={eng.nnz} {tropical_facts(eng)}")
+        f"nnz={eng.nnz} {tropical_facts(eng)}; pass 1 "
+        f"{planar_form(eng.planar)}")
     reset((eng,))
     runs = {"pull": sssp.pull(0, iters), "push": sssp.push(0, iters),
             "pull_push": sssp.pull_push(0, iters, threshold=0.05)}
@@ -1395,7 +1430,8 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         "scatter_pred"]
     rec["K8_tropical_split"]["launches"] = launches["split"]
     rec["K10_tropical_window_reduce"]["launches"] = launches["window_reduce"]
-    log(f"phase 18 launches: pokec sssp {launches}")
+    log(f"phase 18 launches: pokec sssp {launches} (K5: "
+        f"{launches['xperm']})")
     t0 = time.perf_counter()
     want = sssp.compute_reference_results(0, iters)
     oracle_s = time.perf_counter() - t0
@@ -1411,10 +1447,13 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
     x[rng.random(eng.num_cols) < 0.5] = inf    # integers: exact fp32 sums
     xt = torch.from_numpy(x).to(dev)
     g1, g1p = eng.scatter(xt), eng.scatter_plain(xt)
+    g1e = eng.planar.scatter_entries_plain(xt)
     g2, g2p = eng.split(g1), eng.split_plain(g1)
     out, outp = eng.window_reduce(g2), eng.window_reduce_plain(g2)
     torch.cuda.synchronize()
     bit_equal(torch, "pokec K4 scatter ADDMIN stream", g1, g1p)
+    bit_equal(torch, "pokec K4 scatter ADDMIN stream (store form walk)", g1,
+              g1e)
     bit_equal(torch, "pokec K8 window stream", g2, g2p)
     bit_equal(torch, "pokec K10 out", out, outp)
     rec["K4_planar_scatter_addmin"]["err"] = decoded_err(g1, g1p)
@@ -1434,6 +1473,8 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         y, yfull = eng.call_predicated(xf), eng(xf)
         torch.cuda.synchronize()
         bit_equal(torch, f"pokec K4p ADDMIN {kind}", s, sp)
+        bit_equal(torch, f"pokec K4p ADDMIN {kind} (store form walk)", s,
+                  eng.planar.scatter_entries_plain(xf, act))
         bit_equal(torch, f"pokec K4p ADDMIN {kind} vs unpredicated", s, full)
         bit_equal(torch, f"pokec tropical SpMSpV {kind} vs SpMV", y, yfull)
         ms = time_ms(torch, lambda: eng.scatter_predicated(xf, act))
@@ -1698,11 +1739,13 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
     xt = torch.from_numpy(x).to(dev)
     want = muladd_oracle(bfs.SpMV_.csr_matrix_, x)
     s, sp = muladd.scatter(xt), muladd.scatter_plain(xt)
+    se = muladd.scatter_entries_plain(xt)
     y11, y11p = muladd.reduce(s), muladd.reduce_plain(s)
     y4, y4p = muladd.fused_spmv(xt), muladd.fused_plain(xt)
     y4e = muladd.fused_entries_plain(xt)
     torch.cuda.synchronize()
     bit_equal(torch, "PERM-C MULADD K4 stream", s, sp)
+    bit_equal(torch, "PERM-C MULADD K4 stream (store form walk)", s, se)
     for label, y in (("K4 scatter -> K11", y11), ("K11 plain", y11p),
                      ("K4 fused PERM-C", y4), ("K4 fused plain (form)", y4e),
                      ("K4->K3 plain", y4p),
@@ -1741,9 +1784,13 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
             sf, None, live)
         y4, y4p = eng.fused_predicated(xf, act), eng.fused_plain(
             xf, None, act)
+        y4w = eng.fused_entries_plain(xf, act, eng.pred_plain_entries())
         full = eng.fused_spmv(xf)
         torch.cuda.synchronize()
-        for label, y, yp in (("K11p", y11, y11p), ("K4p fused", y4, y4p)):
+        bit_equal(torch, f"PERM-C {kind} K4p scatter (store form)", sf,
+                  eng.scatter_entries_plain(xf, act))
+        for label, y, yp in (("K11p", y11, y11p), ("K4p fused", y4, y4p),
+                             ("K4p fused (tile form walk)", y4, y4w)):
             bit_equal(torch, f"PERM-C {kind} {label}", y, yp)
             bit_equal(torch, f"PERM-C {kind} {label} vs unpredicated", y,
                       full)
@@ -1766,7 +1813,9 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
     errs = {"K11p": float((y11m - muladd.reduce_plain(sm, None, live_m))
                           .abs().max()),
             "K4p": float((y4m - muladd.fused_plain(xf, None, act_m))
-                         .abs().max())}
+                         .abs().max()),
+            "K4p (tile form walk)": float((y4m - muladd.fused_entries_plain(
+                xf, act_m, muladd.pred_plain_entries())).abs().max())}
     scale = float(y4m.abs().max())
     for label, e in errs.items():
         if e > MULADD_RTOL * scale:
@@ -1787,7 +1836,9 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
     rec["K11p_permc_reduce_pred"]["plain_ms"] = time_ms(
         torch, lambda: eng.reduce_plain(sf, None, live), iters=10)
     rec["K4p_planar_fused_pred_permc"]["plain_ms"] = time_ms(
-        torch, lambda: eng.fused_plain(xf, None, act), iters=10)
+        torch, lambda: eng.fused_entries_plain(xf, act,
+                                               eng.pred_plain_entries()),
+        iters=10)
     bounds = permc_bounds(muladd)
     timed = {"K11_permc_reduce": (lambda: muladd.reduce(s),
                                   lambda: muladd.reduce_plain(s),

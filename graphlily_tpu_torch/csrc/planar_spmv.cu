@@ -1,36 +1,31 @@
-// Planar-router SpMV kernels for Hopper (sm_90a): K4 scatter, K5 xperm,
-// and the frontier-predicated K4p scatter and K4p fused (SpMSpV, the
-// `sm`/`na` launches of router_pallas.py:1747-1774). K4 fused runs K1's
-// kernel (router_spmv.cu) over a row-sorted element form that the engine
-// derives from these arrays at init (ops/planar.py). Built by
+// Planar-router SpMV kernels for Hopper (sm_90a): K4 scatter and its
+// frontier-predicated form K4p scatter (the `sm`/`na` launch of
+// router_pallas.py:1765), and K5 xperm. K4 fused and K4p fused run K1's
+// kernel (router_spmv.cu) over row-sorted element forms that the engine
+// derives from the layout at init (ops/planar.py). Built by
 // graphlily_tpu_torch/ops/_build.py with nvcc into a shared library with a
 // plain C interface; ops/planar.py binds it with ctypes and holds each
 // kernel against its plain PyTorch version. The split branch reduces K4's
-// flush stream with K3 (router_spmv.cu); the tropical engine
-// (ops/tropical.py) runs K4 scatter and K4p scatter in ADDMIN mode and
-// reduces their int32 stream with K8 or K9 and K10 (tropical_spmv.cu).
+// flush stream with K3 (router_spmv.cu) or K11 (permc_spmv.cu); the
+// tropical engine (ops/tropical.py) runs K4 scatter and K4p scatter in
+// ADDMIN mode and reduces their int32 stream with K8 or K9 and K10
+// (tropical_spmv.cu).
 //
-// All of them read the PlanarSpMVLayout arrays of their Pallas twins in
-// graphlily_tpu/ops/router_pallas.py (io/planar_format.py documents the
-// words), except the deposit planes: K4 reads each piece's 8 triple-run
-// words (io/planar_format.planes_to_triples), 32 B instead of the 1 KB
-// (8, 128) int8 plane, which says the same thing losslessly:
+// What K4 computes (the PlanarSpMVLayout arrays of its Pallas twin in
+// graphlily_tpu/ops/router_pallas.py; io/planar_format.py documents the
+// words):
 //
 //   gathered product  g[c, s, l] = val[c, s, l] (x) x[col(c, s, l)] with
 //                     r = a_r[c, s, l] and, for the "free" deal,
-//                     col = a_page[c]*1024 + a_sub[c, s, r]*128 + r
-//                     (a_sub is indexed by the SOURCE lane r, not by l);
-//                     for the "bucket" deal the column tiles of x are first
-//                     re-laid by K5 and col = a_page[c]*1024 + s*128 + r.
+//                     col = a_page[c]*1024 + a_sub[c, s, r]*128 + r;
+//                     for the "bucket" deal col indexes K5's re-laid x2,
+//                     x2[a_page[c]*1024 + s*128 + r].
 //                     ANDOR: g = (val != 0 && x != 0) as 0/1; ADDMIN:
 //                     g = INF_BITS - bits(min(val + x, FLOAT_INF)), int32.
-//   deposit piece     rg[t, j] = (w1, w2), w2 > 0: chunk k = w1 & 0xFF,
-//   (t, j)            word p = w1 >> 8 (== j). Sublane s's word
-//                     a0 | d0<<7 | n<<14 moves g[t*cb + k, s, (a0+i) & 127]
-//                     to flush-stream chunk target[t, j], element
-//                     s*128 + d0 + i, for i < n.
-//   flushed element   (q, p) -> y[c_code[q]*region_rows + c_hi[q, p]*128
-//                     + c_lo[q, p]].
+//   deposit piece     rg[t, j] = (w1, w2), w2 > 0: chunk k = w1 & 0xFF.
+//   (t, j)            Sublane s's triple-run word a0 | d0<<7 | n<<14 moves
+//                     g[t*cb + k, s, (a0+i) & 127] to flush-stream chunk
+//                     target[t, j], element s*128 + d0 + i, for i < n.
 //
 // Order. The Pallas kernels run the grid in order on one core: slots carry
 // from step to step, a flush copies and zeroes its slot. CUDA blocks run in
@@ -40,53 +35,52 @@
 // the first flush of the piece's slot after it. Pieces of one slot cycle
 // fill disjoint lanes (the packer's per-sublane cursors), and a flush
 // zeroes its slot, so every flushed element comes from exactly one piece
-// and unused elements stay zero: K4 scatter is a set of independent copies
-// into a zeroed stream (no atomics, bit-equal to its plain version), and
-// K4p fused adds each product straight into y with float atomics, summed
-// first over runs of equal rows within the warp (glt::warp_add_rows; a
-// piece's lanes are row-sorted within each sublane). K4p fused gathers
-// through one int16 tile column per A slot, derived at engine init
-// (ops/planar.tile_columns), instead of the chain a_r -> a_sub -> x.
+// and unused elements stay zero: K4 scatter is a set of independent stores
+// into a zeroed stream, one writer a slot (no atomics, bit-equal to its
+// plain version).
 //
-// Predication (kPred; K4p fused always). A planar A-chunk mixes the 8
-// pages of its column tile, so activity is per 1024-column tile
-// (act[a_page[c]], PlanarSpMV._normalize_act). A piece of an inactive
-// tile gathers only the semiring zero's products (for ADDMIN x =
-// FLOAT_INF, encoded 0): K4p skips it, so its stream elements stay zero,
-// and the split branch's K3p skips the flush chunks no live piece
-// targets. The grid is the full one;
-// a dead warp exits after its descriptor word and the chunk's tile. K5 is
-// unchanged.
+// What K4 reads. Not the layout: walking a piece's triple-run words
+// chains dependent loads (descriptor -> page -> run words -> lane byte ->
+// sublane byte -> x). The engine derives at init the store form
+// (ops/router.router_entries, order "stream"): every deposited element
+// once, in piece order, as its f32 value and one int32 word
+// (column within its 1024-column tile | slot within its target flush
+// chunk << 10), and one record a piece (first element, x offset
+// tile*1024, stream offset target*1024, activity flag: the tile). A
+// "bucket" element's x2 slot is resolved to its x column at init
+// (PlanarSpMV.x_columns), so K4 no longer needs K5.
+//
+// Predication (K4p scatter). A planar A-chunk mixes the 8 pages of its
+// column tile, so activity is per 1024-column tile (act[tile],
+// PlanarSpMV._normalize_act). A piece of an inactive tile gathers only the
+// semiring zero's products (for ADDMIN x = FLOAT_INF, encoded 0): K4p skips
+// it, so its stream elements stay zero, and the split branch's K3p skips
+// the flush chunks no live piece targets. The grid is the full one; a
+// block none of whose pieces is live exits after reading its records. K5
+// is unchanged.
 
 #include <cstdint>
 #include <type_traits>
 
 #include <cuda_runtime.h>
 
-#include "piece_runs.cuh"
-#include "warp_rows.cuh"
+#include "segments.cuh"
 
 namespace {
-
-using glt::Elem;
-using glt::locate;
-using glt::load_runs;
-using glt::Runs;
-using glt::warp_add_rows;
 
 constexpr int kChunk = 1024;
 constexpr int kLanes = 128;
 constexpr int kSub = 8;
-constexpr int kWarps = 8;                 // deposit pieces per block
+constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr unsigned kAll = 0xffffffffu;
+constexpr int kVec = 8;            // elements per lane and warp pass
+constexpr int kZeroChunks = 16;    // flush chunks a zeroing block covers
 
 // The semiring's (x), numbered as the wrappers pass it (semiring.OpType).
 // ADDMIN is the tropical engine's: its product is stored as the exact int32
 // encoding of router_pallas.py:_tropical_encode (semiring.tropical_encode),
 // E = INF_BITS - bits(min(v + x, FLOAT_INF)), order-reversing on
-// non-negative floats with E(FLOAT_INF) = 0. It runs in K4 scatter only:
-// K4 fused adds floats into y, and the tropical engine never fuses.
+// non-negative floats with E(FLOAT_INF) = 0.
 enum class Op { kMulAdd = 0, kAndOr = 1, kAddMin = 2 };
 
 constexpr float kFloatInf = 999999999.0f;     // semiring.FLOAT_INF (1e9f)
@@ -110,143 +104,112 @@ __device__ __forceinline__ Stored<kOp> product(float v, float xv) {
   }
 }
 
-// Gathered product of A-chunk element (s, src); `chunk` is the element
-// offset of the chunk, `page` its column tile.
-template <Op kOp, bool kChained>
-__device__ __forceinline__ Stored<kOp> gathered(
-    const int8_t* __restrict__ a_r, const int8_t* __restrict__ a_sub,
-    const float* __restrict__ a_vals, const float* __restrict__ x,
-    long long chunk, int page, int s, int src) {
-  const long long e = chunk + s * kLanes + src;
-  const int r = a_r[e];
-  const int sub = kChained ? static_cast<int>(a_sub[chunk + s * kLanes + r])
-                           : s;
-  const float xv = __ldg(x + static_cast<long long>(page) * kChunk
-                         + sub * kLanes + r);
-  return product<kOp>(a_vals[e], xv);
-}
-
 // ---------------------------------------------------------------------------
-// K4 scatter. Replaces _planar_scatter_call with the bodies
+// K4 scatter and K4p scatter. Replace _planar_scatter_call with the bodies
 // _make_planar_kernel / _make_planar_kernel_looped(fuse=False)
-// (graphlily_tpu/ops/router_pallas.py:1398, :981, :1190): phase A (the
-// chained or the single gather), phase B (plane deposits into K-rotated
-// slots, flush = copy + zero) into the (nsteps, f, 8, 128) flush stream.
-// Bound on the H100: the chain of dependent loads per element, lane ->
-// source sublane (a_sub) -> x, more than the bytes. Per nnz it reads 5 B
-// of A streams (f32 value, int8 lane; "free" adds an int8 a_sub read in
-// the same 1 KB chunk) and writes 4 B of stream, plus 32 B of triple
-// words per piece; x (6.5 MB on the pokec stand-in, at most 12 MB on
-// every ICCAD graph) is served from the 50 MB L2. Measured on the pokec
-// stand-in (PERF.md): 0.238 ms, 0.146 ms without the x gather, 0.209 ms
-// without the a_sub load, against 0.082 ms for its bytes at 3.35 TB/s;
-// the wrapper's zeroing of the stream adds 0.051 ms.
-// Design: one warp per deposit piece, 8 pieces per block. A piece holds
-// about 180 elements over its 8 sublane runs on the degree-sorted pokec
-// stand-in, 22 per run, so the warp walks the piece's elements flattened
-// across sublanes (32 per pass, no lane idles on a short run) rather than
-// one run at a time; inactive slots cost one 8-byte descriptor read.
-// ADDMIN (the tropical pass 1, _planar_scatter_call with op=ADDMIN,
-// router_pallas.py:1403-1405) moves the same bytes: its 4-byte elements are
-// int32 encodings, and the one float add rounds as XLA's does.
-template <Op kOp, bool kChained, bool kPred>
-__global__ void __launch_bounds__(kThreads) planar_scatter_kernel(
-    const int* __restrict__ a_page, const int8_t* __restrict__ a_r,
-    const int8_t* __restrict__ a_sub, const float* __restrict__ a_vals,
-    const int2* __restrict__ rg, const int* __restrict__ tri,
-    const int* __restrict__ target, const float* __restrict__ x,
-    Stored<kOp>* __restrict__ stream, const uint8_t* __restrict__ act,
-    int cb, int rstep, int dstep, long long npieces) {
-  const unsigned lane = threadIdx.x & 31;
-  const long long gp = static_cast<long long>(blockIdx.x) * kWarps
-      + (threadIdx.x >> 5);
-  if (gp >= npieces) return;                     // whole warp
-  const long long t = gp / dstep;
-  const int j = static_cast<int>(gp - t * dstep);
-  const int2 w = rg[t * rstep + j];
-  if (w.y <= 0) return;                          // whole warp
-  const long long c = t * cb + (w.x & 0xFF);
-  const int page = a_page[c];
-  if (kPred && !act[page]) return;               // whole warp
-  const Runs r = load_runs(tri + (t * dstep + (w.x >> 8)) * kSub, lane);
-  const long long chunk = c * kChunk;
-  Stored<kOp>* out = stream + static_cast<long long>(target[gp]) * kChunk;
-  const int n = r.end[kSub - 1];
-  for (int base = 0; base < n; base += 32) {
-    const int e = base + static_cast<int>(lane);
-    const Elem el = locate(r, e);
-    if (e < n)
-      out[el.dst] = gathered<kOp, kChained>(a_r, a_sub, a_vals, x, chunk,
-                                            page, el.s, el.src);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4p fused. Replaces _planar_fused_call with `sm`/`na` and the bodies
-// _make_planar_kernel / _make_planar_kernel_looped(fuse=True) and the
-// inline one-hot reduce _onehot_place (router_pallas.py:1459 -> pallas_call
-// :1509, :1758, :981, :1190, :88): K4 scatter's pieces of active tiles,
-// each product going straight to its row of y, so the flush stream never
-// reaches device memory. (K4 fused, the unpredicated launch, runs K1's
-// kernel over the engine's row-sorted form, PERF.md §6: it reads its
-// own 8 bytes an element in order; a row-sorted form would make a dead
-// tile's elements unskippable, so K4p keeps the stream-order walk.)
-// Bound on the H100: about 7 B of streams per nnz of the active tiles
-// (fp32 value, int16 tile column, int8 c_hi and c_lo at the element's
-// stream position) plus 32 B of triple words per live piece; x (6.5 MB
-// on the pokec stand-in) and y (6.6 MB, the atomics) stay in the 50 MB L2.
-// Design: one warp per deposit piece, in stream order, as K4 scatter: the
-// pieces of one step read neighbouring runs of the same A-chunks, so the
-// A streams are read close to once from device memory. The gather reads
-// a_col[c, s, l] = a_sub[c, s, a_r]*128 + a_r ("free", PERM-C) or
-// s*128 + a_r ("bucket", over K5's x2), one 2-byte load before x instead
-// of two dependent byte loads. hi/lo are read at target*1024 + s*128 +
-// d0 + i; warp_add_rows folds each run of equal rows among the warp's
-// lanes into one global atomic. The pass bound is uniform across the
-// warp, so every lane reaches the shuffles. A dead piece's warp exits
-// after its descriptor word and its chunk's tile.
+// (graphlily_tpu/ops/router_pallas.py:1398 -> pallas_call :1429, :981,
+// :1190), and with `sm`/`na` (:1765): phase A (the gather) and phase B
+// (plane deposits into K-rotated slots, flush = copy + zero) into the
+// (nsteps, f, 8, 128) flush stream. ADDMIN is the tropical pass 1
+// (_planar_scatter_call with op=ADDMIN, router_pallas.py:1403-1405).
+// Bound on the H100: device memory, 12 B an element (8 read from the form,
+// 4 stored), plus the zeros of the stream's unfilled lanes; x (6.5 MB on
+// the pokec stand-in) is read from L2, one 4 KB tile a piece.
+// Design: the grid is the form's block table (ENTRIES_PER_BLOCK
+// consecutive elements a block). A block loads its pieces' records into
+// shared memory; each warp takes 256 consecutive elements a pass, lane l
+// the elements l, l + 32, ..., l + 224, so every load of values and words
+// and, as a piece's elements run in sublane and lane order, every store
+// of one warp instruction covers 32 neighbouring 4-byte slots. Each lane
+// finds its first element's piece by a binary search and the rest by a
+// forward walk, gathers x and stores each product to its slot: one writer
+// a slot, so no atomics and no shuffles. (A first design gave each
+// thread 8 consecutive elements with 16-byte loads, as K1 does; its
+// stores then spread a warp instruction over 32 sectors and it ran at
+// about 1.2 TB/s, PERF.md §6.)
+// Zeros. The elements of a flush chunk fill lanes [0, tails[c*8 + s]) of
+// each sublane s (the packers' per-sublane cursors; the form checks it at
+// init). Unpredicated, the grid's last blocks write the zeros of the other
+// lanes, kZeroChunks chunks a block, 16 B a thread and chunk, so the
+// wrapper need not zero the whole stream first (the flush stream is 23%
+// unfilled lanes on the pokec stand-in; one chunk a block cost more in
+// block launches than the lanes' bytes, PERF.md §6). K4p scatter leaves a
+// dead piece's lanes alone, so its wrapper zeroes the stream (tails null,
+// no zero blocks).
 template <Op kOp>
-__global__ void __launch_bounds__(kThreads) planar_fused_pred_kernel(
-    const int* __restrict__ a_page, const int16_t* __restrict__ a_col,
-    const float* __restrict__ a_vals, const int2* __restrict__ rg,
-    const int* __restrict__ tri, const int* __restrict__ target,
-    const int* __restrict__ c_code, const int8_t* __restrict__ c_hi,
-    const int8_t* __restrict__ c_lo, const float* __restrict__ x,
-    float* __restrict__ y, const uint8_t* __restrict__ act, int cb,
-    int rstep, int dstep, int region_rows, long long npieces) {
-  const unsigned lane = threadIdx.x & 31;
-  const long long gp = static_cast<long long>(blockIdx.x) * kWarps
-      + (threadIdx.x >> 5);
-  if (gp >= npieces) return;                     // whole warp
-  const long long t = gp / dstep;
-  const int j = static_cast<int>(gp - t * dstep);
-  const int2 w = rg[t * rstep + j];
-  if (w.y <= 0) return;                          // whole warp
-  const long long c = t * cb + (w.x & 0xFF);
-  const int page = a_page[c];
-  if (!act[page]) return;                        // whole warp
-  const long long tgt = target[gp];
-  const int code = c_code[tgt];
-  if (code < 0) return;                          // whole warp
-  const Runs r = load_runs(tri + (t * dstep + (w.x >> 8)) * kSub, lane);
-  const long long chunk = c * kChunk;
-  const float* xs = x + static_cast<long long>(page) * kChunk;
-  float* yr = y + static_cast<long long>(code) * region_rows;
-  const int8_t* hi = c_hi + tgt * kChunk;
-  const int8_t* lo = c_lo + tgt * kChunk;
-  const int n = r.end[kSub - 1];
-  for (int base = 0; base < n; base += 32) {
-    const int e = base + static_cast<int>(lane);
-    const Elem el = locate(r, e);
-    float g = 0.f;
-    int row = -1;
-    if (e < n) {
-      const long long src = chunk + el.s * kLanes + el.src;
-      g = product<kOp>(a_vals[src], __ldg(xs + a_col[src]));
-      row = static_cast<int>(hi[el.dst]) * kLanes
-          + static_cast<int>(lo[el.dst]);
+__global__ void __launch_bounds__(kThreads) planar_store_kernel(
+    const int4* __restrict__ blocks, const int4* __restrict__ deps,
+    const float* __restrict__ vals, const unsigned* __restrict__ idx,
+    const float* __restrict__ x, Stored<kOp>* __restrict__ stream,
+    const uint8_t* __restrict__ act, const uint8_t* __restrict__ tails,
+    int nblocks, int nchunks, int max_segments, int col_bits) {
+  if (static_cast<int>(blockIdx.x) >= nblocks) {   // chunks' zeros
+    const long long c0 =
+        (static_cast<long long>(blockIdx.x) - nblocks) * kZeroChunks;
+    const int s = threadIdx.x >> 5;
+    const int l = (threadIdx.x & 31) * 4;
+    for (long long c = c0; c < c0 + kZeroChunks && c < nchunks; ++c) {
+      const int fill = tails[c * kSub + s];
+      Stored<kOp>* row = stream + c * kChunk + s * kLanes + l;
+      if (l >= fill) {
+        *reinterpret_cast<int4*>(row) = make_int4(0, 0, 0, 0);
+      } else {
+#pragma unroll
+        for (int k = 1; k < 4; ++k)
+          if (l + k >= fill) row[k] = Stored<kOp>(0);
+      }
     }
-    warp_add_rows(yr, row, g);
+    return;
+  }
+  extern __shared__ int seg[];     // start, x offset, stream offset of each
+  int* s_start = seg;
+  int* s_x = seg + max_segments;
+  int* s_out = seg + 2 * max_segments;
+  const int4 b = blocks[blockIdx.x];
+  const int ns = b.w - b.z;
+  const bool live = glt::load_segments(b, deps, act, kThreads, s_start, s_x,
+                                       s_out);
+  if (act != nullptr) {
+    if (!__syncthreads_or(live)) return;
+  } else {
+    __syncthreads();
+  }
+  const unsigned mask = (1u << col_bits) - 1u;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  constexpr int kSpan = 32 * kVec;           // elements of a warp pass
+  for (int q = b.x + static_cast<int>(threadIdx.x >> 5) * kSpan + lane;
+       q < b.y; q += kWarps * kSpan) {
+    int col[kVec], slot[kVec];
+    bool any = false;
+    int j = glt::find_segment(s_start, ns, q);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const int e = q + 32 * k;
+      col[k] = -1;
+      if (e >= b.y) continue;
+      while (j + 1 < ns && s_start[j + 1] <= e) ++j;
+      col[k] = s_x[j];
+      slot[k] = s_out[j];
+      any |= col[k] >= 0;
+    }
+    if (!any) continue;
+    unsigned w[kVec];
+    float v[kVec], xv[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      if (col[k] < 0) continue;
+      w[k] = idx[q + 32 * k];
+      v[k] = vals[q + 32 * k];
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      if (col[k] < 0) continue;
+      xv[k] = __ldg(x + col[k] + static_cast<int>(w[k] & mask));
+      slot[k] += static_cast<int>(w[k] >> col_bits);
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      if (col[k] >= 0) stream[slot[k]] = product<kOp>(v[k], xv[k]);
   }
 }
 
@@ -256,7 +219,9 @@ __global__ void __launch_bounds__(kThreads) planar_fused_pred_kernel(
 // per-tile column re-layout of x for "bucket" layouts,
 // x2[t, d, l] = x[t, s, v & 127] where xperm[t, s, d, l] = v < 0, and 0
 // where no source plane takes (the last taking plane wins, as in the
-// Pallas body's where-chain).
+// Pallas body's where-chain). No app path launches it since K4 fused, K4
+// scatter and their predicated forms read x columns resolved at init;
+// `PlanarSpMV.xperm` keeps it as the "bucket" layout's x2.
 // Bound on the H100: device memory, 8 B of planes and 8 B of x and x2 per
 // column (13 MB of planes on the pokec stand-in).
 // Design: one thread per output element; the 8 plane bytes it scans sit
@@ -284,65 +249,47 @@ unsigned blocks_for(long long items, int per_block) {
   return static_cast<unsigned>((items + per_block - 1) / per_block);
 }
 
-template <Op kOp, bool kChained, bool kPred>
-void launch_scatter(const void* a_page, const void* a_r, const void* a_sub,
-                    const void* a_vals, const void* rg, const void* tri,
-                    const void* target, const void* x, void* stream_out,
-                    const void* act, long long npieces, int cb, int rstep,
-                    int dstep, cudaStream_t st) {
-  planar_scatter_kernel<kOp, kChained, kPred>
-      <<<blocks_for(npieces, kWarps), kThreads, 0, st>>>(
-          static_cast<const int*>(a_page), static_cast<const int8_t*>(a_r),
-          static_cast<const int8_t*>(a_sub), static_cast<const float*>(a_vals),
-          static_cast<const int2*>(rg), static_cast<const int*>(tri),
-          static_cast<const int*>(target), static_cast<const float*>(x),
-          static_cast<Stored<kOp>*>(stream_out),
-          static_cast<const uint8_t*>(act), cb, rstep, dstep, npieces);
-}
-
 template <Op kOp>
-void launch_fused_pred(const void* a_page, const void* a_col,
-                       const void* a_vals, const void* rg, const void* tri,
-                       const void* target, const void* c_code,
-                       const void* c_hi, const void* c_lo, const void* x,
-                       void* y, const void* act, long long npieces, int cb,
-                       int rstep, int dstep, int region_rows,
-                       cudaStream_t st) {
-  planar_fused_pred_kernel<kOp>
-      <<<blocks_for(npieces, kWarps), kThreads, 0, st>>>(
-          static_cast<const int*>(a_page), static_cast<const int16_t*>(a_col),
-          static_cast<const float*>(a_vals), static_cast<const int2*>(rg),
-          static_cast<const int*>(tri), static_cast<const int*>(target),
-          static_cast<const int*>(c_code), static_cast<const int8_t*>(c_hi),
-          static_cast<const int8_t*>(c_lo), static_cast<const float*>(x),
-          static_cast<float*>(y), static_cast<const uint8_t*>(act), cb, rstep,
-          dstep, region_rows, npieces);
-}
-
-template <Op kOp, bool kPred>
-auto scatter_launcher(bool chained) {
-  return chained ? launch_scatter<kOp, true, kPred>
-                 : launch_scatter<kOp, false, kPred>;
-}
-
-template <bool kPred>
-int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
-                const void* a_vals, const void* rg, const void* tri,
-                const void* target, const void* x, void* stream_out,
-                const void* act, int nsteps, int cb, int rstep, int dstep,
-                int op, void* cuda_stream) {
-  if (op < 0 || op > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const long long npieces = static_cast<long long>(nsteps) * dstep;
-  if (npieces > 0) {
-    auto st = static_cast<cudaStream_t>(cuda_stream);
-    const bool chained = a_sub != nullptr;
-    auto launch = op == 2 ? scatter_launcher<Op::kAddMin, kPred>(chained)
-        : op == 1 ? scatter_launcher<Op::kAndOr, kPred>(chained)
-                  : scatter_launcher<Op::kMulAdd, kPred>(chained);
-    launch(a_page, a_r, a_sub, a_vals, rg, tri, target, x, stream_out, act,
-           npieces, cb, rstep, dstep, st);
+int launch_store(const void* blocks, const void* deps, const void* vals,
+                 const void* idx, const void* x, void* stream_out,
+                 const void* act, const void* tails, int nblocks,
+                 int max_segments, int col_bits, int nchunks,
+                 cudaStream_t st) {
+  const size_t smem = 3 * sizeof(int) * static_cast<size_t>(max_segments);
+  auto kernel = planar_store_kernel<kOp>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const unsigned grid = static_cast<unsigned>(nblocks)
+      + (tails != nullptr ? blocks_for(nchunks, kZeroChunks) : 0u);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const int4*>(blocks), static_cast<const int4*>(deps),
+      static_cast<const float*>(vals), static_cast<const unsigned*>(idx),
+      static_cast<const float*>(x), static_cast<Stored<kOp>*>(stream_out),
+      static_cast<const uint8_t*>(act), static_cast<const uint8_t*>(tails),
+      nblocks, nchunks, max_segments, col_bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+int run_store(const void* blocks, const void* deps, const void* vals,
+              const void* idx, const void* x, void* stream_out,
+              const void* act, const void* tails, int nblocks,
+              int max_segments, int col_bits, int nchunks, int op,
+              void* cuda_stream) {
+  if (op < 0 || op > 2 || nblocks < 0 || max_segments < 0 || col_bits < 1 ||
+      col_bits > 31 || nchunks < 0 || vals == nullptr ||
+      (act != nullptr && tails != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblocks == 0 && (tails == nullptr || nchunks == 0))
+    return static_cast<int>(cudaGetLastError());
+  auto fn = op == 2 ? launch_store<Op::kAddMin>
+      : op == 1 ? launch_store<Op::kAndOr> : launch_store<Op::kMulAdd>;
+  return fn(blocks, deps, vals, idx, x, stream_out, act, tails, nblocks,
+            max_segments, col_bits, nchunks,
+            static_cast<cudaStream_t>(cuda_stream));
 }
 
 }  // namespace
@@ -350,54 +297,32 @@ int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
 // ---------------------------------------------------------------------------
 // C entry points. Each launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (0 = launched).
-// Outputs of K4 and K4p must be zeroed by the caller. For K4 scatter a_sub ==
-// nullptr selects the "bucket" gather (x is then K5's x2); otherwise the
-// chained "free" gather.
-// K4 scatter's `op` is semiring.OpType (0 MULADD, 1 ANDOR: a float stream;
-// 2 ADDMIN: an int32 stream of encodings); K4p fused takes and_or (0 or 1).
+// K4 scatter takes the store form of ops/router.router_entries (order
+// "stream"): blocks (nblocks, 4) and deps (segments, 4) int32, vals float32
+// and idx int32 in storage padded to a multiple of 8 elements, and its
+// tails, the (nchunks*8,) uint8 filled lanes of each (flush chunk,
+// sublane), with which it writes every element of the (nchunks, 8, 128)
+// stream; with null tails, and always for K4p scatter, the caller zeroes
+// the stream. `op` is semiring.OpType (0 MULADD, 1 ANDOR: a float stream;
+// 2 ADDMIN: an int32 stream of encodings).
 
 extern "C" int glt_planar_scatter(
-    const void* a_page, const void* a_r, const void* a_sub,
-    const void* a_vals, const void* rg, const void* tri, const void* target,
-    const void* x, void* stream_out, int nsteps, int cb, int rstep,
-    int dstep, int op, void* cuda_stream) {
-  return run_scatter<false>(a_page, a_r, a_sub, a_vals, rg, tri, target, x,
-                            stream_out, nullptr, nsteps, cb, rstep, dstep,
-                            op, cuda_stream);
+    const void* blocks, const void* deps, const void* vals, const void* idx,
+    const void* x, void* stream_out, const void* tails, int nblocks,
+    int max_segments, int col_bits, int nchunks, int op, void* cuda_stream) {
+  return run_store(blocks, deps, vals, idx, x, stream_out, nullptr, tails,
+                   nblocks, max_segments, col_bits, nchunks, op,
+                   cuda_stream);
 }
 
-// K4p scatter: act is the (num_col_tiles,) uint8 tile activity.
+// K4p scatter: act is the (num_col_tiles,) uint8 tile activity, indexed by
+// each piece's flag.
 extern "C" int glt_planar_scatter_pred(
-    const void* a_page, const void* a_r, const void* a_sub,
-    const void* a_vals, const void* rg, const void* tri, const void* target,
-    const void* x, void* stream_out, const void* act, int nsteps, int cb,
-    int rstep, int dstep, int op, void* cuda_stream) {
-  return run_scatter<true>(a_page, a_r, a_sub, a_vals, rg, tri, target, x,
-                           stream_out, act, nsteps, cb, rstep, dstep, op,
-                           cuda_stream);
-}
-
-// K4p fused: a_col is the (nsteps*cb*1024,) int16 tile column of every A
-// slot (ops/planar.tile_columns), x is K5's x2 for "bucket" layouts, act
-// the (num_col_tiles,) uint8 tile activity; and_or 0 MULADD, 1 ANDOR
-// (there is no ADDMIN instance).
-extern "C" int glt_planar_fused_pred(
-    const void* a_page, const void* a_col, const void* a_vals,
-    const void* rg, const void* tri, const void* target, const void* c_code,
-    const void* c_hi, const void* c_lo, const void* x, void* y,
-    const void* act, int nsteps, int cb, int rstep, int dstep,
-    int region_rows, int and_or, void* cuda_stream) {
-  if (and_or < 0 || and_or > 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long npieces = static_cast<long long>(nsteps) * dstep;
-  if (npieces > 0) {
-    auto launch = and_or ? launch_fused_pred<Op::kAndOr>
-                         : launch_fused_pred<Op::kMulAdd>;
-    launch(a_page, a_col, a_vals, rg, tri, target, c_code, c_hi, c_lo, x, y,
-           act, npieces, cb, rstep, dstep, region_rows,
-           static_cast<cudaStream_t>(cuda_stream));
-  }
-  return static_cast<int>(cudaGetLastError());
+    const void* blocks, const void* deps, const void* vals, const void* idx,
+    const void* x, void* stream_out, const void* act, int nblocks,
+    int max_segments, int col_bits, int op, void* cuda_stream) {
+  return run_store(blocks, deps, vals, idx, x, stream_out, act, nullptr,
+                   nblocks, max_segments, col_bits, 0, op, cuda_stream);
 }
 
 extern "C" int glt_planar_xperm(const void* xperm, const void* x, void* x2,

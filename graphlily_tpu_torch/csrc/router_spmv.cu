@@ -51,6 +51,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "segments.cuh"
 #include "warp_rows.cuh"
 
 namespace {
@@ -192,7 +193,11 @@ __global__ void __launch_bounds__(kThreads) router_reduce_kernel(
 // the googleplus stand-in), so a row's products meet in one thread's
 // registers and across the warp, and y takes about one atomic per (row,
 // warp pass). K1p reads the "deposit" order: a segment per deposit, x
-// offset its page, so it can skip a dead page's deposits.
+// offset its page, so it can skip a dead page's deposits. K4p fused (the
+// `sm`/`na` launch of _planar_fused_call, router_pallas.py:1758) reads
+// the planar engine's tile form: the "row" order in windows of 1,024
+// columns, one column tile each, the planar activity unit, with the tile
+// as each segment's flag; the flag is an index into `act` in every form.
 // Bound on the H100: device memory, 8 B per element (the bytes
 // router_traffic in chip_smoke.py counts for K1), then the y atomics in
 // L2 and the x gather (in L2: 430 KB on the googleplus stand-in).
@@ -213,9 +218,10 @@ __global__ void __launch_bounds__(kThreads) router_reduce_kernel(
 // Without values (kVals false, a null `vals`): the ANDOR form of a matrix
 // whose stored values are all nonzero (checked at init), 4 B an element.
 //
-// Predication (K1p). A deposit of an inactive page gathers only zeros: its
+// Predication (K1p, K4p fused). A segment whose flag is inactive (a
+// deposit of a dead page, a window of a dead tile) gathers only zeros: its
 // record's x offset is set to -1 in shared memory and its elements are not
-// read; a block none of whose deposits is live exits after its records.
+// read; a block none of whose segments is live exits after its records.
 // The full grid is launched, so nothing is read on the host.
 constexpr int kVec = 8;            // consecutive elements per thread
 constexpr int kFusedThreads = 256;
@@ -229,17 +235,6 @@ __device__ __forceinline__ void add_row(float* __restrict__ y, int row,
 __device__ __forceinline__ float gather_x(const float* __restrict__ x,
                                           int col) {
   return __ldg(x + col);
-}
-
-// Largest j < n with start[j] <= e, given start[0] <= e.
-__device__ __forceinline__ int find_segment(const int* start, int n, int e) {
-  int lo = 0;
-  while (n > 1) {
-    const int half = n >> 1;
-    if (start[lo + half] <= e) lo += half;
-    n -= half;
-  }
-  return lo;
 }
 
 // blocks[b] = (e0, e1, g0, g1): elements [e0, e1) of segments [g0, g1);
@@ -257,15 +252,9 @@ __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
   int* s_y = seg + 2 * max_segments;
   const int4 b = blocks[blockIdx.x];
   const int ns = b.w - b.z;
-  bool live = false;
-  for (int i = threadIdx.x; i < ns; i += kFusedThreads) {
-    const int4 d = deps[b.z + i];
-    const bool on = act == nullptr || act[d.w] != 0;
-    live |= on;
-    s_start[i] = i == 0 ? b.x : d.x;
-    s_x[i] = on ? d.y : -1;        // an inactive page's elements: unread
-    s_y[i] = d.z;
-  }
+  // an inactive segment's elements: unread
+  const bool live = glt::load_segments(b, deps, act, kFusedThreads, s_start,
+                                       s_x, s_y);
   if (act != nullptr) {
     if (!__syncthreads_or(live)) return;
   } else {
@@ -283,7 +272,7 @@ __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
     if (q < b.y) {
       int col[kVec], row[kVec];
       bool any = false;
-      int j = find_segment(s_start, ns, max(q, b.x));
+      int j = glt::find_segment(s_start, ns, max(q, b.x));
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
         const int e = q + k;
@@ -491,7 +480,8 @@ extern "C" int glt_router_fused(
                    max_segments, col_bits, and_or, cuda_stream);
 }
 
-// K1p: act is the (num_cols/128,) uint8 page activity.
+// K1p: act is the (num_cols/128,) uint8 page activity; K4p fused: the
+// (num_cols/1024,) uint8 tile activity. Each segment's flag indexes it.
 extern "C" int glt_router_fused_pred(
     const void* blocks, const void* deps, const void* vals, const void* idx,
     const void* x, void* y, const void* act, int nblocks, int max_segments,

@@ -37,18 +37,18 @@ SIGNATURES = {
     # chunked_spmv.cu: K6 and K7 in one kernel; K7p
     "glt_chunked_spmv": [_P] * 9 + [_I] * 3 + [_F, _P],
     "glt_chunked_spmv_predicated": [_P] * 10 + [_I] * 3 + [_F, _P],
-    # router_spmv.cu: K1 (also K4 fused), K2, K3 and K1p, K2p, K3p
+    # router_spmv.cu: K1 (also K4 fused), K2, K3 and K1p (also K4p fused),
+    # K2p, K3p
     "glt_router_scatter": [_P] * 8 + [_I] * 5 + [_P],
     "glt_router_scatter_pred": [_P] * 9 + [_I] * 5 + [_P],
     "glt_router_reduce": [_P] * 5 + [_I] * 2 + [_P],
     "glt_router_reduce_pred": [_P] * 6 + [_I] * 2 + [_P],
     "glt_router_fused": [_P] * 6 + [_I] * 4 + [_P],
     "glt_router_fused_pred": [_P] * 7 + [_I] * 4 + [_P],
-    # planar_spmv.cu: K4 scatter, K5 and K4p scatter, K4p fused
-    # (K4 scatter's int is the semiring op: 2 is the tropical ADDMIN)
-    "glt_planar_scatter": [_P] * 9 + [_I] * 5 + [_P],
-    "glt_planar_scatter_pred": [_P] * 10 + [_I] * 5 + [_P],
-    "glt_planar_fused_pred": [_P] * 12 + [_I] * 6 + [_P],
+    # planar_spmv.cu: K4 scatter and K4p scatter over the store form, K5
+    # (K4 scatter's last int is the semiring op: 2 is the tropical ADDMIN)
+    "glt_planar_scatter": [_P] * 7 + [_I] * 5 + [_P],
+    "glt_planar_scatter_pred": [_P] * 7 + [_I] * 4 + [_P],
     "glt_planar_xperm": [_P] * 3 + [_I] + [_P],
     # permc_spmv.cu: K11 (PERM-C run-sum reduce) and K11p
     "glt_permc_reduce": [_P] * 6 + [_I] * 2 + [_P],

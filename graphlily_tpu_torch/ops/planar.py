@@ -5,54 +5,70 @@ Counterpart of `PlanarSpMV` in graphlily_tpu/ops/router_pallas.py:1562,
 over the same `PlanarSpMVLayout` arrays (either package's layout: both are
 plain numpy and identical), for the graphs the roll router serves badly:
 hypersparse ones, whose (128-column page x region) runs are a handful of
-elements. Kernels, in csrc/planar_spmv.cu unless named otherwise:
+elements. Kernels:
 
   K4 fused    `fused_spmv` (inherited from RouterSpMV: K1's kernel,
               csrc/router_spmv.cu): gather, product, add into y in one
               pass over the engine's row-sorted element form;
-  K4 scatter  `scatter`: gather and deposit into the flush stream;
+  K4 scatter  `scatter` (csrc/planar_spmv.cu): gather and store into the
+              flush stream, over the engine's piece-ordered store form;
   K3 reduce   `reduce` (inherited from RouterSpMV, csrc/router_spmv.cu):
               add the flush stream into y;
-  K5 xperm    `xperm`: re-lay x's column tiles for "bucket" layouts
-              ("free" layouts gather through a_sub and need no re-layout).
+  K5 xperm    `xperm` (csrc/planar_spmv.cu): x's column tiles re-laid for
+              a "bucket" layout, x2; no app path launches it.
 
-The deposits read each piece's 8 triple-run words instead of its 1 KB
-plane (io/planar_format.planes_to_triples; 32 B per piece). K4 fused
-reads none of the layout's streams: at init the engine decodes every
-deposited element (`element_index`) and derives K1's row-sorted form
-from it (ops/router.router_entries: f32 value and one int32 word, column
-in its window | row in its region << col_bits, sorted by row within each
-region and column window, FORM_COL_BITS; an ANDOR engine drops the value
-stream where every stored value is nonzero, and keeps it, with its
-column windows, where one is zero: v != 0 && x != 0 then counts no edge
-there, as JAX's spmv does). The form holds the
-matrix's (row, column, value) triples and nothing of the deal: the
-"free", "bucket" and PERM-C layouts of one graph give the same arrays,
-and a "bucket" element's x2 slot is resolved to its x column once
-(`x_columns`), so K4 fused never needs K5. K4p
-fused keeps the stream-order walk and gathers through one int16 tile
-column per A slot, derived once at init (`tile_columns`,
-`PlanarArrays.a_col`): the chained a_r -> a_sub gather resolved once.
-`__call__` is RouterSpMV's: K4 fused or K4 scatter -> K3 by the same fused
-rule (ops/router.FUSED_MAX_Y_BYTES), then the ANDOR 0/1 clamp and the SpMV
-mask, as the JAX engine does (router_pallas.py:1757-1782). Each wrapper
-runs its kernel on CUDA tensors and its plain PyTorch version (`*_plain`)
-only when given CPU tensors; each launch adds one to `launches[name]`.
+No kernel reads the layout's streams. At init the engine decodes every
+deposited element once (`element_index`: its A-stream element, gather
+column, flush-stream position, tile and piece, from the descriptor words,
+the triple-run words of io/planar_format.planes_to_triples and the
+deposit targets), resolves a "bucket" element's x2 slot to the x column
+K5 would copy there (`x_columns`), and derives three forms with
+ops/router.router_entries (f32 value and one int32 word an element, one
+record a segment, blocks of ENTRIES_PER_BLOCK elements):
+
+  entries        K4 fused's: each region's elements sorted by (row, column,
+                 value bits) within windows of 2**FORM_COL_BITS columns;
+                 an ANDOR engine drops the value stream where every stored
+                 value is nonzero, and keeps it, with its column windows,
+                 where one is zero (v != 0 && x != 0 then counts no edge
+                 there, as JAX's spmv does);
+  pred_entries   K4p fused's tile form: the same in windows of 1,024
+                 columns, one column tile each, whose flag is the tile, so
+                 K1p's kernel skips a dead tile's segments unread;
+  store_entries  K4 scatter's and K4p scatter's: every deposited element
+                 in piece order, its word the column within its tile and
+                 its slot within the target flush chunk, one segment a
+                 piece (x offset its tile, stream offset its target
+                 chunk, flag its tile).
+
+The first two hold the matrix's (row, column, value) triples and nothing
+of the deal: the "free", "bucket" and PERM-C layouts of one graph give
+the same arrays. The store form depends on the deal (stream slots differ
+between deals). None of the kernels needs K5. `init_seconds` times the
+forms. `__call__` is RouterSpMV's: K4 fused or K4 scatter -> K3 by the
+same fused rule (ops/router.FUSED_MAX_Y_BYTES), then the ANDOR 0/1 clamp
+and the SpMV mask, as the JAX engine does (router_pallas.py:1757-1782).
+Each wrapper runs its kernel on CUDA tensors and its plain PyTorch
+version only when given CPU tensors: the forms' walks
+(`fused_entries_plain`, `scatter_entries_plain`), which the tests hold to
+the plain versions through the layout (`scatter_plain`; `fused_plain`,
+K4 scatter -> K3's plain versions through the flush stream). Each launch
+adds one to `launches[name]`.
 
 SpMSpV (`call_predicated`, inherited) runs K4p fused or K4p scatter ->
 K3p (`fused_predicated`, `scatter_predicated`). A planar A-chunk mixes
 the 8 pages of its column tile, so activity is per 1024-column tile, as
-in JAX `PlanarSpMV._normalize_act`; K5 runs unpredicated.
+in JAX `PlanarSpMV._normalize_act`.
 
 PERM-C layouts (`planar_deal="permc"`, io/permc_format.py; `permc`)
 key phase C by destination lane. The engine re-keys those streams by
 stream position once at init (io/permc_format.permc_stream_rows), so the
-form, K4p fused, K4 scatter and every plain version run on them
-unchanged; the split branch reduces with K11 (`reduce`, or K11p
-`reduce_predicated`; csrc/permc_spmv.cu), which reads the destination-
-lane keys and sums each row's run of the flushed chunk. K11's plain
-version is K3's (`reduce_plain`): the same sums, added through the
-position-keyed rows. ADDMIN stays refused there, as in JAX.
+forms and every plain version run on them unchanged; the split branch
+reduces with K11 (`reduce`, or K11p `reduce_predicated`;
+csrc/permc_spmv.cu), which reads the destination-lane keys and sums each
+row's run of the flushed chunk. K11's plain version is K3's
+(`reduce_plain`): the same sums, added through the position-keyed rows.
+ADDMIN stays refused there, as in JAX.
 
 TPU-only parts of the JAX engine are not carried over: the two
 accumulator banks, the looped/unrolled split, the guard batching, the
@@ -73,7 +89,8 @@ from ..io.permc_format import permc_stream_rows
 from ..io.router_format import CHUNK, deposit_targets
 from ..semiring import Semiring, MaskType
 from . import _build
-from .router import RouterSpMV, router_entries
+from .router import (RouterEntries, RouterSpMV, resolved_index,
+                     router_entries)
 
 
 # K4 fused's column windows: its form's segments cover 2**col_bits columns
@@ -86,6 +103,8 @@ from .router import RouterSpMV, router_entries
 # widths unmeasured
 FORM_COL_BITS = 14
 FORM_COL_BITS_NO_VALUES = 13
+# K4p fused's tile form: windows of one column tile, the activity unit
+TILE_COL_BITS = 10
 
 
 @dataclasses.dataclass
@@ -104,27 +123,11 @@ class PlanarArrays:
     c_hi: torch.Tensor           # (nsteps*f*1024,) int8, by stream position
     c_lo: torch.Tensor           # (nsteps*f*1024,) int8, by stream position
     xperm: torch.Tensor | None   # (ntiles*8*8*128,) int8; "bucket" only
-    # (nsteps*cb*1024,) int16, K4p fused's gather index (tile_columns);
-    # None on the tropical engine's pass 1, which never fuses
-    a_col: torch.Tensor | None = None
     # PERM-C only, (nsteps*f*1024,) int8 keyed by destination lane: the
     # layout's c_hi, c_end and c_beg, which K11 reads
     c_hi_dest: torch.Tensor | None = None
     c_end: torch.Tensor | None = None
     c_beg: torch.Tensor | None = None
-
-
-def tile_columns(a_r: torch.Tensor,
-                 a_sub: torch.Tensor | None) -> torch.Tensor:
-    """K4p fused's gather index, int16 per A slot (c, s, l): the x column
-    within the chunk's tile, a_sub[c, s, r]*128 + r with r = a_r[c, s, l]
-    ("free" and PERM-C), or s*128 + r ("bucket", over K5's x2). Torch ops
-    on the arrays' device."""
-    slot = torch.arange(a_r.numel(), device=a_r.device)
-    r = a_r.long()
-    sub = (a_sub[slot - slot % L + r].long() if a_sub is not None
-           else torch.div(slot, L, rounding_mode="floor") % S)
-    return (sub * L + r).to(torch.int16)
 
 
 def run_words(tw: np.ndarray, nsteps: int, dstep: int) -> np.ndarray:
@@ -179,18 +182,22 @@ class PlanarSpMV(RouterSpMV):
                          "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0}
         if self.permc:
             self.launches.update(permc_reduce=0, permc_reduce_pred=0)
-        self.init_seconds = 0.0        # of the derived a_col and form
+        t0 = time.perf_counter()
+        idx = resolved_index(self)     # one decode for every form
+        self.store_entries = router_entries(           # K4 scatter's
+            self, "stream", index=idx)
         if not self.TROPICAL:          # the tropical engine never fuses
-            t0 = time.perf_counter()
-            a = self.arrays
-            a.a_col = tile_columns(a.a_r, a.a_sub)      # K4p fused's
             cap = 31 - int(self.region_rows - 1).bit_length()
             self.entries = router_entries(             # K4 fused's
                 self, "row", col_bits=min(FORM_COL_BITS, cap), values=None,
-                col_bits_no_values=min(FORM_COL_BITS_NO_VALUES, cap))
-            if a.a_r.is_cuda:
-                torch.cuda.synchronize(a.a_r.device)
-            self.init_seconds = time.perf_counter() - t0
+                col_bits_no_values=min(FORM_COL_BITS_NO_VALUES, cap),
+                index=idx)
+            self.pred_entries = router_entries(        # K4p fused's
+                self, "row", col_bits=TILE_COL_BITS, values=None,
+                index=idx)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.init_seconds = time.perf_counter() - t0   # the derived forms
 
     # ---- K5 xperm --------------------------------------------------------------
     def xperm(self, x: torch.Tensor,
@@ -212,10 +219,6 @@ class PlanarSpMV(RouterSpMV):
         self.launches["xperm"] += 1
         return x2
 
-    def _gather_source(self, x: torch.Tensor, a: PlanarArrays) -> torch.Tensor:
-        """What K4 gathers from: x itself ("free"), or K5's x2."""
-        return x if self.chained else self.xperm(x, a)
-
     # ---- K4 scatter ------------------------------------------------------------
     @property
     def _stream_dtype(self) -> torch.dtype:
@@ -224,21 +227,45 @@ class PlanarSpMV(RouterSpMV):
 
     def scatter(self, x: torch.Tensor,
                 arrays: PlanarArrays | None = None) -> torch.Tensor:
-        """Gather and deposits only: the flush stream, (nsteps, f, 8, 128)."""
-        a = self.arrays if arrays is None else arrays
+        """Gather and deposits only: the flush stream, (nsteps, f, 8, 128),
+        through the store form."""
+        self._own_arrays(arrays)
         x = x.reshape(-1)
         if not self._check(x, self.num_cols, "x"):
-            return self.scatter_plain(x, a)
-        xs = self._gather_source(x, a)
-        stream = torch.zeros(self.nsteps * self.f * CHUNK,
-                             dtype=self._stream_dtype, device=x.device)
-        rc = _build.library().glt_planar_scatter(
-            *self._stream_ptrs(a), xs.data_ptr(), stream.data_ptr(),
-            self.nsteps, self.cb, self.rstep, self.dstep, self._op,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_planar_scatter")
-        self.launches["scatter"] += 1
-        return stream.view(self.nsteps, self.f, S, L)
+            return self.scatter_entries_plain(x)
+        return self._launch_store(x, None)
+
+    def _launch_store(self, x: torch.Tensor, act: torch.Tensor | None,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+        """Launch K4 scatter over `store_entries` (K4p scatter when `act` is
+        given) on the current stream. K4 scatter zeroes the stream's
+        unfilled lanes itself where the form has `tails`; otherwise, and
+        for K4p scatter (whose dead pieces' lanes stay zero), the stream is
+        zeroed first. `out`, the stream to write, is that zeroed stream,
+        or any stream where K4 scatter zeroes its own."""
+        e = self.store_entries
+        n = self.nsteps * self.f * CHUNK
+        own_zeros = act is None and e.tails is not None
+        if out is None:
+            out = (torch.empty if own_zeros else torch.zeros)(
+                n, dtype=self._stream_dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ptrs = [t.data_ptr() for t in (e.blocks, e.deps, e.vals, e.idx, x,
+                                       out)]
+        if act is None:
+            name, key = "glt_planar_scatter", "scatter"
+            rc = _build.library().glt_planar_scatter(
+                *ptrs, e.tails.data_ptr() if own_zeros else None,
+                e.blocks.shape[0], e.max_segments, e.col_bits,
+                self.nsteps * self.f, self._op, stream)
+        else:
+            name, key = "glt_planar_scatter_pred", "scatter_pred"
+            rc = _build.library().glt_planar_scatter_pred(
+                *ptrs, act.data_ptr(), e.blocks.shape[0], e.max_segments,
+                e.col_bits, self._op, stream)
+        self._raise_on(rc, name)
+        self.launches[key] += 1
+        return out.view(self.nsteps, self.f, S, L)
 
     # ---- K11 and K11p: PERM-C phase C ---------------------------------------------
     def reduce(self, stream: torch.Tensor,
@@ -299,58 +326,22 @@ class PlanarSpMV(RouterSpMV):
 
     def scatter_predicated(self, x: torch.Tensor, act: torch.Tensor,
                            arrays: PlanarArrays | None = None) -> torch.Tensor:
-        """K4 scatter over the pieces of active tiles only (K5 first for
-        "bucket" layouts): the flush stream, (nsteps, f, 8, 128)."""
-        a = self.arrays if arrays is None else arrays
-        x = x.reshape(-1)
-        if not self._check(x, self.num_cols, "x"):
-            return self.scatter_plain(x, a, act)
-        self._check_flags(act, self.num_act, "act")
-        xs = self._gather_source(x, a)
-        stream = torch.zeros(self.nsteps * self.f * CHUNK,
-                             dtype=self._stream_dtype, device=x.device)
-        rc = _build.library().glt_planar_scatter_pred(
-            *self._stream_ptrs(a), xs.data_ptr(), stream.data_ptr(),
-            act.data_ptr(), self.nsteps, self.cb, self.rstep, self.dstep,
-            self._op, torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_planar_scatter_pred")
-        self.launches["scatter_pred"] += 1
-        return stream.view(self.nsteps, self.f, S, L)
-
-    def fused_predicated(self, x: torch.Tensor, act: torch.Tensor,
-                         arrays: PlanarArrays | None = None) -> torch.Tensor:
-        """K4p fused: the layout's pieces of active tiles only, in stream
-        order, through the tile columns (K5 first for "bucket" layouts):
-        (nregions*region_rows,) rows. Its CPU path walks K4 fused's form
-        over the active tiles' elements (`fused_entries_plain`), so on a
-        frontier x it equals K4 fused's bit for bit, as K1p's does K1's."""
+        """K4 scatter over the pieces of active tiles only (K4p scatter):
+        the flush stream, (nsteps, f, 8, 128); a dead piece's elements
+        stay zero."""
         self._own_arrays(arrays)
-        a = self.arrays
         x = x.reshape(-1)
         if not self._check(x, self.num_cols, "x"):
-            return self.fused_entries_plain(x, act)
+            return self.scatter_entries_plain(x, act)
         self._check_flags(act, self.num_act, "act")
-        xs = self._gather_source(x, a)
-        y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
-        ptrs = [t.data_ptr() for t in (a.a_page, a.a_col, a.a_vals, a.rg,
-                                       a.tri, a.target, a.c_code, a.c_hi,
-                                       a.c_lo, xs, y, act)]
-        rc = _build.library().glt_planar_fused_pred(
-            *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
-            self.region_rows, self._and_or,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_planar_fused_pred")
-        self.launches["fused_pred"] += 1
-        return y
+        return self._launch_store(x, act)
 
-    @staticmethod
-    def _stream_ptrs(a: PlanarArrays) -> list:
-        """K4's leading pointer arguments; a null a_sub selects the
-        "bucket" gather."""
-        sub = a.a_sub.data_ptr() if a.a_sub is not None else None
-        return [a.a_page.data_ptr(), a.a_r.data_ptr(), sub,
-                a.a_vals.data_ptr(), a.rg.data_ptr(), a.tri.data_ptr(),
-                a.target.data_ptr()]
+    def pred_plain_entries(self) -> RouterEntries:
+        """K4p fused's plain version walks the form its kernel reads, the
+        tile form: each row's products in the order of K4 fused's form
+        (by column, then value bits), so on a frontier x the two walks
+        agree bit for bit."""
+        return self.pred_entries
 
     # ---- plain PyTorch versions --------------------------------------------------
     def element_index(self, arr: PlanarArrays) -> dict:
@@ -407,30 +398,6 @@ class PlanarSpMV(RouterSpMV):
                              "xperm plane fills")
         return out
 
-    def fused_plain(self, x: torch.Tensor, a: PlanarArrays | None = None,
-                    act: torch.Tensor | None = None) -> torch.Tensor:
-        """K4p fused's plain version, and the reference K4 fused and its
-        plain walk (`fused_entries_plain`) are held to: (K5's x2 for
-        "bucket" layouts) gathered through a_col, the products copied to
-        their flush-stream positions and added into y by K3's plain
-        version, so it equals K4 scatter -> K3's plain versions bit for
-        bit. With `act` (per tile): active tiles' pieces only."""
-        arr = self.arrays if a is None else a
-        x = x.reshape(-1)
-        xs = x if self.chained else self.xperm_plain(x, arr)
-        idx = self.plain_index(a)
-        src, dst, unit = idx["src"], idx["dst"], idx["unit"]
-        if act is not None:
-            keep = act.bool()[unit]
-            src, dst, unit = src[keep], dst[keep], unit[keep]
-        vals = arr.a_vals[src]
-        xg = xs[unit * CHUNK + arr.a_col[src].long()]
-        g = (torch.logical_and(vals != 0, xg != 0).to(torch.float32)
-             if self._and_or else vals * xg)
-        stream = torch.zeros(self.nsteps * self.f * CHUNK,
-                             dtype=torch.float32, device=x.device)
-        return self.reduce_plain(stream.index_copy_(0, dst, g), a)
-
     def xperm_plain(self, x: torch.Tensor,
                     a: PlanarArrays | None = None) -> torch.Tensor:
         """K5's plain version: per source sublane, gather and select; the
@@ -449,9 +416,27 @@ class PlanarSpMV(RouterSpMV):
 
     def scatter_plain(self, x: torch.Tensor, a: PlanarArrays | None = None,
                       act: torch.Tensor | None = None) -> torch.Tensor:
-        """K4 scatter's plain version: (x2 for "bucket" layouts), gather,
-        then index_copy_ into a zeroed flush stream through the targets.
-        With `act` (per tile), K4p scatter's: active tiles' pieces only."""
+        """K4 scatter's plain version through the layout, the reference the
+        store form is held to: (K5's x2 for "bucket" layouts), gather, then
+        index_copy_ into a zeroed flush stream through the targets. With
+        `act` (per tile), K4p scatter's: active tiles' pieces only."""
         x = x.reshape(-1)
         xs = x if self.chained else self.xperm_plain(x, a)
         return super().scatter_plain(xs, a, act)
+
+    def scatter_entries_plain(self, x: torch.Tensor,
+                              act: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+        """K4 scatter's walk of its store form, the CPU path: each
+        element's product index_copy_'d to its stream position; with `act`
+        (per tile), K4p scatter's: the elements of live pieces only."""
+        e = self.store_entries
+        col, dst, flag = self.entries_index(e)
+        vals = e.vals
+        if act is not None:
+            keep = act.bool()[flag]
+            col, dst, vals = col[keep], dst[keep], vals[keep]
+        g = self._product(vals, x.reshape(-1)[col])
+        stream = torch.zeros(self.nsteps * self.f * CHUNK, dtype=g.dtype,
+                             device=x.device)
+        return stream.index_copy_(0, dst, g).view(self.nsteps, self.f, S, L)

@@ -79,31 +79,44 @@ FUSED_MAX_Y_BYTES = 25 * 2**20
 ENTRIES_PER_BLOCK = 4096
 VECTOR = 8
 PAGE_COL_BITS = 10   # column within a 1024-column page
+# Segments a block holds at most: a block is also cut at every
+# BLOCK_SEGMENTS-th segment start, so the kernels' shared table of
+# segment records (12 B each) stays at 12 KB on forms of tiny segments
+# (a hub-free region's (region, tile) windows) and does not cap occupancy.
+BLOCK_SEGMENTS = 1024
 
 
 @dataclasses.dataclass
 class RouterEntries:
-    """A padding-free device form of the roll layout for K1 ("row" order)
-    or K1p ("deposit" order), `router_entries`. A segment is a deposit
-    (the elements one descriptor slot moves) or, in row order, a (region,
-    column window)."""
+    """A padding-free device form of a roll or planar layout,
+    `router_entries`: for K1 and K4 fused ("row" order), K1p ("deposit"),
+    K4p fused ("row" in windows of one column tile) or K4 scatter
+    ("stream"). A segment is a deposit or piece (the elements one
+    descriptor slot moves) or, in row order, a (region, column window)."""
 
     # (N,) each, views of storage zeroed to a multiple of VECTOR elements
     # (the kernel's vector loads; no block names an element past N)
     vals: torch.Tensor | None  # float32; None in the ANDOR form without
                                # values (every stored value nonzero)
-    idx: torch.Tensor      # int32: col | row << col_bits
+    idx: torch.Tensor      # int32: col | row << col_bits ("stream": the
+                           # slot within the target flush chunk for row)
     deps: torch.Tensor     # (ndep, 4) int32: first element, x offset,
-                           # y offset, activity flag of each segment
+                           # y (or stream) offset, activity flag (-1: none)
     blocks: torch.Tensor   # (nblk, 4) int32: elements [e0, e1) of
                            # segments [g0, g1)
     max_segments: int      # largest g1 - g0 (the kernel's shared table)
     col_bits: int
-    order: str             # "deposit" or "row"
+    order: str             # "deposit", "row" or "stream"
+    # "stream" only: (nchunks*8,) uint8, the lanes its elements fill in
+    # each (flush chunk, sublane), which they fill from lane 0 up (None
+    # where they do not): K4 scatter zeroes the rest instead of the
+    # whole stream
+    tails: torch.Tensor | None = None
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (
-            self.vals, self.idx, self.deps, self.blocks) if t is not None)
+            self.vals, self.idx, self.deps, self.blocks, self.tails)
+            if t is not None)
 
 
 def _vector_storage(t: torch.Tensor) -> torch.Tensor:
@@ -118,33 +131,53 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
                    block_entries: int = ENTRIES_PER_BLOCK,
                    col_bits: int | None = None,
                    values: bool | None = True,
-                   col_bits_no_values: int | None = None) -> RouterEntries:
+                   col_bits_no_values: int | None = None,
+                   block_segments: int = BLOCK_SEGMENTS,
+                   index: dict | None = None) -> RouterEntries:
     """A device form of `eng`'s layout for K1 or K1p (or, on a planar
-    engine, K4 fused), built with torch ops on the engine's device from
-    its element index: every element of a live deposit (one whose flush
-    chunk has a region), once, with its x column (`eng.x_columns`).
+    engine, K4 fused, K4p fused or K4 scatter), built with torch ops on
+    the engine's device from its element index: every element of a live
+    deposit (one whose flush chunk has a region; in "stream" order every
+    deposited element), once, with its x column (`eng.x_columns`).
 
-    "row" (K1's, K4 fused's): the elements of each (region, window of
-    2**col_bits columns) sorted by (row, column), one segment each, x
-    offset the window's first column; col_bits defaults to what the word
-    has left after the row within the region (31 - its bits: 18 on the
-    googleplus stand-in, one window; 18 on the pokec stand-in, 7). It holds
-    the matrix's (row, column, value) triples and nothing of the layout's
-    deal. "deposit" (K1p's): deposit order, one segment per deposit, x
-    offset its page, activity flag its page's. `values=False` (ANDOR only)
-    drops the value stream; it raises unless every stored value is
-    nonzero. `values=None` drops it where it may (an ANDOR engine whose
+    "row" (K1's, K4 fused's, K4p fused's): the elements of each (region,
+    window of 2**col_bits columns) sorted by (row, column), one segment
+    each, x offset the window's first column; col_bits defaults to what
+    the word has left after the row within the region (31 - its bits: 18
+    on the googleplus stand-in, one window; 18 on the pokec stand-in, 7).
+    It holds the matrix's (row, column, value) triples and nothing of the
+    layout's deal. A window no wider than `eng.ACT_COLS` lies in one
+    activity unit, which is its flag (the planar tile form, col_bits 10);
+    wider windows have none (-1). "deposit" (K1p's): deposit order, one
+    segment per deposit, x offset its page, activity flag its page's.
+    "stream" (K4 scatter's store form): the same, with each element's slot
+    within its target flush chunk in place of its row and the chunk's
+    first stream position as the segment's offset, and the `tails` of the
+    stream's (chunk, sublane) rows where the elements fill a prefix of
+    each (the packers' per-sublane cursors start at lane 0, so they do on
+    every layout seen). `values=False` (ANDOR only) drops the value
+    stream; it raises unless every stored value is nonzero. `values=None` drops it where it may (an ANDOR engine whose
     stored values are all nonzero) and keeps it otherwise; a form without
-    it takes `col_bits_no_values` where given."""
+    it takes `col_bits_no_values` where given. Blocks hold at most
+    `block_entries` elements and `block_segments` segments. `index` is
+    `resolved_index(eng)`, computed when None (pass it to derive several
+    forms from one decode)."""
     a = eng.arrays
-    idx = eng.element_index(a)
+    idx = resolved_index(eng) if index is None else index
     dev = a.a_vals.device
-    code = a.c_code.long()[idx["dst"] // CHUNK]
-    keep = code >= 0
-    src, col, dst, unit, dep = (idx[k][keep] for k in
+    src, col, dst, unit, dep = (idx[k] for k in
                                 ("src", "col", "dst", "unit", "dep"))
-    col = eng.x_columns(col)
-    code = code[keep]
+    if order == "stream":
+        if values is not True:
+            raise ValueError("the store form keeps its values")
+        if eng.nsteps * eng.f * CHUNK >= 2**31:
+            raise ValueError("the flush stream outgrows the form's int32 "
+                             "offsets")
+    else:
+        code = a.c_code.long()[dst // CHUNK]
+        keep = code >= 0
+        src, col, dst, unit, dep, code = (t[keep] for t in
+                                          (src, col, dst, unit, dep, code))
     vals = a.a_vals[src]
     and_or = eng.semiring.op == OpType.ANDOR
     if values is None:
@@ -157,8 +190,12 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
                              "without values would count its element")
     if not values and col_bits_no_values is not None:
         col_bits = col_bits_no_values
-    row = a.c_hi[dst].long() * 128 + a.c_lo[dst].long()
-    if order == "deposit":
+    if order == "stream":
+        row, yo = dst % CHUNK, dst - dst % CHUNK
+    else:
+        row = a.c_hi[dst].long() * 128 + a.c_lo[dst].long()
+        yo = code * eng.region_rows
+    if order in ("deposit", "stream"):
         col_bits = PAGE_COL_BITS
         key = dep
         xo, flag = col // CHUNK * CHUNK, unit
@@ -172,21 +209,30 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
         perm = torch.argsort(vals.view(torch.int32), stable=True)
         perm = perm[torch.argsort(((key * eng.region_rows + row)
                                    * eng.num_cols + col)[perm], stable=True)]
-        col, row, code, key, vals = (t[perm] for t in
-                                     (col, row, code, key, vals))
+        col, row, yo, key, vals = (t[perm] for t in
+                                   (col, row, yo, key, vals))
         xo = col >> col_bits << col_bits
-        flag = torch.full_like(code, -1)
+        flag = (col // eng.ACT_COLS if 1 << col_bits <= eng.ACT_COLS
+                else torch.full_like(col, -1))
     else:
         raise ValueError(f"unknown order {order!r}")
+    if (order != "stream"
+            and int(eng.region_rows - 1).bit_length() > 31 - col_bits):
+        raise ValueError(f"a row within the region needs more than the "
+                         f"{31 - col_bits} bits left beside the column")
     n = src.numel()
     head = torch.ones(n, dtype=torch.bool, device=dev)
     head[1:] = key[1:] != key[:-1]
     starts = torch.nonzero(head).flatten()
     i32 = lambda t: t.to(torch.int32).contiguous()
-    deps = i32(torch.stack([starts, xo[starts],
-                            code[starts] * eng.region_rows, flag[starts]], 1))
-    e0 = torch.arange(0, n, block_entries, device=dev)
-    e1 = torch.clamp(e0 + block_entries, max=n)
+    deps = i32(torch.stack([starts, xo[starts], yo[starts], flag[starts]],
+                           1))
+    # blocks of `block_entries` elements, also cut at every
+    # `block_segments`-th segment start
+    e0 = torch.unique(torch.cat([
+        torch.arange(0, n, block_entries, device=dev),
+        starts[::block_segments]]))
+    e1 = torch.cat([e0[1:], e0.new_tensor([n])])
     g0 = torch.searchsorted(starts, e0, right=True) - 1
     g1 = torch.searchsorted(starts, e1 - 1, right=True)
     return RouterEntries(
@@ -194,7 +240,30 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
         idx=_vector_storage(i32((col - xo) | row << col_bits)),
         deps=deps, blocks=i32(torch.stack([e0, e1, g0, g1], 1)),
         max_segments=int((g1 - g0).max()) if n else 0, col_bits=col_bits,
-        order=order)
+        order=order,
+        tails=stream_tails(dst, eng.nsteps * eng.f) if order == "stream"
+        else None)
+
+
+def resolved_index(eng: "RouterSpMV") -> dict:
+    """`eng.element_index` of its own arrays with each element's `col`
+    resolved to its x column (`eng.x_columns`): what `router_entries`
+    derives a form from."""
+    idx = eng.element_index(eng.arrays)
+    return dict(idx, col=eng.x_columns(idx["col"]))
+
+
+def stream_tails(dst: torch.Tensor, nchunks: int) -> torch.Tensor | None:
+    """(nchunks*8,) uint8: how many lanes of each (flush chunk, sublane)
+    the elements at stream positions `dst` fill, or None unless they fill
+    lanes [0, count) of every one."""
+    rows = dst // 128
+    count = torch.bincount(rows, minlength=nchunks * 8)
+    last = torch.full_like(count, -1).scatter_reduce_(0, rows, dst % 128,
+                                                      "amax")
+    if not bool((last + 1 == count).all()):
+        return None
+    return count.to(torch.uint8)
 
 
 def entries_index(e: RouterEntries):
@@ -276,7 +345,7 @@ class RouterSpMV:
         self.out_len = self.num_regions * self.region_rows
         self.fused = self.out_len * 4 <= FUSED_MAX_Y_BYTES
         self._plain_index = None
-        self._entries_index = None
+        self._entries_index = {}   # id(form) -> (form, its index)
         self._deposits = None
 
     def _dev(self, a) -> torch.Tensor:
@@ -362,20 +431,26 @@ class RouterSpMV:
     # ---- K1 fused ------------------------------------------------------------
     def use_entries(self, entries: RouterEntries,
                     pred: bool = False) -> None:
-        """K1 (K1p with `pred`, which needs deposit order) reads `entries`
-        from now on: another order or block size of `router_entries`."""
-        if pred and entries.order != "deposit":
-            raise ValueError("K1p skips dead pages by deposit: it needs the "
-                             "deposit-order form")
+        """K1 (K1p with `pred`) reads `entries` from now on: another order
+        or block size of `router_entries`. K1p skips dead segments by their
+        flags, so its form needs one on every segment: deposit order, or
+        row order in windows no wider than an activity unit."""
+        if pred and (entries.order == "stream"
+                     or bool((entries.deps[:, 3] < 0).any())):
+            raise ValueError("K1p skips dead pages by segment: it needs the "
+                             "deposit-order form or windows of one "
+                             "activity unit")
+        old = self.pred_entries if pred else self.entries
+        self._entries_index.pop(id(old), None)
         if pred:
             self.pred_entries = entries
         else:
-            self.entries, self._entries_index = entries, None
+            self.entries = entries
 
     def _own_arrays(self, arrays: RouterArrays | None) -> None:
         if arrays is not None and arrays is not self.arrays:
-            raise ValueError("K1 reads the form derived from the engine's "
-                             "own arrays")
+            raise ValueError("the kernels read the forms derived from the "
+                             "engine's own arrays")
 
     def fused_spmv(self, x: torch.Tensor,
                    arrays: RouterArrays | None = None) -> torch.Tensor:
@@ -509,10 +584,15 @@ class RouterSpMV:
         self._own_arrays(arrays)
         x = x.reshape(-1)
         if not self._check(x, self.num_cols, "x"):
-            return self.fused_entries_plain(x, act)
+            return self.fused_entries_plain(x, act, self.pred_plain_entries())
         self._check_flags(act, self.num_act, "act")
         return self._launch_fused(x, act, "glt_router_fused_pred",
                                   "fused_pred")
+
+    def pred_plain_entries(self) -> RouterEntries:
+        """The form K1p's plain version walks: K1's row form, filtered by
+        page, so that on a frontier x it equals K1's walk bit for bit."""
+        return self.entries
 
     # ---- plain PyTorch versions ----------------------------------------------
     def plain_index(self, a: RouterArrays | None = None) -> dict:
@@ -583,18 +663,20 @@ class RouterSpMV:
         if act is not None:
             keep = act.bool()[idx["unit"]]
             idx = {k: idx[k][keep] for k in ("src", "col", "dst")}
-        vals = arr.a_vals[idx["src"]]
-        xg = x.reshape(-1)[idx["col"]]
-        if self.semiring.op == OpType.ADDMIN:
-            g = tropical_encode(vals, xg)
-        elif self._and_or:
-            g = torch.logical_and(vals != 0, xg != 0).to(torch.float32)
-        else:
-            g = vals * xg
+        g = self._product(arr.a_vals[idx["src"]], x.reshape(-1)[idx["col"]])
         stream = torch.zeros(self.nsteps * self.f * CHUNK, dtype=g.dtype,
                              device=x.device)
         stream.index_copy_(0, idx["dst"], g)
         return stream.view(self.nsteps, self.f, 8, 128)
+
+    def _product(self, vals: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
+        """The semiring's (x) in the plain versions: v * x (one rounding),
+        ANDOR's 0/1, or ADDMIN's int32 encoding (semiring.tropical_encode)."""
+        if self.semiring.op == OpType.ADDMIN:
+            return tropical_encode(vals, xg)
+        if self._and_or:
+            return torch.logical_and(vals != 0, xg != 0).to(torch.float32)
+        return vals * xg
 
     def reduce_plain(self, stream: torch.Tensor, a: RouterArrays | None = None,
                      live: torch.Tensor | None = None) -> torch.Tensor:
@@ -615,31 +697,35 @@ class RouterSpMV:
         `act`, K2p's then K3's. K1's reference."""
         return self.reduce_plain(self.scatter_plain(x, a, act), a)
 
-    def entries_index(self):
-        """`entries_index(self.entries)`, expanded once."""
-        if self._entries_index is None:
-            self._entries_index = entries_index(self.entries)
-        return self._entries_index
+    def entries_index(self, entries: RouterEntries | None = None):
+        """`entries_index` of `entries` (the engine's `entries` when None),
+        expanded once per form."""
+        e = self.entries if entries is None else entries
+        hit = self._entries_index.get(id(e))
+        if hit is None or hit[0] is not e:
+            hit = self._entries_index[id(e)] = (e, entries_index(e))
+        return hit[1]
 
     def fused_entries_plain(self, x: torch.Tensor,
-                            act: torch.Tensor | None = None) -> torch.Tensor:
-        """K1's plain version: gather and product over `entries`, then
-        index_add_ into y; with `act`, K1p's: the same over the elements of
-        active pages only. Both add in the order of K1's form, so where x
-        is zero off the active pages the two agree bit for bit (a skipped
-        element adds zero)."""
-        col, row, _ = self.entries_index()
-        vals = self.entries.vals
+                            act: torch.Tensor | None = None,
+                            entries: RouterEntries | None = None
+                            ) -> torch.Tensor:
+        """K1's plain version: gather and product over `entries` (the
+        engine's `entries` when None), then index_add_ into y; with `act`,
+        K1p's: the same over the elements of active pages (tiles on a
+        planar engine) only. Each row's products are added in the form's
+        order: by column, then value bits, in every row-ordered form, so
+        where x is zero off the active units the two agree bit for bit (a
+        skipped element adds zero)."""
+        e = self.entries if entries is None else entries
+        col, row, _ = self.entries_index(e)
+        vals = e.vals
         if vals is None:          # the ANDOR form without values
             vals = torch.ones(col.numel(), device=col.device)
         if act is not None:
             keep = act.bool()[col // self.ACT_COLS]
             col, row, vals = col[keep], row[keep], vals[keep]
-        xg = x.reshape(-1)[col]
-        if self._and_or:
-            g = torch.logical_and(vals != 0, xg != 0).to(torch.float32)
-        else:
-            g = vals * xg
+        g = self._product(vals, x.reshape(-1)[col])
         y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
         return y.index_add_(0, row, g)
 

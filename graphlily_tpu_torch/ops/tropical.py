@@ -7,8 +7,10 @@ package's layout: both are plain numpy and identical). The ladder sends
 SSSP here where the chunked layout is infeasible (module/spmv_module.
 resolve_engine). One SpMV is the JAX pipeline (tropical_pallas.py:513-564):
 
-  K5 xperm    pass 1, "bucket" layouts only (csrc/planar_spmv.cu);
-  K4 scatter  pass 1 in ADDMIN mode: every product's exact int32 encoding
+  K4 scatter  pass 1 in ADDMIN mode (csrc/planar_spmv.cu, over the pass-1
+              engine's piece-ordered store form, which resolves a "bucket"
+              element's x2 slot to its x column, so K5 never runs):
+              every product's exact int32 encoding
               E = INF_BITS - bits(min(val + x, FLOAT_INF))
               (semiring.tropical_encode) into a zeroed region-major flush
               stream g1, whose zeros are E(FLOAT_INF), the identity of max;
@@ -65,9 +67,10 @@ from .planar import PlanarSpMV, run_words
 
 
 class TropicalPass1(PlanarSpMV):
-    """The planar pass 1 in ADDMIN mode: K5, K4 scatter and K4p scatter
-    write int32 encodings. It has no fused path (K4 fused adds floats into
-    y) and K3 refuses its int32 stream."""
+    """The planar pass 1 in ADDMIN mode: K4 scatter and K4p scatter write
+    int32 encodings over its store form. It has no fused path (K4 fused
+    adds floats into y), derives no fused form, and K3 refuses its int32
+    stream."""
 
     TROPICAL = True
 
@@ -216,7 +219,7 @@ class TropicalSpMV:
         p = self.planar
         return p.nsteps * p.f * CHUNK
 
-    # ---- pass 1: K5, K4 scatter and K4p scatter (ADDMIN) -------------------
+    # ---- pass 1: K4 scatter and K4p scatter (ADDMIN) ------------------------
     def scatter(self, x: torch.Tensor) -> torch.Tensor:
         """The int32 flush stream g1, (nsteps, f, 8, 128)."""
         return self.planar.scatter(x)

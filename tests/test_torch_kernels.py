@@ -14,7 +14,11 @@ planes, on pieces longer than a warp's pass. K4 fused runs K1's kernel
 over the planar engine's row-sorted form on all three deals, MULADD and
 ANDOR (without and with the value stream), on a graph with an empty
 region, an all-zero x, hub rows that cross block edges and regions cut
-into several column windows.
+into several column windows. K4 scatter and K4p scatter run over the
+planar engine's piece-ordered store form in all three semirings and
+deals, also on blocks cut inside pieces and at a cap of three pieces a
+block; K4p fused over its tile form at three frontiers against the
+float64 oracle.
 
 Needs a CUDA card and nvcc; every test skips without a card. Imports only
 torch and the port (no jax), so on a machine without jax it runs as
@@ -164,12 +168,15 @@ def test_planar_kernels_match_plain(name, semiring, deal, cuda):
     stream_plain = eng.scatter_plain(xt)
     assert torch.equal(stream.view(torch.int32),
                        stream_plain.view(torch.int32))
+    assert torch.equal(stream.view(torch.int32),
+                       eng.scatter_entries_plain(xt).view(torch.int32))
     y_reduce = eng.reduce(stream)
     y_fused = eng.fused_spmv(xt)
     y_fused_plain = eng.fused_plain(xt)
     torch.cuda.synchronize()
-    # xperm, scatter; K4 fused reads its form, whose columns index x
-    xperms = 2 if deal == "bucket" else 0
+    # the xperm check only: K4 scatter and K4 fused read their forms,
+    # whose columns index x
+    xperms = 1 if deal == "bucket" else 0
     assert eng.launches == {"fused": 1, "scatter": 1, "reduce": 1,
                             "xperm": xperms, "fused_pred": 0,
                             "scatter_pred": 0, "reduce_pred": 0}
@@ -182,8 +189,8 @@ def test_planar_kernels_match_plain(name, semiring, deal, cuda):
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
 def test_planar_engine_call_on_card(fused, deal, cuda):
     """The planar engine's public call on CUDA tensors launches the kernels
-    of its branch (K5 first for the split branch of bucket layouts; K4
-    fused gathers x itself), never the plain versions."""
+    of its branch (never K5: K4 fused and K4 scatter gather x through
+    columns resolved at init), never the plain versions."""
     csr = rmat_csr(50000, 150000, seed=5)
     lay = pack_planar(csr, deal=deal)
     eng = PlanarSpMV(lay, LogicalSemiring, EngineConfig(device="cuda"))
@@ -194,9 +201,8 @@ def test_planar_engine_call_on_card(fused, deal, cuda):
     np.testing.assert_array_equal(y, _oracle(csr, LogicalSemiring, x))
     want = ({"fused": 1, "scatter": 0, "reduce": 0} if fused
             else {"fused": 0, "scatter": 1, "reduce": 1})
-    want["xperm"] = int(deal == "bucket" and not fused)
-    assert eng.launches == {**want, "fused_pred": 0, "scatter_pred": 0,
-                            "reduce_pred": 0}
+    assert eng.launches == {**want, "xperm": 0, "fused_pred": 0,
+                            "scatter_pred": 0, "reduce_pred": 0}
 
 
 CHUNKED_SEMIRINGS = [ArithmeticSemiring, LogicalSemiring, TropicalSemiring]
@@ -365,11 +371,10 @@ def test_planar_predicated_kernels_match_plain(name, semiring, deal, kind,
     y4 = eng.fused_predicated(xt, act)
     full = eng.fused_spmv(xt)
     torch.cuda.synchronize()
-    # K4p scatter and K4p fused; K4 fused reads its form, whose columns
-    # index x
-    xperms = 2 if deal == "bucket" else 0
+    # K4p scatter, K4p fused and K4 fused read their forms, whose columns
+    # index x: no K5
     assert eng.launches == {"fused": 1, "scatter": 0, "reduce": 0,
-                            "xperm": xperms, "fused_pred": 1,
+                            "xperm": 0, "fused_pred": 1,
                             "scatter_pred": 1, "reduce_pred": 1}
     _check_predicated(y4, eng.fused_plain(xt, None, act), full, semiring,
                       "K4p fused")
@@ -530,13 +535,15 @@ def _planar_layout(name, deal):
 @pytest.mark.parametrize("name", ["region_4096", "hub_columns"])
 def test_planar_fused_tile_columns_match_plain(name, semiring, deal, kind,
                                                cuda):
-    """K4 fused ("full") and K4p fused, gathering through the int16 tile
-    column, against their plain versions (and K4p fused against the
-    unpredicated kernel) in every deal: ANDOR bit-equal, MULADD within
-    1e-5 of max|y|."""
+    """K4 fused ("full") and K4p fused, K1's kernel over the row form and
+    over the tile form (windows of one 1,024-column tile, flagged by it),
+    against their plain versions (and K4p fused against the unpredicated
+    kernel) in every deal: ANDOR bit-equal, MULADD within 1e-5 of
+    max|y|."""
     lay = _planar_layout(name, deal)
     eng = PlanarSpMV(lay, semiring, EngineConfig(device="cuda"))
-    assert eng.arrays.a_col.dtype == torch.int16
+    assert eng.pred_entries.col_bits == 10 and bool(
+        (eng.pred_entries.deps[:, 3] >= 0).all())
     if kind == "full":
         rng = np.random.default_rng(7)
         x = rng.random(lay.num_cols).astype(np.float32) + 0.5
@@ -730,9 +737,8 @@ def test_tropical_kernels_match_plain(name, fmt, deal, cuda):
     assert _same_bits(out, eng.window_reduce_plain(g2))
     y = eng(xt)
     torch.cuda.synchronize()
-    xperms = 2 if deal == "bucket" else 0
     assert eng.launches == _tropical_launches(
-        fmt, xperm=xperms, scatter=2, split=2, window_reduce=2)
+        fmt, scatter=2, split=2, window_reduce=2)
     want = _oracle(csr, TropicalSemiring, x).astype(np.float32)
     np.testing.assert_array_equal(y.cpu().numpy(), want)
 
@@ -950,3 +956,112 @@ def test_split_pieces_cross_passes_and_blocks(cuda):
     g2 = eng.split(torch.from_numpy(g1).to(cuda))
     torch.cuda.synchronize()
     np.testing.assert_array_equal(g2.cpu().numpy(), planes_walk(lay, g1))
+
+
+# ---- K4 scatter and K4p fused over the forms derived at engine init ---------
+# name -> (store-form cut); "block_edges" starts blocks inside pieces at
+# offsets that are not a multiple of 8, "segment_cap" cuts blocks at every
+# third piece
+STORE_CUTS = {"engine": {}, "block_edges": {"block_entries": 100},
+              "segment_cap": {"block_segments": 3}}
+
+
+def _store_engine(name, semiring, deal, cut):
+    if semiring is TropicalSemiring:
+        _, teng = _tropical_engine(name, "planes", deal)
+        eng = teng.planar
+    else:
+        eng = PlanarSpMV(_planar_layout(name, deal), semiring,
+                         EngineConfig(device="cuda"))
+    if STORE_CUTS[cut]:
+        eng.store_entries = router_entries(eng, "stream", **STORE_CUTS[cut])
+    return eng
+
+
+# PERM-C layouts serve MULADD/ANDOR only (as in JAX)
+STORE_DEALS = [(s, d) for s in CHUNKED_SEMIRINGS
+               for d in ("free", "bucket", "permc")
+               if not (s is TropicalSemiring and d == "permc")]
+
+
+@pytest.mark.parametrize("kind", ["full", *FRONTIERS])
+@pytest.mark.parametrize("cut", list(STORE_CUTS))
+@pytest.mark.parametrize("semiring,deal", STORE_DEALS,
+                         ids=[f"{s.name}-{d}" for s, d in STORE_DEALS])
+def test_planar_store_kernel_matches_plain(semiring, deal, cut, kind, cuda):
+    """K4 scatter ("full") and K4p scatter over the store form, in all
+    three semirings (ADDMIN on the tropical engine's pass 1, "free" and
+    "bucket") and deals: the stream bit-equal to the plain version through
+    the layout (K5 -> gather for "bucket") and to the form's walk, with
+    no K5 launch; K4 scatter writes the zeros of the unfilled lanes itself
+    (also over a stream of -1 bits); a predicated stream is also
+    bit-equal to the unpredicated one on its frontier (skipped pieces hold
+    the zero fill, the encoding of FLOAT_INF for ADDMIN)."""
+    name = "multi_region" if semiring is TropicalSemiring else "hub_columns"
+    eng = _store_engine(name, semiring, deal, cut)
+    e = eng.store_entries
+    if cut == "block_edges":
+        assert any(b % 8 for b in e.blocks[:, 0].tolist())
+    if cut == "segment_cap":
+        assert e.max_segments <= 3 and e.blocks.shape[0] > 1
+    if kind == "full":
+        x = (_tropical_x(eng.num_cols) if semiring is TropicalSemiring
+             else _router_x(eng.num_cols))
+        xt = torch.from_numpy(x).to(cuda)
+        s, act = eng.scatter(xt), None
+        # with tails the kernel writes every lane itself: over a stream
+        # of -1 bits too
+        assert e.tails is not None
+        poisoned = torch.full((s.numel(),), -1, dtype=torch.int32,
+                              device=cuda).view(s.dtype)
+        assert _same_bits(eng._launch_store(xt, None, poisoned), s)
+    else:
+        x = _frontier(eng.num_cols, kind, semiring.zero)
+        xt = torch.from_numpy(x).to(cuda)
+        act = (eng.activity(xt) if semiring is not TropicalSemiring else
+               (xt.reshape(-1, 1024) != semiring.zero).any(1).to(torch.uint8))
+        s = eng.scatter_predicated(xt, act)
+        assert _same_bits(s, eng.scatter(xt))
+    refs = (eng.scatter_plain(xt, None, act),
+            eng.scatter_entries_plain(xt, act))
+    torch.cuda.synchronize()
+    for ref in refs:
+        assert _same_bits(s, ref), (deal, cut, kind)
+    assert eng.launches["xperm"] == 0
+    if kind == "empty":
+        assert not s.any()
+
+
+@pytest.mark.parametrize("kind", FRONTIERS)
+@pytest.mark.parametrize("deal", ["free", "bucket", "permc"])
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("name", ["rmat", "region_1024"])
+def test_planar_tile_form_kernel_matches_oracle(name, semiring, deal, kind,
+                                               cuda):
+    """K4p fused over the tile form, also cut into blocks of 100 elements
+    (blocks that start inside a tile's segment), against the tile form's
+    walk, K4p scatter -> K3's plain versions and the float64 oracle on the
+    frontier x: ANDOR bit-equal, MULADD within 1e-5 of max|y|; no K5."""
+    build, region_rows = PLANAR_FIXTURES[name]
+    csr = build()
+    lay = (pack_permc(csr, region_rows=region_rows) if deal == "permc"
+           else pack_planar(csr, region_rows=region_rows, deal=deal))
+    eng = PlanarSpMV(lay, semiring, EngineConfig(device="cuda"))
+    x = _frontier(lay.num_cols, kind, 0.0)
+    xt = torch.from_numpy(x).to(cuda)
+    act = eng.activity(xt)
+    ys = [eng.fused_predicated(xt, act)]
+    e = eng.pred_entries
+    eng.use_entries(router_entries(eng, "row", 100, col_bits=e.col_bits,
+                                   values=e.vals is not None), pred=True)
+    ys.append(eng.fused_predicated(xt, act))
+    refs = (eng.fused_entries_plain(xt, act, eng.pred_entries),
+            eng.fused_plain(xt, None, act))
+    torch.cuda.synchronize()
+    assert eng.launches["fused_pred"] == 2 and eng.launches["xperm"] == 0
+    for y in ys:
+        for ref in refs:
+            _check_predicated(y, ref, ref, semiring, f"{name} {deal} {kind}")
+        _assert_close_to_oracle({"K4p fused": y}, _oracle(csr, semiring, x),
+                                lay.num_rows, semiring)

@@ -6,11 +6,11 @@ Chunked (`ops/chunked.chunk_entries`): every real entry of the layout
 appears once and no padding slot does, for both pad values and both chunk
 orders, which give the same form; the block table tiles the entries with
 ranges inside one window group, and walking it as the kernel does covers
-every entry once, in its own segment. Planar (`ops/planar.tile_columns`):
-the int16 tile column equals the chained a_r -> a_sub gather of the plain
-index. The plain versions over the derived forms equal the plain versions
-over the layouts (bit for bit for ANDOR and ADDMIN, and for K4p fused's
-reference in every semiring: it adds through the flush stream), JAX
+every entry once, in its own segment. Planar (`PlanarSpMV.element_index`):
+each element's column equals the chained a_r -> a_sub gather read from
+the layout. The plain versions over the derived forms equal the plain
+versions over the layouts (bit for bit for ANDOR and ADDMIN, and for
+`fused_plain` in every semiring: it adds through the flush stream), JAX
 `spmv_coo` on the padded graph and the float64 oracle, with the
 tolerances of test_torch_chunked.py and test_torch_planar.py.
 
@@ -53,8 +53,7 @@ from graphlily_tpu_torch.ops import (ChunkedSpMV, PlanarSpMV, RouterSpMV,
                                      TropicalSpMV)
 from graphlily_tpu_torch.ops.chunked import chunk_entries, entry_slots
 from graphlily_tpu_torch.ops.planar import (FORM_COL_BITS,
-                                            FORM_COL_BITS_NO_VALUES,
-                                            tile_columns)
+                                            FORM_COL_BITS_NO_VALUES)
 from graphlily_tpu_torch.ops.router import router_entries
 from graphlily_tpu_torch.ops.tropical import split_pieces
 
@@ -212,7 +211,7 @@ def test_chunked_plain_matches_padded_plain_and_references(fixture, name):
                        eng.spmv_plain(xf).view(torch.int32))
 
 
-# ---- K4p fused: the tile columns ---------------------------------------------
+# ---- planar: the element index's columns ------------------------------------
 def _planar(name, deal):
     build, region_rows = PLANAR_CASES[name]
     csr = build()
@@ -224,19 +223,25 @@ def _planar(name, deal):
 @pytest.mark.parametrize("deal", LAYOUTS)
 @pytest.mark.parametrize("name", list(PLANAR_CASES))
 def test_tile_column_equals_the_chained_gather(name, deal):
-    """page*1024 + a_col[src] of every deposited element is its column in
-    the plain index: a_sub[c, s, r]*128 + r ("free", PERM-C) or s*128 + r
-    into K5's x2 ("bucket"); the engine derives it at init."""
+    """Every deposited element's column in the plain index, from which
+    the engine derives its forms, is the chained gather read straight
+    from the layout at its A slot (c, s, l) with r = a_r[c, s, l]:
+    a_page[c]*1024 + a_sub[c, s, r]*128 + r ("free", PERM-C) or
+    a_page[c]*1024 + s*128 + r into K5's x2 ("bucket"); its unit is the
+    chunk's tile, and each element appears once."""
     _, lay = _planar(name, deal)
     eng = PlanarSpMV(lay, tg.ArithmeticSemiring, CPU)
-    a = eng.arrays
-    np.testing.assert_array_equal(a.a_col.numpy(),
-                                  tile_columns(a.a_r, a.a_sub).numpy())
-    assert a.a_col.dtype == torch.int16 and a.a_col.shape == a.a_r.shape
     idx = eng.plain_index()
-    col = idx["unit"] * 1024 + a.a_col.long()[idx["src"]]
-    np.testing.assert_array_equal(col.numpy(), idx["col"].numpy())
-    assert len(idx["src"]) == lay.nnz == len(np.unique(idx["src"]))
+    src = idx["src"].numpy()
+    chunk, s = src // 1024, src % 1024 // 128
+    r = lay.a_r.reshape(-1)[src].astype(np.int64)
+    sub = (s if lay.a_sub is None else
+           lay.a_sub.reshape(-1)[chunk * 1024 + s * 128 + r].astype(np.int64))
+    page = lay.a_page.reshape(-1)[chunk].astype(np.int64)
+    np.testing.assert_array_equal(idx["col"].numpy(),
+                                  page * 1024 + sub * 128 + r)
+    np.testing.assert_array_equal(idx["unit"].numpy(), page)
+    assert len(src) == lay.nnz == len(np.unique(src))
 
 
 @pytest.mark.parametrize("name", ["arithmetic", "logical"])
@@ -244,9 +249,9 @@ def test_tile_column_equals_the_chained_gather(name, deal):
 @pytest.mark.parametrize("fixture", list(PLANAR_CASES))
 def test_fused_plain_matches_composed_plain_and_references(fixture, deal,
                                                            name):
-    """`fused_plain`, the tile-column gather through the flush stream
-    (K4p fused's reference), equals K4 scatter -> K3's plain versions bit
-    for bit (it adds in flush-stream order), and the engine call equals
+    """`fused_plain`, the gather through the flush stream (the reference
+    of K4 fused and K4p fused), equals K4 scatter -> K3's plain versions
+    bit for bit (it adds in flush-stream order), and the engine call equals
     JAX spmv_coo and the float64 oracle; at a frontier of half the tiles
     it equals the composed one with the same activity."""
     csr, lay = _planar(fixture, deal)
