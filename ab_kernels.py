@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Old/new A/B of the chunked kernel (K6/K7, K7p), K4 fused, K4 scatter
-(K4p scatter), K4p fused, K1 (K1p) and K8 on one GPU, and the sizes their
-device forms are cut to.
+(K4p scatter), K4p fused, K1 (K1p), K8 and the tropical engine's walk on
+one GPU, and the sizes their device forms are cut to.
 
 Packs the full stand-ins once with this tree's packers (which are
 array-equal to every earlier tree's), builds each kernel's engine from the
@@ -57,6 +57,15 @@ new, old (CUDA events, min over 5 reps of 100 calls each). Rows:
                    fill of the window stream alone (inside K8's call) and,
                    with `--ablations`, K8 without its stores and without
                    its g1 gather
+  walk             ("walk") the tropical engine call on pokec SSSP's layout
+                   ("planes"): the parent's three passes (K4 scatter ADDMIN
+                   -> K8 -> K10) against this tree's walk (K1's kernel in
+                   ADDMIN mode over the pass-1 row form), pull and
+                   SpMSpV at empty, 1-vertex and 5% frontiers (the tile
+                   form), the walk's row form at column windows of 2**13,
+                   2**14 and 2**15 columns, the row and tile forms' MB and
+                   init seconds, and K10 alone (the same kernel in both
+                   trees)
 
 `--entries E ...` also times this tree's chunked kernel with other block
 sizes (real entries per block). Prints one line per row and writes them
@@ -67,7 +76,7 @@ before and after the new tree, as the parent).
 
 Usage: python3 ab_kernels.py --parent _archive_check/parent [--scale S]
        [--variant DIR ...] [--entries 1024 2048 4096]
-       [--kernels chunked planar router tropical scatter tile]
+       [--kernels chunked planar router tropical scatter tile walk]
        [--ablations]
 """
 from __future__ import annotations
@@ -86,7 +95,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ["chunked", "planar", "router", "tropical", "scatter", "tile"]
+KERNELS = ["chunked", "planar", "router", "tropical", "scatter", "tile",
+           "walk"]
 
 
 def log(msg: str) -> None:
@@ -222,10 +232,11 @@ def capture_layouts(scale: float, kernels) -> dict:
             out["roll"] = got[-1]
             out["roll_csr"] = pr.SpMV_.csr_matrix_
         log(f"googleplus layouts: {time.perf_counter() - t0:.1f} s")
-        if not {"planar", "tropical", "scatter", "tile"} & set(kernels):
+        if not {"planar", "tropical", "scatter", "tile", "walk"} & set(
+                kernels):
             return out
         p = iccad_standin("pokec", scale=scale, seed=0)
-        if {"tropical", "scatter"} & set(kernels):
+        if {"tropical", "scatter", "walk"} & set(kernels):
             t0 = time.perf_counter()
             sp = SSSP(EngineConfig(sort_rows_by_degree=True,
                                    engine="auto" if scale >= 1 else "router"))
@@ -690,9 +701,54 @@ def main(argv=None) -> int:
                    True, more=more)
             del engs, eng, vs
 
+    def walk():
+        """The tropical engine call on pokec SSSP's layout: the parent's
+        three passes against this tree's walk, pull and at three
+        frontiers; the walk's row form at 2**13-2**15 column windows; K10
+        alone."""
+        import copy
+        lay = lays["tropical"]
+        engs = engines("TropicalSpMV", lay, "TropicalSemiring")
+        eng = engs["new"]
+        p = eng.planar
+        log(f"walk forms: row {p.entries.idx.numel()} elements, "
+            f"{p.entries.deps.shape[0]} segments, col_bits "
+            f"{p.entries.col_bits}, {p.entries.nbytes() / 1e6:.1f} MB; tile "
+            f"{p.pred_entries.deps.shape[0]} segments, "
+            f"{p.pred_entries.nbytes() / 1e6:.1f} MB; store "
+            f"{p.store_entries.nbytes() / 1e6:.1f} MB; the three derived in "
+            f"{p.init_seconds:.2f} s")
+        x = rng.integers(0, 1000, lay.num_cols).astype(np.float32)
+        x[rng.random(lay.num_cols) < 0.5] = inf
+        xt = torch.from_numpy(x).to("cuda")
+        more = {}
+        for bits in (13, 14, 15):
+            if bits == p.entries.col_bits:
+                continue
+            v = copy.copy(p)
+            v.entries = new.ops.router.router_entries(v, "row",
+                                                      col_bits=bits)
+            log(f"  row form at 2**{bits} columns: "
+                f"{v.entries.deps.shape[0]} segments, "
+                f"{v.entries.nbytes() / 1e6:.1f} MB")
+            more[f"window 2**{bits}"] = (
+                lambda v=v: eng._finish(v.fused_spmv(xt), None, None))
+        ab(f"tropical engine call (pokec SSSP; new row form 2**"
+           f"{p.entries.col_bits})", engs, lambda e: e(xt), True, more=more)
+        del more
+        for kind in ("empty", "one", "5pct"):
+            xf = frontier(torch, lay.num_cols, kind, inf, rng)
+            ab(f"tropical SpMSpV call {kind} (pokec SSSP)", engs,
+               lambda e, xf=xf: e.call_predicated(xf), True)
+        g2 = eng.split(eng.scatter(xt))
+        ab("K10 window reduce (pokec SSSP, unchanged)", engs,
+           lambda e: e.window_reduce(g2), True)
+        del engs, eng, p, g2
+
     for name in args.kernels:
         {"chunked": chunked, "planar": planar, "router": router,
-         "tropical": tropical, "scatter": scatter, "tile": tile}[name]()
+         "tropical": tropical, "scatter": scatter, "tile": tile,
+         "walk": walk}[name]()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "ab_kernels.json").write_text(json.dumps(

@@ -23,9 +23,13 @@ calls, and checks every result against the float64 oracles:
     scatter -> K3p (planar), K7p (chunked);
   * SSSP pull, push and pull_push on the pokec stand-in (self edges
     added: 32,254,873 nnz), which the ladder sends to the tropical engine
-    (K4 scatter and K4p scatter in ADDMIN mode, K8 split, K10 window
-    reduce), and SSSP on half of the googleplus stand-in through the
-    tropical engine by name in the "triples" split format (K9);
+    (its walk: K4 fused and K4p fused in ADDMIN mode, K1's kernel over
+    the pass-1 row and tile forms, folding K10's max into the walk), and
+    SSSP on half of the googleplus stand-in through the tropical engine
+    by name in the "triples" split format; the engine's three-pass stages
+    (K4 scatter and K4p scatter in ADDMIN mode, K8 or K9 split, K10
+    window reduce), which no app path launches, are held to their plain
+    versions and to the walk;
   * BFS pull, push and pull_push on the full pokec stand-in and PageRank
     on a quarter of it with planar_deal="permc" (PERM-C layouts, packed
     by the C++ greedy): K4 fused over the same form, K4p fused on PERM-C
@@ -102,20 +106,27 @@ Phases, one or more lines each:
   18. sssp     pokec SSSP(EngineConfig(sort_rows_by_degree=True)): engine
                "auto" -> tropical, SpMSpV sharing it; layout facts, load
                and pack seconds, K8's compact form (init s, MB) and the
-               pass-1 store form (init s, MB); pull(0, 11), push(0, 11)
-               and pull_push(0, 11, 0.05) bit-equal to the oracle
-  19. kernels  pokec: K4 scatter ADDMIN's stream, K8's window stream and
-               K10's maxima bit-equal to their plain versions; K4p scatter
-               ADDMIN against its plain version and the unpredicated
-               scatter at empty, 1-vertex and 5% frontiers; googleplus
+               pass-1 forms (row, tile and store: init s, MB);
+               pull(0, 11), push(0, 11) and pull_push(0, 11, 0.05)
+               bit-equal to the oracle; their launches: the walk (fused,
+               fused_pred) and no three-pass stage
+  19. kernels  pokec: the walk bit-equal to its plain version and to the
+               three kernels' out; K4 scatter ADDMIN's stream, K8's window
+               stream and K10's maxima bit-equal to their plain versions;
+               the predicated walk and K4p scatter ADDMIN against their
+               plain versions, the unpredicated walk and scatter and the
+               three-pass out at empty, 1-vertex and 5% frontiers; googleplus
                SSSP at scale 0.5 (TRIPLES_SCALE: cut from the full graph
                to keep the whole run near 750 s) with
                engine="router", tropical_split_format="triples": pull(0, 7)
                and push(0, 7) against the oracle, K9 bit-equal to its plain
-               version, the tropical and a chunked engine call on its
-               matrix against the oracle
-  20. times    the new kernels and their plain versions, bounds, the pokec
-               tropical engine call, the googleplus tropical (triples)
+               version, the walk bit-equal to the three kernels' out, the
+               tropical and a chunked engine call on its matrix against
+               the oracle; the SSSP runs launch the walk only
+  20. times    the walk (and at three frontiers, predicated), the
+               three-pass kernels and their plain versions, bounds, the
+               pokec tropical engine call against the three passes, the
+               googleplus tropical (triples)
                engine call against the chunked engine call on the same
                matrix, pokec SSSP pull, push and pull_push ms and the
                pull_push_time_breakdown phase split
@@ -142,7 +153,9 @@ The launch counters are set to 0 right before each path's app runs
 (phases 4-5, 8, 11, 12, 14-16, 18, 19's googleplus SSSP and 21) and read
 right after; every kernel of the path must have run there (K5, which no
 app path runs since K4 scatter and K4p fused read x columns resolved at
-init, keeps its row with 0 launches). Then it prints the kernels' JSON
+init, and the tropical engine's three-pass stages K4 scatter ADDMIN, K4p
+scatter ADDMIN, K8, K9 and K10, which its walk replaces on every app
+path, keep their rows with 0 launches). Then it prints the kernels' JSON
 line: per
 kernel its launches on the app paths, its largest difference from its
 plain version, its time, its plain version's, its bound (the larger of
@@ -221,6 +234,13 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                                   "graphlily_tpu/ops/tropical_pallas.py:301"),
     "K10_tropical_window_reduce": (TROPICAL_SRC,
                                    "graphlily_tpu/ops/tropical_pallas.py:392"),
+    # the tropical engine's walk: K1's kernel in ADDMIN mode over the
+    # pass-1 row form (K4 fused's ADDMIN instance) and tile form (K4p
+    # fused's), with K10's int32 max folded in
+    "K4_planar_fused_addmin": (ROUTER_SRC,
+                               "graphlily_tpu/ops/router_pallas.py:1459"),
+    "K4p_planar_fused_pred_addmin": (
+        ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
     # PERM-C: the split branch's run-sum reduce and its predicated launch
     # (sm/na), and K4 fused's PERM-C instance (permc=True, with beg)
     "K11_permc_reduce": (PERMC_SRC, "graphlily_tpu/ops/router_pallas.py:851"),
@@ -233,8 +253,13 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 }
 BUCKET_SCALE = 0.25  # the pokec stand-in's cut for the "bucket" deal
 # kernels held to their plain versions that no app path launches: K5, whose
-# x2 the planar forms resolve at engine init
-OFF_PATH = {"K5_planar_xperm"}
+# x2 the planar forms resolve at engine init, and the tropical engine's
+# three-pass stages, whose SpMV and SpMSpV run its walk
+OFF_PATH = {"K5_planar_xperm", "K4_planar_scatter_addmin",
+            "K4p_planar_scatter_pred_addmin", "K8_tropical_split",
+            "K9_tropical_split_triples", "K10_tropical_window_reduce"}
+THREE_PASS = ("scatter", "scatter_pred", "split", "split_triples",
+              "window_reduce")
 TRIPLES_SCALE = 0.5  # the googleplus stand-in's cut for the "triples" SSSP
 MULADD_RTOL = 1e-4   # fp32 atomics in any order over hub rows of ~1e5 terms
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks at 700 W
@@ -1037,11 +1062,11 @@ def planar_form(eng) -> str:
     """The planar engine's derived forms for the log: K4 fused's row form,
     K4p fused's tile form and K4 scatter's store form, with their init
     seconds."""
-    forms = ([("K4 fused", eng.entries), ("K4p fused", eng.pred_entries)]
-             if hasattr(eng, "entries") else [])
     return "; ".join([f"derived forms: init {eng.init_seconds:.2f} s",
                       *(form_facts(label, e) for label, e in (
-                          *forms, ("K4 scatter", eng.store_entries)))])
+                          ("K4 fused", eng.entries),
+                          ("K4p fused", eng.pred_entries),
+                          ("K4 scatter", eng.store_entries)))])
 
 
 def frontier_x(torch, ncols: int, kind: str, zero: float, rng):
@@ -1366,6 +1391,42 @@ def tropical_facts(eng) -> str:
             f"g2_MB={eng.nchunks2 * 4096 / 1e6:.1f}")
 
 
+def check_walk_only(label: str, launches: dict) -> None:
+    """An SSSP run on the tropical engine launched its walk (K4 fused and
+    K4p fused in ADDMIN mode) and no three-pass stage."""
+    if (launches["fused"] == 0 or launches["fused_pred"] == 0
+            or any(launches[k] for k in THREE_PASS)):
+        raise AssertionError(f"{label} launches {launches}: the walk must "
+                             "run, and no three-pass stage")
+
+
+def walk_is_three_pass(torch, label: str, eng, out, three) -> None:
+    """The walk's out (the pass-1 regions' rows) holds K10's out (the
+    windows' rows) as its prefix, bit for bit, and 0 past it."""
+    n = eng.num_windows * 128
+    if (out.dtype != torch.int32 or out.numel() != eng.planar.out_len
+            or not torch.equal(out[:n], three) or bool(out[n:].any())):
+        raise AssertionError(f"{label} differs from the three passes' out")
+
+
+def walk_bound(torch, eng, act=None) -> tuple:
+    """(bytes, ops) of the tropical SpMV y = min(A + x) as a function, as
+    mv_bound counts the MULADD one: each entry's 4 B value and 4 B column,
+    a 4 B row word a row, x read once and y written once; an add and a
+    min an entry. With `act` (tile activity), the entries and x of the
+    active tiles only, counted from the tile form's segments."""
+    elems, xbytes = eng.nnz, 4 * eng.num_cols
+    if act is not None:
+        e = eng.planar.pred_entries
+        first = torch.cat([e.deps[:, 0].long(),
+                           e.deps.new_tensor([e.idx.numel()]).long()])
+        on = act.bool()[e.deps[:, 3].long()]
+        elems = int((first[1:] - first[:-1])[on].sum())
+        xbytes = 4 * eng.ACT_COLS * int(act.sum())
+    return (8 * elems + 4 * (eng.num_rows + 1) + xbytes + 4 * eng.num_rows,
+            2 * elems)
+
+
 def decoded_err(a, b) -> float:
     """max |a - b| of two int32 encoding tensors, decoded to float32."""
     from graphlily_tpu_torch.semiring import tropical_decode
@@ -1425,12 +1486,15 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
             "pull_push": sssp.pull_push(0, iters, threshold=0.05)}
     torch.cuda.synchronize()
     launches = dict(eng.launches)
+    check_walk_only("pokec sssp", launches)
+    rec["K4_planar_fused_addmin"]["launches"] = launches["fused"]
+    rec["K4p_planar_fused_pred_addmin"]["launches"] = launches["fused_pred"]
     rec["K4_planar_scatter_addmin"]["launches"] = launches["scatter"]
     rec["K4p_planar_scatter_pred_addmin"]["launches"] = launches[
         "scatter_pred"]
     rec["K8_tropical_split"]["launches"] = launches["split"]
     rec["K10_tropical_window_reduce"]["launches"] = launches["window_reduce"]
-    log(f"phase 18 launches: pokec sssp {launches} (K5: "
+    log(f"phase 18 launches: pokec sssp {launches} (the walk only; K5: "
         f"{launches['xperm']})")
     t0 = time.perf_counter()
     want = sssp.compute_reference_results(0, iters)
@@ -1446,50 +1510,75 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
     x = rng.integers(0, 1000, eng.num_cols).astype(np.float32)
     x[rng.random(eng.num_cols) < 0.5] = inf    # integers: exact fp32 sums
     xt = torch.from_numpy(x).to(dev)
+    walk, walkp = eng.fused(xt), eng.fused_plain(xt)
     g1, g1p = eng.scatter(xt), eng.scatter_plain(xt)
     g1e = eng.planar.scatter_entries_plain(xt)
     g2, g2p = eng.split(g1), eng.split_plain(g1)
     out, outp = eng.window_reduce(g2), eng.window_reduce_plain(g2)
     torch.cuda.synchronize()
+    bit_equal(torch, "pokec tropical walk", walk, walkp)
+    walk_is_three_pass(torch, "pokec tropical walk", eng, walk, out)
     bit_equal(torch, "pokec K4 scatter ADDMIN stream", g1, g1p)
     bit_equal(torch, "pokec K4 scatter ADDMIN stream (store form walk)", g1,
               g1e)
     bit_equal(torch, "pokec K8 window stream", g2, g2p)
     bit_equal(torch, "pokec K10 out", out, outp)
+    rec["K4_planar_fused_addmin"]["err"] = decoded_err(walk, walkp)
     rec["K4_planar_scatter_addmin"]["err"] = decoded_err(g1, g1p)
     rec["K8_tropical_split"]["err"] = decoded_err(g2, g2p)
     rec["K10_tropical_window_reduce"]["err"] = decoded_err(out, outp)
     check_close("pokec tropical engine call", eng(xt).cpu().numpy(),
                 sssp.SpMV_.compute_reference_results(x), exact=True)
-    log("phase 19 pokec: K4 scatter ADDMIN stream, K8 window stream and K10 "
-        "out bit-equal to their plain versions; engine call equal to the "
-        "oracle ok")
+    log("phase 19 pokec: the walk bit-equal to its plain version and to the "
+        "three kernels' out (K4 scatter ADDMIN -> K8 -> K10); K4 scatter "
+        "ADDMIN stream, K8 window stream and K10 out bit-equal to their "
+        "plain versions; engine call equal to the oracle ok")
     times = {}
     for kind in ("empty", "one", "5pct"):
         xf = frontier_x(torch, eng.num_cols, kind, inf, rng)
         act = eng.activity(xf)
+        w, wp, wfull = (eng.fused_predicated(xf, act),
+                        eng.fused_plain(xf, act), eng.fused(xf))
         s, sp, full = (eng.scatter_predicated(xf, act),
                        eng.scatter_plain(xf, act), eng.scatter(xf))
+        three = eng.window_reduce(eng.split(full))
         y, yfull = eng.call_predicated(xf), eng(xf)
         torch.cuda.synchronize()
+        bit_equal(torch, f"pokec predicated walk {kind}", w, wp)
+        bit_equal(torch, f"pokec predicated walk {kind} vs unpredicated", w,
+                  wfull)
+        walk_is_three_pass(torch, f"pokec predicated walk {kind}", eng, w,
+                           three)
         bit_equal(torch, f"pokec K4p ADDMIN {kind}", s, sp)
         bit_equal(torch, f"pokec K4p ADDMIN {kind} (store form walk)", s,
                   eng.planar.scatter_entries_plain(xf, act))
         bit_equal(torch, f"pokec K4p ADDMIN {kind} vs unpredicated", s, full)
         bit_equal(torch, f"pokec tropical SpMSpV {kind} vs SpMV", y, yfull)
+        walk_ms = time_ms(torch, lambda: eng.fused_predicated(xf, act))
         ms = time_ms(torch, lambda: eng.scatter_predicated(xf, act))
         call_ms = time_ms(torch, lambda: eng.call_predicated(xf))
+        three_ms = time_ms(torch, lambda: eng.window_reduce(eng.split(
+            eng.scatter_predicated(xf, act))))
+        wbytes, wops = walk_bound(torch, eng, act)
         nbytes, nops = router_bounds(eng.planar, act)["scatter"]
-        log(f"phase 19 pokec K4p scatter ADDMIN {kind}: active tiles "
-            f"{int(act.sum())}/{eng.num_col_tiles}; K4p {ms:.4f} ms (bound "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f}), SpMSpV call "
-            f"{call_ms:.4f} ms; bit-equal to plain and to unpredicated ok")
-        times[kind] = (ms, s, sp)
+        log(f"phase 19 pokec tropical SpMSpV {kind}: active tiles "
+            f"{int(act.sum())}/{eng.num_col_tiles}; predicated walk "
+            f"{walk_ms:.4f} ms (bound {wbytes / HBM_BYTES_PER_S * 1e3:.6f}),"
+            f" SpMSpV call {call_ms:.4f} ms, the three passes it replaces "
+            f"(K4p scatter -> K8 -> K10) {three_ms:.4f} ms; K4p scatter "
+            f"{ms:.4f} ms (bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f}); "
+            f"bit-equal to plain, to unpredicated and to the three passes ok")
+        times[kind] = (ms, s, sp, walk_ms, w, wp, (wbytes, wops))
     r = rec["K4p_planar_scatter_pred_addmin"]
-    r["ms"], r["err"] = times["5pct"][0], decoded_err(*times["5pct"][1:])
+    r["ms"], r["err"] = times["5pct"][0], decoded_err(*times["5pct"][1:3])
     r["plain_ms"] = time_ms(torch, lambda: eng.scatter_plain(xf, act),
                             iters=10)
     set_bound(r, nbytes, nops)
+    r = rec["K4p_planar_fused_pred_addmin"]
+    r["ms"], r["err"] = times["5pct"][3], decoded_err(*times["5pct"][4:6])
+    r["plain_ms"] = time_ms(torch, lambda: eng.fused_plain(xf, act),
+                            iters=10)
+    set_bound(r, *times["5pct"][6])
 
     # K9 on the googleplus stand-in cut to TRIPLES_SCALE (pass-1 triples
     # too), which keeps the whole run near 750 s since PERM-C joined it
@@ -1509,9 +1598,11 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
     reset((geng,))
     gruns = {"pull": gsssp.pull(0, giters), "push": gsssp.push(0, giters)}
     torch.cuda.synchronize()
+    check_walk_only("googleplus sssp (triples)", geng.launches)
     rec["K9_tropical_split_triples"]["launches"] = geng.launches[
         "split_triples"]
-    log(f"phase 19 launches: googleplus sssp (triples) {geng.launches}")
+    log(f"phase 19 launches: googleplus sssp (triples) {geng.launches} "
+        f"(the walk only)")
     gwant = gsssp.compute_reference_results(0, giters)
     for label, dist in gruns.items():
         check_close(f"googleplus triples sssp {label}", dist, gwant,
@@ -1533,20 +1624,27 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
     h1 = geng.scatter(xg)
     h2, h2p = geng.split(h1), geng.split_plain(h1)
     hout = geng.window_reduce(h2)
+    hwalk = geng.fused(xg)
     torch.cuda.synchronize()
     bit_equal(torch, "googleplus K4 scatter ADDMIN (triples)", h1,
               geng.scatter_plain(xg))
     bit_equal(torch, "googleplus K9 window stream", h2, h2p)
     bit_equal(torch, "googleplus K10 out", hout, geng.window_reduce_plain(h2))
+    bit_equal(torch, "googleplus tropical walk", hwalk, geng.fused_plain(xg))
+    walk_is_three_pass(torch, "googleplus tropical walk", geng, hwalk, hout)
     rec["K9_tropical_split_triples"]["err"] = decoded_err(h2, h2p)
     log(f"phase 19 googleplus: sssp pull(0, {giters}) and push(0, {giters}) "
         f"equal to the oracle; the tropical and chunked engine calls equal "
         f"to the oracle; K4 scatter ADDMIN, K9 and K10 bit-equal to their "
-        f"plain versions ok")
+        f"plain versions, the walk to its plain version and to K10's out "
+        f"ok")
 
     # ---- 20. times ------------------------------------------------------------
     bounds = tropical_bounds(eng)
     timed = {
+        "K4_planar_fused_addmin": (lambda: eng.fused(xt),
+                                   lambda: eng.fused_plain(xt),
+                                   walk_bound(torch, eng)),
         "K4_planar_scatter_addmin": (lambda: eng.scatter(xt),
                                      lambda: eng.scatter_plain(xt),
                                      router_bounds(eng.planar)["scatter"]),
@@ -1575,8 +1673,15 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         f"{live * 1024 / 1e6:.1f} MB of live planes), derived in "
         f"{eng.init_seconds:.2f} s")
     call_ms = time_ms(torch, lambda: eng(xt))
-    log(f"phase 20 pokec tropical engine call (K4 scatter -> K8 -> K10 + "
-        f"decode): {call_ms:.4f} ms ({gteps(eng.nnz, call_ms)})")
+    three_ms = time_ms(torch, lambda: eng.window_reduce(eng.split(
+        eng.scatter(xt))))
+    p = eng.planar
+    log(f"phase 20 pokec tropical engine call (the walk + decode): "
+        f"{call_ms:.4f} ms ({gteps(eng.nnz, call_ms)}); the three passes "
+        f"it replaces (K4 scatter -> K8 -> K10, no decode): {three_ms:.4f} "
+        f"ms; the walk's forms: row {p.entries.nbytes() / 1e6:.1f} MB, tile "
+        f"{p.pred_entries.nbytes() / 1e6:.1f} MB, derived with the store "
+        f"form in {p.init_seconds:.2f} s")
     chunked = gchunked.engine
     t_ms = time_ms(torch, lambda: geng(xg))
     c_ms = time_ms(torch, lambda: chunked(xg))

@@ -6,10 +6,11 @@
 // graphlily_tpu_torch/ops/_build.py with nvcc into a shared library with a
 // plain C interface; ops/planar.py binds it with ctypes and holds each
 // kernel against its plain PyTorch version. The split branch reduces K4's
-// flush stream with K3 (router_spmv.cu) or K11 (permc_spmv.cu); the
-// tropical engine (ops/tropical.py) runs K4 scatter and K4p scatter in
-// ADDMIN mode and reduces their int32 stream with K8 or K9 and K10
-// (tropical_spmv.cu).
+// flush stream with K3 (router_spmv.cu) or K11 (permc_spmv.cu). K4
+// scatter and K4p scatter in ADDMIN mode are pass 1 of the tropical
+// engine's three-pass stages (ops/tropical.py: then K8 or K9 and K10,
+// tropical_spmv.cu), which no app path launches: its SpMV and SpMSpV run
+// K1's kernel in ADDMIN mode over pass 1's row and tile forms.
 //
 // What K4 computes (the PlanarSpMVLayout arrays of its Pallas twin in
 // graphlily_tpu/ops/router_pallas.py; io/planar_format.py documents the
@@ -60,13 +61,19 @@
 // is unchanged.
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
 #include "segments.cuh"
+#include "semiring_product.cuh"
 
 namespace {
+
+// The semiring's (x) and what a stream element holds (float, or the int32
+// encoding for ADDMIN): semiring_product.cuh, shared with K1's kernel.
+using glt::Op;
+using glt::product;
+using glt::Stored;
 
 constexpr int kChunk = 1024;
 constexpr int kLanes = 128;
@@ -75,34 +82,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kVec = 8;            // elements per lane and warp pass
 constexpr int kZeroChunks = 16;    // flush chunks a zeroing block covers
-
-// The semiring's (x), numbered as the wrappers pass it (semiring.OpType).
-// ADDMIN is the tropical engine's: its product is stored as the exact int32
-// encoding of router_pallas.py:_tropical_encode (semiring.tropical_encode),
-// E = INF_BITS - bits(min(v + x, FLOAT_INF)), order-reversing on
-// non-negative floats with E(FLOAT_INF) = 0.
-enum class Op { kMulAdd = 0, kAndOr = 1, kAddMin = 2 };
-
-constexpr float kFloatInf = 999999999.0f;     // semiring.FLOAT_INF (1e9f)
-constexpr int kInfBits = 0x4E6E6B28;          // its bits, semiring.INF_BITS
-
-// What a stream element holds: float, or the int32 encoding for ADDMIN.
-template <Op kOp>
-using Stored = typename std::conditional<kOp == Op::kAddMin, int,
-                                         float>::type;
-
-template <Op kOp>
-__device__ __forceinline__ Stored<kOp> product(float v, float xv) {
-  if constexpr (kOp == Op::kAndOr) {
-    return (v != 0.f && xv != 0.f) ? 1.f : 0.f;
-  } else if constexpr (kOp == Op::kAddMin) {
-    // one rounding, as XLA's add; no fast-math anywhere in the build
-    const float p = fminf(__fadd_rn(v, xv), kFloatInf);
-    return kInfBits - __float_as_int(p);
-  } else {
-    return __fmul_rn(v, xv);   // one rounding, never fused with an add
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K4 scatter and K4p scatter. Replace _planar_scatter_call with the bodies
@@ -279,8 +258,10 @@ int run_store(const void* blocks, const void* deps, const void* vals,
               const void* act, const void* tails, int nblocks,
               int max_segments, int col_bits, int nchunks, int op,
               void* cuda_stream) {
+  // a form with no elements (an empty matrix) has no block, and its empty
+  // value tensor may have a null pointer
   if (op < 0 || op > 2 || nblocks < 0 || max_segments < 0 || col_bits < 1 ||
-      col_bits > 31 || nchunks < 0 || vals == nullptr ||
+      col_bits > 31 || nchunks < 0 || (vals == nullptr && nblocks > 0) ||
       (act != nullptr && tails != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nblocks == 0 && (tails == nullptr || nchunks == 0))

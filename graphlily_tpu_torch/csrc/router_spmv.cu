@@ -1,6 +1,10 @@
 // Roll-router SpMV kernels for Hopper (sm_90a): K1 fused, K2 scatter,
 // K3 reduce, and their frontier-predicated forms K1p, K2p, K3p (SpMSpV,
-// the `sm`/`na` launches of router_pallas.py:459-460, :1947-1963). Built
+// the `sm`/`na` launches of router_pallas.py:459-460, :1947-1963). K1's
+// kernel is also K4 fused and K4p fused (the planar engine's row and tile
+// forms) and, in ADDMIN mode over the tropical pass 1's row and tile
+// forms, the tropical engine's whole SpMV and SpMSpV, whose int32 max is
+// K10's window reduce folded into the walk (below). Built
 // by graphlily_tpu_torch/ops/_build.py with nvcc into a shared library
 // with a plain C interface; ops/router.py binds it with ctypes and holds
 // each kernel against its plain PyTorch version.
@@ -49,13 +53,18 @@
 // sublane byte is the page's (router_pallas.py:_chunk_activity).
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 #include "segments.cuh"
+#include "semiring_product.cuh"
 #include "warp_rows.cuh"
 
 namespace {
 
+using glt::Op;
+using glt::Stored;
 using glt::warp_add_rows;
 
 constexpr int kChunk = 1024;
@@ -218,6 +227,19 @@ __global__ void __launch_bounds__(kThreads) router_reduce_kernel(
 // Without values (kVals false, a null `vals`): the ANDOR form of a matrix
 // whose stored values are all nonzero (checked at init), 4 B an element.
 //
+// ADDMIN (the tropical engine, ops/tropical.py): the whole min-plus SpMV,
+// in place of the TPU's three passes (K4 scatter ADDMIN -> K8/K9 split ->
+// K10 window reduce, tropical_pallas.py:513-564, which exist because the
+// matrix unit has no scatter-max and Pallas grids run in order). Each
+// product is the exact int32 encoding E = INF_BITS - bits(min(v + x,
+// FLOAT_INF)) (semiring_product.cuh, K4 scatter's own definition); a run
+// of one row folds with int32 max and reaches the int32 `out` with one
+// atomicMax, K10's own reduction (glt::warp_max_rows), exact in any order.
+// A run whose max is not above 0, the identity and the encoding of
+// FLOAT_INF, issues nothing. So `out` is bit-equal to the three passes'
+// on any x, negative ones included. It reads the tropical pass 1's row
+// form (K4 fused's) and, predicated, its tile form (K4p fused's).
+//
 // Predication (K1p, K4p fused). A segment whose flag is inactive (a
 // deposit of a dead page, a window of a dead tile) gathers only zeros: its
 // record's x offset is set to -1 in shared memory and its elements are not
@@ -226,11 +248,22 @@ __global__ void __launch_bounds__(kThreads) router_reduce_kernel(
 constexpr int kVec = 8;            // consecutive elements per thread
 constexpr int kFusedThreads = 256;
 
-// One run's sum into y. A zero sum changes nothing and issues no atomic.
+// One run's total into y. MULADD, ANDOR: a float sum added; a zero sum
+// changes nothing and issues no atomic. ADDMIN: an int32 encoding max'd
+// into the zeroed out; a total not above 0 changes nothing and issues no
+// atomic, as in K10's fold (glt::warp_max_rows).
 __device__ __forceinline__ void add_row(float* __restrict__ y, int row,
                                         float v) {
   if (v != 0.f) atomicAdd(y + row, v);
 }
+
+__device__ __forceinline__ void add_row(int* __restrict__ y, int row,
+                                        int v) {
+  if (v > 0) atomicMax(y + row, v);
+}
+
+__device__ __forceinline__ float combine(float a, float b) { return a + b; }
+__device__ __forceinline__ int combine(int a, int b) { return max(a, b); }
 
 __device__ __forceinline__ float gather_x(const float* __restrict__ x,
                                           int col) {
@@ -239,12 +272,15 @@ __device__ __forceinline__ float gather_x(const float* __restrict__ x,
 
 // blocks[b] = (e0, e1, g0, g1): elements [e0, e1) of segments [g0, g1);
 // deps[g] = (first element, x offset, y offset, activity flag).
-template <bool kAndOr, bool kVals>
+template <Op kOp, bool kVals>
 __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
     const int4* __restrict__ blocks, const int4* __restrict__ deps,
     const float* __restrict__ vals, const unsigned* __restrict__ idx,
-    const float* __restrict__ x, float* __restrict__ y,
+    const float* __restrict__ x, Stored<kOp>* __restrict__ y,
     const uint8_t* __restrict__ act, int max_segments, int col_bits) {
+  using Acc = Stored<kOp>;
+  using Fold = typename std::conditional<kOp == Op::kAddMin, glt::FoldMax,
+                                         glt::FoldAdd>::type;
   constexpr unsigned kAll = 0xffffffffu;
   extern __shared__ int seg[];     // start, x offset, y offset of each
   int* s_start = seg;
@@ -268,7 +304,7 @@ __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
        base += kVec * kFusedThreads) {
     const int q = base + kVec * static_cast<int>(threadIdx.x);
     int first_row = -1, last_row = -1;
-    float first_acc = 0.f, last_acc = 0.f;
+    Acc first_acc = 0, last_acc = 0;
     if (q < b.y) {
       int col[kVec], row[kVec];
       bool any = false;
@@ -307,15 +343,13 @@ __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
 #pragma unroll
         for (int k = 0; k < kVec; ++k) {
           if (col[k] < 0) continue;
-          float g;
+          Acc g;
           if constexpr (!kVals)      // every stored value is nonzero
             g = xv[k] != 0.f ? 1.f : 0.f;
-          else if constexpr (kAndOr)
-            g = (v[k] != 0.f && xv[k] != 0.f) ? 1.f : 0.f;
           else
-            g = __fmul_rn(v[k], xv[k]);   // never fused
+            g = glt::product<kOp>(v[k], xv[k]);
           if (row[k] == last_row) {
-            last_acc += g;
+            last_acc = combine(last_acc, g);
           } else {
             if (runs == 1) {
               first_row = last_row;      // held back for the previous lane
@@ -333,14 +367,13 @@ __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
     // the first run joins the previous lane's last run when the rows match
     const int prev_last = __shfl_up_sync(kAll, last_row, 1);
     const int next_first = __shfl_down_sync(kAll, first_row, 1);
-    const float next_acc = __shfl_down_sync(kAll, first_acc, 1);
+    const Acc next_acc = __shfl_down_sync(kAll, first_acc, 1);
     if (first_row >= 0 && !(lane > 0 && prev_last == first_row))
       add_row(y, first_row, first_acc);
     if (lane < 31 && next_first >= 0 && next_first == last_row)
-      last_acc += next_acc;
+      last_acc = combine(last_acc, next_acc);
     bool head;
-    const float sum = glt::warp_fold_runs<glt::FoldAdd>(last_row, last_acc,
-                                                        head);
+    const Acc sum = glt::warp_fold_runs<Fold>(last_row, last_acc, head);
     if (head && last_row >= 0) add_row(y, last_row, sum);
   }
 }
@@ -391,13 +424,13 @@ int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kAndOr, bool kVals>
+template <Op kOp, bool kVals>
 int launch_fused(const void* blocks, const void* deps, const void* vals,
                  const void* idx, const void* x, void* y, const void* act,
                  int nblocks, int max_segments, int col_bits,
                  cudaStream_t st) {
   const size_t smem = 3 * sizeof(int) * static_cast<size_t>(max_segments);
-  auto kernel = router_fused_kernel<kAndOr, kVals>;
+  auto kernel = router_fused_kernel<kOp, kVals>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -407,22 +440,30 @@ int launch_fused(const void* blocks, const void* deps, const void* vals,
   kernel<<<nblocks, kFusedThreads, smem, st>>>(
       static_cast<const int4*>(blocks), static_cast<const int4*>(deps),
       static_cast<const float*>(vals), static_cast<const unsigned*>(idx),
-      static_cast<const float*>(x), static_cast<float*>(y),
+      static_cast<const float*>(x), static_cast<Stored<kOp>*>(y),
       static_cast<const uint8_t*>(act), max_segments, col_bits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// A null `vals` is the ANDOR form without values (and_or must be 1).
+// `op` is semiring.OpType (0 MULADD, 1 ANDOR: a float y; 2 ADDMIN: an
+// int32 out of encodings). A null `vals` is the ANDOR form without values
+// (op must be 1).
 int run_fused(const void* blocks, const void* deps, const void* vals,
               const void* idx, const void* x, void* y, const void* act,
-              int nblocks, int max_segments, int col_bits, int and_or,
+              int nblocks, int max_segments, int col_bits, int op,
               void* cuda_stream) {
-  if (nblocks < 0 || max_segments < 0 || col_bits < 1 || col_bits > 31 ||
-      (vals == nullptr && !and_or))
+  if (op < 0 || op > 2 || nblocks < 0 || max_segments < 0 || col_bits < 1 ||
+      col_bits > 31)
     return static_cast<int>(cudaErrorInvalidValue);
+  // a form with no elements (an empty matrix) has no block, and its empty
+  // value tensor may have a null pointer
   if (nblocks == 0) return static_cast<int>(cudaGetLastError());
-  auto fn = vals == nullptr ? launch_fused<true, false>
-      : and_or ? launch_fused<true, true> : launch_fused<false, true>;
+  if (vals == nullptr && op != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto fn = vals == nullptr ? launch_fused<Op::kAndOr, false>
+      : op == 2 ? launch_fused<Op::kAddMin, true>
+      : op == 1 ? launch_fused<Op::kAndOr, true>
+                : launch_fused<Op::kMulAdd, true>;
   return fn(blocks, deps, vals, idx, x, y, act, nblocks, max_segments,
             col_bits, static_cast<cudaStream_t>(cuda_stream));
 }
@@ -472,20 +513,24 @@ extern "C" int glt_router_reduce_pred(
                           region_rows, cuda_stream);
 }
 
+// K1, K4 fused and the tropical walk: `op` is semiring.OpType, as K4
+// scatter takes it (0 MULADD, 1 ANDOR: y float32; 2 ADDMIN: y an int32
+// out of encodings, zeroed).
 extern "C" int glt_router_fused(
     const void* blocks, const void* deps, const void* vals, const void* idx,
     const void* x, void* y, int nblocks, int max_segments, int col_bits,
-    int and_or, void* cuda_stream) {
+    int op, void* cuda_stream) {
   return run_fused(blocks, deps, vals, idx, x, y, nullptr, nblocks,
-                   max_segments, col_bits, and_or, cuda_stream);
+                   max_segments, col_bits, op, cuda_stream);
 }
 
-// K1p: act is the (num_cols/128,) uint8 page activity; K4p fused: the
-// (num_cols/1024,) uint8 tile activity. Each segment's flag indexes it.
+// K1p: act is the (num_cols/128,) uint8 page activity; K4p fused and the
+// predicated tropical walk: the (num_cols/1024,) uint8 tile activity. Each
+// segment's flag indexes it.
 extern "C" int glt_router_fused_pred(
     const void* blocks, const void* deps, const void* vals, const void* idx,
     const void* x, void* y, const void* act, int nblocks, int max_segments,
-    int col_bits, int and_or, void* cuda_stream) {
+    int col_bits, int op, void* cuda_stream) {
   return run_fused(blocks, deps, vals, idx, x, y, act, nblocks,
-                   max_segments, col_bits, and_or, cuda_stream);
+                   max_segments, col_bits, op, cuda_stream);
 }

@@ -4,13 +4,19 @@
 // shared library with a plain C interface; ops/tropical.py binds it with
 // ctypes and holds each kernel against its plain PyTorch version.
 //
-// The engine (graphlily_tpu/ops/tropical_pallas.py:513-564): K4 scatter in
-// ADDMIN mode (planar_spmv.cu) writes the region-major flush stream g1 of
-// int32 encodings E = INF_BITS - bits(min(val + x, FLOAT_INF)), where 0,
-// the encoding of FLOAT_INF, is the identity of max; K8 or K9 redistribute
-// g1 into 128-row window-pure chunks of the compact window stream g2; K10
-// folds each window chunk into out[window, row] with max. The decode
-// y = bits^-1(INF_BITS - out) and the SpMV mask stay torch ops.
+// The three passes (graphlily_tpu/ops/tropical_pallas.py:513-564): K4
+// scatter in ADDMIN mode (planar_spmv.cu) writes the region-major flush
+// stream g1 of int32 encodings E = INF_BITS - bits(min(val + x,
+// FLOAT_INF)), where 0, the encoding of FLOAT_INF, is the identity of max;
+// K8 or K9 redistribute g1 into 128-row window-pure chunks of the compact
+// window stream g2; K10 folds each window chunk into out[window, row] with
+// max. The decode y = bits^-1(INF_BITS - out) and the SpMV mask stay torch
+// ops. They exist for the TPU (an in-order grid, no scatter-max). On
+// Hopper the engine's SpMV and SpMSpV compute the same `out` in one walk
+// of pass 1's row or tile form (K1's kernel in ADDMIN mode,
+// router_spmv.cu), with K10's fold; the kernels here stay as the
+// engine's stages (`scatter`, `split`, `window_reduce`), held to their
+// plain versions and to the walk, and no app path launches them.
 //
 // The TPU kernels run their grids in order and carry digit accumulators
 // from step to step; a flush copies a slot into the window stream and

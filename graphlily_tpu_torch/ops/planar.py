@@ -103,6 +103,10 @@ from .router import (RouterEntries, RouterSpMV, resolved_index,
 # widths unmeasured
 FORM_COL_BITS = 14
 FORM_COL_BITS_NO_VALUES = 13
+# the tropical pass 1's row form, which the ADDMIN walk reads: 2**13
+# columns ran 0.7% faster than 2**14 and 9% faster than 2**15 on the
+# pokec stand-in alone (ab_kernels.py --kernels walk, PERF.md §6)
+FORM_COL_BITS_ADDMIN = 13
 # K4p fused's tile form: windows of one column tile, the activity unit
 TILE_COL_BITS = 10
 
@@ -186,15 +190,13 @@ class PlanarSpMV(RouterSpMV):
         idx = resolved_index(self)     # one decode for every form
         self.store_entries = router_entries(           # K4 scatter's
             self, "stream", index=idx)
-        if not self.TROPICAL:          # the tropical engine never fuses
-            cap = 31 - int(self.region_rows - 1).bit_length()
-            self.entries = router_entries(             # K4 fused's
-                self, "row", col_bits=min(FORM_COL_BITS, cap), values=None,
-                col_bits_no_values=min(FORM_COL_BITS_NO_VALUES, cap),
-                index=idx)
-            self.pred_entries = router_entries(        # K4p fused's
-                self, "row", col_bits=TILE_COL_BITS, values=None,
-                index=idx)
+        cap = 31 - int(self.region_rows - 1).bit_length()
+        bits = FORM_COL_BITS_ADDMIN if self.TROPICAL else FORM_COL_BITS
+        self.entries = router_entries(                 # K4 fused's
+            self, "row", col_bits=min(bits, cap), values=None,
+            col_bits_no_values=min(FORM_COL_BITS_NO_VALUES, cap), index=idx)
+        self.pred_entries = router_entries(            # K4p fused's
+            self, "row", col_bits=TILE_COL_BITS, values=None, index=idx)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.perf_counter() - t0   # the derived forms
@@ -220,11 +222,6 @@ class PlanarSpMV(RouterSpMV):
         return x2
 
     # ---- K4 scatter ------------------------------------------------------------
-    @property
-    def _stream_dtype(self) -> torch.dtype:
-        """float32, or int32 for the tropical engine's ADDMIN encodings."""
-        return torch.int32 if self.TROPICAL else torch.float32
-
     def scatter(self, x: torch.Tensor,
                 arrays: PlanarArrays | None = None) -> torch.Tensor:
         """Gather and deposits only: the flush stream, (nsteps, f, 8, 128),

@@ -228,11 +228,11 @@ def router_entries(eng: "RouterSpMV", order: str = "row",
     deps = i32(torch.stack([starts, xo[starts], yo[starts], flag[starts]],
                            1))
     # blocks of `block_entries` elements, also cut at every
-    # `block_segments`-th segment start
+    # `block_segments`-th segment start; a form with no elements has none
     e0 = torch.unique(torch.cat([
         torch.arange(0, n, block_entries, device=dev),
         starts[::block_segments]]))
-    e1 = torch.cat([e0[1:], e0.new_tensor([n])])
+    e1 = torch.cat([e0[1:], e0.new_tensor([n])])[:len(e0)]
     g0 = torch.searchsorted(starts, e0, right=True) - 1
     g1 = torch.searchsorted(starts, e1 - 1, right=True)
     return RouterEntries(
@@ -381,9 +381,14 @@ class RouterSpMV:
 
     @property
     def _op(self) -> int:
-        """The semiring as K4 scatter takes it: 0 MULADD, 1 ANDOR, 2
-        ADDMIN."""
+        """The semiring as K1's kernel and K4 scatter take it: 0 MULADD,
+        1 ANDOR, 2 ADDMIN."""
         return int(self.semiring.op)
+
+    @property
+    def _stream_dtype(self) -> torch.dtype:
+        """float32, or int32 for the tropical engine's ADDMIN encodings."""
+        return torch.int32 if self.TROPICAL else torch.float32
 
     @staticmethod
     def _raise_on(rc: int, name: str) -> None:
@@ -463,18 +468,20 @@ class RouterSpMV:
 
     def _launch_fused(self, x: torch.Tensor, act: torch.Tensor | None,
                       name: str, key: str) -> torch.Tensor:
-        """Zero y and launch K1 over `entries` (K1p over `pred_entries` when
-        `act` is given) on the current stream. A form without values
-        passes a null value pointer."""
+        """Zero y (the tropical pass 1's int32 out of encodings) and launch
+        K1 over `entries` (K1p over `pred_entries` when `act` is given) on
+        the current stream. A form without values passes a null value
+        pointer."""
         e = self.entries if act is None else self.pred_entries
-        y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
+        y = torch.zeros(self.out_len, dtype=self._stream_dtype,
+                        device=x.device)
         ptrs = [None if t is None else t.data_ptr()
                 for t in (e.blocks, e.deps, e.vals, e.idx, x, y)]
         if act is not None:
             ptrs.append(act.data_ptr())
         rc = getattr(_build.library(), name)(
             *ptrs, e.blocks.shape[0], e.max_segments, e.col_bits,
-            self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
+            self._op, torch.cuda.current_stream(x.device).cuda_stream)
         self._raise_on(rc, name)
         self.launches[key] += 1
         return y
@@ -716,7 +723,9 @@ class RouterSpMV:
         planar engine) only. Each row's products are added in the form's
         order: by column, then value bits, in every row-ordered form, so
         where x is zero off the active units the two agree bit for bit (a
-        skipped element adds zero)."""
+        skipped element adds zero). ADDMIN (the tropical walk): each
+        element's int32 encoding scatter_reduce_'d with amax into a zeroed
+        out, exact in any order."""
         e = self.entries if entries is None else entries
         col, row, _ = self.entries_index(e)
         vals = e.vals
@@ -726,7 +735,9 @@ class RouterSpMV:
             keep = act.bool()[col // self.ACT_COLS]
             col, row, vals = col[keep], row[keep], vals[keep]
         g = self._product(vals, x.reshape(-1)[col])
-        y = torch.zeros(self.out_len, dtype=torch.float32, device=x.device)
+        y = torch.zeros(self.out_len, dtype=g.dtype, device=x.device)
+        if self.semiring.op == OpType.ADDMIN:
+            return y.scatter_reduce_(0, row, g, "amax")
         return y.index_add_(0, row, g)
 
     # ---- SpMV and SpMSpV -------------------------------------------------------

@@ -1,11 +1,34 @@
-"""Tropical (min-plus) SpMV engine: planar pass 1 -> window split -> window
-reduce, on Hopper.
+"""Tropical (min-plus) SpMV engine on Hopper: one ADDMIN walk of the planar
+pass 1's row-sorted form; the TPU's three passes (planar pass 1 -> window
+split -> window reduce) kept as its stages.
 
 Counterpart of `TropicalSpMV` in graphlily_tpu/ops/tropical_pallas.py:435,
 over the same `TropicalSpMVLayout` (io/tropical_format.py; either
 package's layout: both are plain numpy and identical). The ladder sends
 SSSP here where the chunked layout is infeasible (module/spmv_module.
-resolve_engine). One SpMV is the JAX pipeline (tropical_pallas.py:513-564):
+resolve_engine).
+
+One SpMV (`__call__`) is one walk, `fused`: K1's kernel in ADDMIN mode
+(csrc/router_spmv.cu, K4 fused's instance) over the pass-1 engine's row
+form `entries` (every element with its value, sorted by row within each
+region and window of 2**FORM_COL_BITS_ADDMIN columns, ops/planar.py):
+each product's exact int32 encoding E = INF_BITS - bits(min(val + x,
+FLOAT_INF)) (semiring.tropical_encode, csrc/semiring_product.cuh),
+folded by row with int32 max and one atomicMax a run into a zeroed out,
+K10's own reduction. The int32 max is exact in any order, so `out` is
+bit-equal to the three passes' on every x, negative entries and F2's
+clipped weights included (ROADMAP queue 3 F2 is the reference's fault,
+and the walk keeps the port equal to it). SpMSpV (`call_predicated`) is the
+predicated walk, `fused_predicated` (K1p's kernel) over the tile form
+`pred_entries` (windows of one 1,024-column tile, each segment flagged
+by its tile, the activity unit): a dead tile's elements are not read.
+Their plain version (`fused_plain`, the CPU path) is scatter_reduce_
+amax of the encodings over the form. Each launch counts as `fused` or
+`fused_pred`.
+
+The three passes stay as the engine's stages, held to their plain
+versions and to the walk; no app path launches them. They are the JAX
+pipeline (tropical_pallas.py:513-564):
 
   K4 scatter  pass 1 in ADDMIN mode (csrc/planar_spmv.cu, over the pass-1
               engine's piece-ordered store form, which resolves a "bucket"
@@ -22,9 +45,14 @@ resolve_engine). One SpMV is the JAX pipeline (tropical_pallas.py:513-564):
   K10         `window_reduce`: the int32 max of every window row into
               out[num_windows * 128];
 
-then y = bits^-1(INF_BITS - out) and the SpMV mask, as torch ops. The
-engine never fuses: K4 fused and K3 add floats. Pass 1 is a PlanarSpMV in
-ADDMIN mode (`TropicalPass1`) that shares this engine's `launches`.
+then y = bits^-1(INF_BITS - out) and the SpMV mask, as torch ops (after
+the walk too). The walk's out has the pass-1 regions' rows (out_len),
+K10's the windows' (num_windows * 128): both index global rows, window w
+holding rows 128w..128w+127, and init checks that the regions cover
+the windows, so K10's out is a prefix of the walk's and the rows past it
+hold 0. Pass 1 is a PlanarSpMV in ADDMIN mode (`TropicalPass1`) that
+derives the row, tile and store forms and shares this engine's
+`launches`.
 
 The TPU kernels carry digit accumulators from grid step to grid step. Here
 the host resolves, once, the window chunk each split deposit is flushed
@@ -67,18 +95,18 @@ from .planar import PlanarSpMV, run_words
 
 
 class TropicalPass1(PlanarSpMV):
-    """The planar pass 1 in ADDMIN mode: K4 scatter and K4p scatter write
-    int32 encodings over its store form. It has no fused path (K4 fused
-    adds floats into y), derives no fused form, and K3 refuses its int32
-    stream."""
+    """The planar pass 1 in ADDMIN mode. K4 fused's walk (`fused_spmv`,
+    `fused_predicated`) writes the int32 max of the encodings by row over
+    its row and tile forms; K4 scatter and K4p scatter write the
+    encodings into the flush stream over its store form. K3 refuses the
+    int32 stream, so the walk's reference is the three passes
+    (TropicalSpMV.scatter, split, window_reduce), not `fused_plain`."""
 
     TROPICAL = True
 
-    def fused_spmv(self, *args, **kwargs):
-        raise ValueError("the tropical engine never fuses: K4 fused adds "
-                         "floats")
-
-    fused_predicated = fused_plain = fused_spmv
+    def fused_plain(self, *args, **kwargs):
+        raise ValueError("K3 adds floats: the tropical walk's reference is "
+                         "TropicalSpMV.window_reduce(split(scatter(x)))")
 
 
 @dataclasses.dataclass
@@ -149,9 +177,10 @@ class TropicalArrays:
 
 
 class TropicalSpMV:
-    """Tropical SpMV over a fixed layout: `__call__(x, mask, mask_type)`,
-    `call_predicated(x, mask, mask_type)`, and the stages `scatter`,
-    `split`, `window_reduce`."""
+    """Tropical SpMV over a fixed layout: `__call__(x, mask, mask_type)`
+    and `call_predicated(x, mask, mask_type)` through the walk (`fused`,
+    `fused_predicated`), and the three-pass stages `scatter`, `split`,
+    `window_reduce`."""
 
     ACT_COLS = 1024   # columns per activity flag: a column tile
 
@@ -176,6 +205,9 @@ class TropicalSpMV:
         self.triples = lay.triples2 is not None
         if int(lay.c_win.max(initial=-1)) >= self.num_windows:
             raise ValueError("a window chunk names a window past the rows")
+        if self.num_windows * L > self.planar.out_len:
+            raise ValueError("the windows' rows pass the pass-1 regions': "
+                             "the walk's out would not hold K10's")
         dev = self.planar._dev
         target2 = deposit_targets(lay.rg2, lay.dstep2, lay.f2,
                                   block=lay.qblk2)
@@ -196,8 +228,9 @@ class TropicalSpMV:
                   if self.triples else None),
             c_win=dev(lay.c_win), sort2=dev(lay.sort2),
             rowids=dev(lay.rowids))
-        self.launches = {"xperm": 0, "scatter": 0, "scatter_pred": 0,
-                         "split": 0, "split_triples": 0, "window_reduce": 0}
+        self.launches = {"fused": 0, "fused_pred": 0, "xperm": 0,
+                         "scatter": 0, "scatter_pred": 0, "split": 0,
+                         "split_triples": 0, "window_reduce": 0}
         self.planar.launches = self.launches
         self._split_index = None
         self._reduce_index = None
@@ -218,6 +251,28 @@ class TropicalSpMV:
     def g1_numel(self) -> int:
         p = self.planar
         return p.nsteps * p.f * CHUNK
+
+    # ---- the walk: K4 fused and K4p fused (ADDMIN) ----------------------------
+    def fused(self, x: torch.Tensor) -> torch.Tensor:
+        """out, (out_len,) int32: the max encoding of every row, in one
+        walk of the row form (K1's kernel in ADDMIN mode); 0 for a row
+        with no entry."""
+        return self.planar.fused_spmv(x)
+
+    def fused_predicated(self, x: torch.Tensor,
+                         act: torch.Tensor) -> torch.Tensor:
+        """out over the elements of active tiles only, one walk of the
+        tile form (K1p's kernel in ADDMIN mode)."""
+        return self.planar.fused_predicated(x, act)
+
+    def fused_plain(self, x: torch.Tensor,
+                    act: torch.Tensor | None = None) -> torch.Tensor:
+        """The walk's plain version: scatter_reduce_ amax of every
+        element's encoding into a zeroed out at its row, over the row form
+        (the tile form's active tiles with `act`)."""
+        p = self.planar
+        form = p.entries if act is None else p.pred_entries
+        return p.fused_entries_plain(x.reshape(-1), act, form)
 
     # ---- pass 1: K4 scatter and K4p scatter (ADDMIN) ------------------------
     def scatter(self, x: torch.Tensor) -> torch.Tensor:
@@ -376,21 +431,20 @@ class TropicalSpMV:
     # ---- SpMV and SpMSpV -------------------------------------------------------
     def __call__(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                  mask_type: MaskType | None = None) -> torch.Tensor:
-        """One SpMV, y = mask(A (min,+) x), (num_rows,)."""
-        return self._finish(self.scatter(x), mask, mask_type)
+        """One SpMV, y = mask(A (min,+) x), (num_rows,): the walk."""
+        return self._finish(self.fused(x), mask, mask_type)
 
     def call_predicated(self, x: torch.Tensor,
                         mask: torch.Tensor | None = None,
                         mask_type: MaskType | None = None) -> torch.Tensor:
         """One SpMSpV on a dense frontier (x = FLOAT_INF off the frontier):
-        `__call__`'s result, with K4p scatter over the active tiles."""
-        return self._finish(self.scatter_predicated(x, self.activity(x)),
+        `__call__`'s result, through the walk of the active tiles."""
+        return self._finish(self.fused_predicated(x, self.activity(x)),
                             mask, mask_type)
 
-    def _finish(self, g1, mask, mask_type) -> torch.Tensor:
-        """Split, window reduce, decode and the SpMV mask."""
-        y = tropical_decode(self.window_reduce(self.split(g1)))
-        y = y[:self.num_rows]
+    def _finish(self, out, mask, mask_type) -> torch.Tensor:
+        """Decode and the SpMV mask."""
+        y = tropical_decode(out)[:self.num_rows]
         mt = self.mask_type if mask_type is None else mask_type
         if mask is not None and mt != MaskType.NO_MASK:
             y = apply_mask(y, mask, mt, self.semiring.zero)

@@ -27,6 +27,7 @@ from graphlily_tpu_torch.apps import BFS, PageRank, SSSP
 from graphlily_tpu_torch.io import rmat_csr, uniform_csr
 from graphlily_tpu_torch.module import SpMVModule
 
+from test_torch_fixtures import one_thread
 from test_torch_io import to_jax
 
 SORT = [False, True]

@@ -15,13 +15,30 @@ TROPICAL_FIXTURES are the JAX tropical tests' graphs
 with drains, a hub row and a graph with empty rows.
 The tests here check that each is a well-formed CSR matrix and is rebuilt
 identically.
+
+`one_thread` is a module fixture for the port's heavy CPU test files,
+which import it: under the suite's workers, torch's thread pool slows
+their many small ops 10-100x.
 """
 import numpy as np
 import pytest
+import torch
 
 from graphlily_tpu_torch.io import (uniform_csr, dense_csr, conflict_csr,
                                     rmat_csr, util_round_csr_matrix_dim)
 from graphlily_tpu_torch.io.matrix import CSRMatrix, csr_from_coo
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Runs a module's tests on one torch thread, restored after the
+    module: the suite's workers oversubscribe the cores, and torch's thread
+    pool then slows the tests' many small ops 10-100x. Autouse in every
+    module that imports it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def hub_page_csr() -> CSRMatrix:

@@ -712,8 +712,9 @@ def _same_bits(a, b) -> bool:
 
 
 def _tropical_launches(fmt, **counts):
-    out = {"xperm": 0, "scatter": 0, "scatter_pred": 0, "split": 0,
-           "split_triples": 0, "window_reduce": 0}
+    out = {"fused": 0, "fused_pred": 0, "xperm": 0, "scatter": 0,
+           "scatter_pred": 0, "split": 0, "split_triples": 0,
+           "window_reduce": 0}
     counts[SPLIT_KEY[fmt]] = counts.pop("split", 0)
     return {**out, **counts}
 
@@ -723,8 +724,8 @@ def _tropical_launches(fmt, **counts):
 @pytest.mark.parametrize("name", list(TROPICAL_FIXTURES))
 def test_tropical_kernels_match_plain(name, fmt, deal, cuda):
     """K4 scatter (ADDMIN), K8 or K9 and K10, each on the stage before's
-    kernel output, bit-equal to its plain version; the engine call equals
-    the oracle."""
+    kernel output, bit-equal to its plain version; the engine call (the
+    walk) equals the oracle."""
     csr, eng = _tropical_engine(name, fmt, deal)
     x = _tropical_x(eng.num_cols)
     xt = torch.from_numpy(x).to(cuda)
@@ -738,7 +739,7 @@ def test_tropical_kernels_match_plain(name, fmt, deal, cuda):
     y = eng(xt)
     torch.cuda.synchronize()
     assert eng.launches == _tropical_launches(
-        fmt, scatter=2, split=2, window_reduce=2)
+        fmt, scatter=1, split=1, window_reduce=1, fused=1)
     want = _oracle(csr, TropicalSemiring, x).astype(np.float32)
     np.testing.assert_array_equal(y.cpu().numpy(), want)
 
@@ -749,8 +750,8 @@ def test_tropical_kernels_match_plain(name, fmt, deal, cuda):
 def test_tropical_predicated_scatter_matches_plain(name, fmt, kind, cuda):
     """K4p scatter (ADDMIN) bit-equal to its plain version and to the
     unpredicated K4 scatter (skipped pieces hold 0, the encoding of
-    FLOAT_INF); the predicated call bit-equal to the unpredicated one. The
-    frontier holds a source at distance 0."""
+    FLOAT_INF); the predicated call (the predicated walk) bit-equal to the
+    unpredicated one. The frontier holds a source at distance 0."""
     _, eng = _tropical_engine(name, fmt, "free")
     x = _frontier(eng.num_cols, kind, TropicalSemiring.zero)
     if kind != "empty":
@@ -764,7 +765,7 @@ def test_tropical_predicated_scatter_matches_plain(name, fmt, kind, cuda):
     torch.cuda.synchronize()
     assert _same_bits(y, full)
     assert eng.launches == _tropical_launches(
-        fmt, scatter=2, scatter_pred=2, split=2, window_reduce=2)
+        fmt, scatter=1, scatter_pred=1, fused=1, fused_pred=1)
     if kind == "empty":
         assert not act.any() and bool((y == TropicalSemiring.zero).all())
     else:
@@ -774,7 +775,7 @@ def test_tropical_predicated_scatter_matches_plain(name, fmt, kind, cuda):
 def test_tropical_sssp_on_card(cuda):
     """SSSP with engine="router" on the card: SpMV and SpMSpV share one
     TropicalSpMV, pull, push and pull_push equal the oracle, and only the
-    kernels ran."""
+    walk's kernels ran, never a three-pass stage."""
     from graphlily_tpu_torch.apps import SSSP
     sssp = SSSP(EngineConfig(engine="router"))
     sssp.load_and_format_matrix(rmat_csr(12000, 60000, seed=7))
@@ -784,9 +785,73 @@ def test_tropical_sssp_on_card(cuda):
     want = sssp.compute_reference_results(0, 6)
     for run in (sssp.pull(0, 6), sssp.push(0, 6), sssp.pull_push(0, 6)):
         np.testing.assert_array_equal(np.asarray(run, np.float64), want)
-    for key in ("scatter", "scatter_pred", "window_reduce"):
-        assert eng.launches[key] > 0, key
-    assert eng.launches[SPLIT_KEY["triples" if eng.triples else "planes"]] > 0
+    assert eng.launches["fused"] > 0 and eng.launches["fused_pred"] > 0
+    assert eng.launches == _tropical_launches(
+        "planes", fused=eng.launches["fused"],
+        fused_pred=eng.launches["fused_pred"])
+
+
+def _tropical_negative_x(ncols, seed=5):
+    """_tropical_x with a third of its entries negated and three far below
+    -FLOAT_INF: the encodings the walk must keep equal to the three
+    passes' (ROADMAP queue 3 F2)."""
+    rng = np.random.default_rng(seed)
+    x = _tropical_x(ncols, seed)
+    x[rng.random(ncols) < 0.3] *= -1
+    x[:3] = -3e9
+    return x
+
+
+def _walk_is_three_pass(eng, out, three) -> bool:
+    """The walk's out holds K10's as its prefix and 0 past it."""
+    n = eng.num_windows * 128
+    return (out.dtype == torch.int32 and out.numel() == eng.planar.out_len
+            and torch.equal(out[:n], three) and not bool(out[n:].any()))
+
+
+@pytest.mark.parametrize("sign", ["nonneg", "negative_x"])
+@pytest.mark.parametrize("deal", ["free", "bucket"])
+@pytest.mark.parametrize("fmt", SPLIT_FORMATS)
+@pytest.mark.parametrize("name", list(TROPICAL_FIXTURES))
+def test_tropical_walk_matches_plain_and_three_passes(name, fmt, deal, sign,
+                                                      cuda):
+    """The ADDMIN walk (K1's kernel over the pass-1 row form) bit-equal to
+    its plain version and to window_reduce(split(scatter(x))) through the
+    three kernels, on x >= 0 and on negative x."""
+    _, eng = _tropical_engine(name, fmt, deal)
+    x = (_tropical_x(eng.num_cols) if sign == "nonneg"
+         else _tropical_negative_x(eng.num_cols))
+    xt = torch.from_numpy(x).to(cuda)
+    out = eng.fused(xt)
+    three = eng.window_reduce(eng.split(eng.scatter(xt)))
+    torch.cuda.synchronize()
+    assert torch.equal(out, eng.fused_plain(xt))
+    assert _walk_is_three_pass(eng, out, three)
+    assert eng.launches == _tropical_launches(
+        fmt, fused=1, scatter=1, split=1, window_reduce=1)
+
+
+@pytest.mark.parametrize("kind", FRONTIERS)
+@pytest.mark.parametrize("fmt", SPLIT_FORMATS)
+@pytest.mark.parametrize("name", list(TROPICAL_FIXTURES))
+def test_tropical_predicated_walk_matches_plain(name, fmt, kind, cuda):
+    """The predicated walk (K1p's kernel over the pass-1 tile form) bit-
+    equal to its plain version, to the unpredicated walk and to the three
+    kernels' out on a frontier x."""
+    _, eng = _tropical_engine(name, fmt, "free")
+    x = _frontier(eng.num_cols, kind, TropicalSemiring.zero)
+    if kind != "empty":
+        x[5] = 0.0
+    xt = torch.from_numpy(x).to(cuda)
+    act = eng.activity(xt)
+    out = eng.fused_predicated(xt, act)
+    three = eng.window_reduce(eng.split(eng.scatter(xt)))
+    torch.cuda.synchronize()
+    assert torch.equal(out, eng.fused_plain(xt, act))
+    assert torch.equal(out, eng.fused(xt))
+    assert _walk_is_three_pass(eng, out, three)
+    if kind == "empty":
+        assert not act.any() and not out.any()
 
 
 # ---- K1 and K8 over the forms derived at engine init -------------------------
@@ -1065,3 +1130,36 @@ def test_planar_tile_form_kernel_matches_oracle(name, semiring, deal, kind,
             _check_predicated(y, ref, ref, semiring, f"{name} {deal} {kind}")
         _assert_close_to_oracle({"K4p fused": y}, _oracle(csr, semiring, x),
                                 lay.num_rows, semiring)
+
+
+# ---- the empty matrix (ROADMAP queue 3 F1) ------------------------------------
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("engine,deal", [("roll", "free"), ("planar", "free"),
+                                         ("planar", "bucket"),
+                                         ("planar", "permc")],
+                         ids=["roll", "free", "bucket", "permc"])
+def test_empty_matrix_gives_zeros_on_card(engine, deal, semiring, cuda):
+    """A 2048 x 2048 matrix with no entry: every form has no block, the
+    kernels launch nothing, and SpMV and SpMSpV through the modules give
+    y = 0 on the card."""
+    from graphlily_tpu_torch.io import csr2csc
+    from graphlily_tpu_torch.module import SpMSpVModule
+    e = np.zeros(0, np.int64)
+    csr = csr_from_coo(e, e, np.zeros(0, np.float32), 2048, 2048)
+    cfg = EngineConfig(engine=engine, planar_deal=deal)
+    mod = SpMVModule(cfg)
+    mod.set_semiring(semiring)
+    mod.load_and_format_matrix(csr)
+    assert mod.engine_name == engine
+    assert mod.engine.entries.blocks.shape[0] == 0
+    y = mod.apply(torch.ones(2048, device=cuda))
+    spmspv = SpMSpVModule(cfg)
+    spmspv.set_semiring(semiring)
+    spmspv.load_and_format_matrix(csr2csc(csr), reuse_from=mod)
+    x = torch.zeros(2048, device=cuda)
+    x[3], x[1500] = 1.0, 2.5
+    ys = spmspv.apply_dense(x)
+    torch.cuda.synchronize()
+    assert y.is_cuda and y.shape == (2048,) and not y.any()
+    assert ys.is_cuda and not ys.any()

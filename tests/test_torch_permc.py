@@ -50,7 +50,7 @@ from graphlily_tpu_torch.module import SpMVModule, SpMSpVModule
 from graphlily_tpu_torch.ops import PlanarSpMV
 
 from test_torch_fixtures import (hub_columns_csr, hub_page_csr, hub_row_csr,
-                                 TROPICAL_FIXTURES)
+                                 one_thread, TROPICAL_FIXTURES)
 from test_torch_io import to_jax
 from test_torch_router import (CPU, MASKS, _assert_matches, _references,
                                _vectors)

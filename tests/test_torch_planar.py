@@ -27,7 +27,7 @@ import graphlily_tpu_torch as tg
 from graphlily_tpu_torch.io import pack_planar
 from graphlily_tpu_torch.ops import PlanarSpMV
 
-from test_torch_fixtures import PLANAR_FIXTURES
+from test_torch_fixtures import PLANAR_FIXTURES, one_thread
 from test_torch_io import to_jax
 from test_torch_router import (CPU, MASKS, _assert_matches, _references,
                                _vectors)

@@ -59,7 +59,7 @@ from graphlily_tpu_torch.ops.tropical import split_pieces
 
 from test_torch_fixtures import (CHUNKED_FIXTURES, FIXTURES, PLANAR_FIXTURES,
                                  TROPICAL_FIXTURES, hub_window_csr,
-                                 stored_zeros_csr)
+                                 one_thread, stored_zeros_csr)
 from test_torch_io import to_jax
 from test_torch_kernels import planes_walk
 from test_torch_router import CPU, _references

@@ -36,22 +36,12 @@ from graphlily_tpu_torch.ops import PlanarSpMV, TropicalSpMV
 from graphlily_tpu_torch.ops.router import entries_index
 from graphlily_tpu_torch.module import SpMVModule
 
-from test_torch_fixtures import FIXTURES, TROPICAL_FIXTURES, stored_zeros_csr
+from test_torch_fixtures import (FIXTURES, TROPICAL_FIXTURES, one_thread,
+                                 stored_zeros_csr)
 from test_torch_io import to_jax
 
 CPU = tg.EngineConfig(device="cpu")
 CASES = ["uniform", "rmat", "multi_region", "hub_page"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These tests run many small torch ops, which torch's thread pool
-    slows by 10-100x where the suite's workers oversubscribe the cores;
-    one thread each, restored after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 DEALS = ["free", "bucket", "permc"]
 KINDS = ["full", "empty", "one", "5pct"]
 SEMIRINGS = ["arithmetic", "logical"]

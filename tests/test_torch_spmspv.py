@@ -45,7 +45,8 @@ from graphlily_tpu_torch.module import spmspv_module as tspmspv
 from graphlily_tpu_torch.ops import (RouterSpMV, PlanarSpMV, ChunkedSpMV,
                                      TropicalSpMV, sparse_from_entries)
 
-from test_torch_fixtures import FIXTURES, PLANAR_FIXTURES, CHUNKED_FIXTURES
+from test_torch_fixtures import (FIXTURES, PLANAR_FIXTURES, CHUNKED_FIXTURES,
+                                 one_thread)
 from test_torch_io import to_jax
 
 CPU = tg.EngineConfig(device="cpu")

@@ -1,6 +1,6 @@
-"""The port's tropical engine on the CPU (plain PyTorch versions of K4
-scatter in ADDMIN mode, K8/K9 split and K10 window reduce) against the JAX
-package.
+"""The port's tropical engine on the CPU (plain PyTorch versions of its
+ADDMIN walk, and of its three-pass stages K4 scatter in ADDMIN mode, K8/K9
+split and K10 window reduce) against the JAX package.
 
 The graphs are the JAX tropical tests' (test_torch_fixtures.
 TROPICAL_FIXTURES): RMAT at the production kb, a multi-region RMAT whose
@@ -56,8 +56,9 @@ CPU = tg.EngineConfig(device="cpu")
 INF = float(tg.FLOAT_INF)
 FORMATS = ["planes", "triples"]
 DEALS = ["free", "bucket"]
-NO_LAUNCHES = {"xperm": 0, "scatter": 0, "scatter_pred": 0, "split": 0,
-               "split_triples": 0, "window_reduce": 0}
+NO_LAUNCHES = {"fused": 0, "fused_pred": 0, "xperm": 0, "scatter": 0,
+               "scatter_pred": 0, "split": 0, "split_triples": 0,
+               "window_reduce": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -288,8 +289,8 @@ def test_wrappers_check_arguments():
         eng.window_reduce(torch.zeros(7, dtype=torch.int32))
     with pytest.raises(ValueError, match="float32"):
         eng.scatter(torch.zeros(eng.num_cols, dtype=torch.float64))
-    with pytest.raises(ValueError, match="never fuses"):
-        eng.planar.fused_spmv(torch.zeros(eng.num_cols))
+    with pytest.raises(ValueError, match="K3 adds floats"):
+        eng.planar.fused_plain(torch.zeros(eng.num_cols))
 
 
 # ---- SpMSpV, SSSP and the ladder -------------------------------------------
