@@ -57,6 +57,21 @@ new, old (CUDA events, min over 5 reps of 100 calls each). Rows:
                    fill of the window stream alone (inside K8's call) and,
                    with `--ablations`, K8 without its stores and without
                    its g1 gather
+  reduce           ("reduce") phase C of the split branch: K3 on the
+                   googleplus roll stream and on pokec's "free" planar
+                   stream, K11 on the MULADD stream of pokec BFS's PERM-C
+                   layout (each stream written once by this tree's K2 or
+                   K4 scatter): first, with `--ablations`, the parent's
+                   kernels against themselves with their global atomics as
+                   plain stores (timing only); then old against new, this
+                   tree's region-group table at 4, 8, 16, 32, 64 and
+                   128 chunks a group, and, with `--ablations`, the flush
+                   variants (scalar atomics for the vector reductions;
+                   vector reductions for the sole groups' stores); and the
+                   split engine call (scatter -> reduce) old against new. This tree's K11 is K3's kernel
+                   over the PERM-C layout's position-keyed rows; time the
+                   destination-lane design it replaced with `--variant`
+                   on a tree that has it
   walk             ("walk") the tropical engine call on pokec SSSP's layout
                    ("planes"): the parent's three passes (K4 scatter ADDMIN
                    -> K8 -> K10) against this tree's walk (K1's kernel in
@@ -76,7 +91,7 @@ before and after the new tree, as the parent).
 
 Usage: python3 ab_kernels.py --parent _archive_check/parent [--scale S]
        [--variant DIR ...] [--entries 1024 2048 4096]
-       [--kernels chunked planar router tropical scatter tile walk]
+       [--kernels chunked planar router tropical scatter tile walk reduce]
        [--ablations]
 """
 from __future__ import annotations
@@ -96,7 +111,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = ["chunked", "planar", "router", "tropical", "scatter", "tile",
-           "walk"]
+           "walk", "reduce"]
 
 
 def log(msg: str) -> None:
@@ -120,12 +135,31 @@ def load_package(root: Path, name: str):
     return mod
 
 
-# Ablations of K1, K8 and K4 scatter: name -> (source under csrc/,
-# [(old, new)]); K1's atomics as plain stores, its x gather as a
+# Ablations of K1, K8, K4 scatter and phase C: name -> (source under
+# csrc/, [(old, new)]); K1's atomics as plain stores, its x gather as a
 # constant; K8's stores skipped (kept only for a value that never occurs),
 # its g1 gather replaced by the lane byte; K4 scatter's x gather as a
-# constant. The name's prefix selects the rows that use it (ABLATION_ROWS)
+# constant; the parent's K3 and K11 ("old_": patched copies of the
+# --parent tree) with their global atomics as plain stores; this tree's
+# K3 (and K11) with scalar atomics for the tile flush's vector
+# reductions, and with vector reductions for the sole groups' stores. The
+# name's prefix selects the rows that use it (ABLATION_ROWS)
 ABLATIONS = {
+    "old_k3_stores": ("warp_rows.cuh", [(
+        "if (head && row >= 0 && v != 0.f) atomicAdd(yr + row, v);",
+        "if (head && row >= 0 && v != 0.f) yr[row] = v;")]),
+    "old_k11_stores": ("permc_spmv.cu", [(
+        "if (t != 0.f) atomicAdd(yr + hi[s] * kLanes, t);",
+        "if (t != 0.f) yr[hi[s] * kLanes] = t;")]),
+    "red_scalar": ("router_spmv.cu", [(
+        "      atomicAdd(y4 + i, t);",
+        "      {\n        float* q = yr + 4 * i;\n"
+        "        if (t.x != 0.f) atomicAdd(q, t.x);\n"
+        "        if (t.y != 0.f) atomicAdd(q + 1, t.y);\n"
+        "        if (t.z != 0.f) atomicAdd(q + 2, t.z);\n"
+        "        if (t.w != 0.f) atomicAdd(q + 3, t.w);\n      }")]),
+    "red_all": ("router_spmv.cu", [("if (sole)", "if (false && sole)")]),
+
     "k4_no_gather": ("planar_spmv.cu", [(
         "xv[k] = __ldg(x + col[k] + static_cast<int>(w[k] & mask));",
         "xv[k] = 1.0f;")]),
@@ -143,17 +177,19 @@ ABLATIONS = {
 
 
 ABLATION_ROWS = {"k1_": ("planar", "router"), "k8_": ("tropical",),
-                 "k4_": ("scatter",)}
+                 "k4_": ("scatter",), "old": ("reduce",),
+                 "red": ("reduce",)}
 
 
-def ablation_tree(name: str):
-    """This tree's package copied under _archive_check/ablate_<name>/ with
-    ABLATIONS[name] applied to its source, loaded as its own package."""
+def ablation_tree(name: str, base: Path = ROOT):
+    """The package of the tree at `base` (this tree's by default) copied
+    under _archive_check/ablate_<name>/ with ABLATIONS[name] applied to its
+    source, loaded as its own package."""
     root = ROOT / "_archive_check" / f"ablate_{name}"
     if root.exists():
         shutil.rmtree(root)
     pkg = root / "graphlily_tpu_torch"
-    shutil.copytree(ROOT / "graphlily_tpu_torch", pkg,
+    shutil.copytree(base / "graphlily_tpu_torch", pkg,
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     source, edits = ABLATIONS[name]
     src = pkg / "csrc" / source
@@ -221,7 +257,7 @@ def capture_layouts(scale: float, kernels) -> dict:
             m.set_semiring(ArithmeticSemiring)
             m.load_and_format_matrix(gs)
             out["gp_muladd"] = got[-1]
-        if "router" in kernels:
+        if {"router", "reduce"} & set(kernels):
             pr = PageRank(EngineConfig(
                 sort_rows_by_degree=True,
                 engine="auto" if scale >= 1 else "router"))
@@ -232,8 +268,8 @@ def capture_layouts(scale: float, kernels) -> dict:
             out["roll"] = got[-1]
             out["roll_csr"] = pr.SpMV_.csr_matrix_
         log(f"googleplus layouts: {time.perf_counter() - t0:.1f} s")
-        if not {"planar", "tropical", "scatter", "tile", "walk"} & set(
-                kernels):
+        if not {"planar", "tropical", "scatter", "tile", "walk",
+                "reduce"} & set(kernels):
             return out
         p = iccad_standin("pokec", scale=scale, seed=0)
         if {"tropical", "scatter", "walk"} & set(kernels):
@@ -246,7 +282,7 @@ def capture_layouts(scale: float, kernels) -> dict:
                                      f"{sp.SpMV_.engine_name!r}")
             out["tropical"] = got[-1]
             log(f"pokec tropical layout: {time.perf_counter() - t0:.1f} s")
-        if not {"planar", "scatter", "tile"} & set(kernels):
+        if not {"planar", "scatter", "tile", "reduce"} & set(kernels):
             return out
         t0 = time.perf_counter()
         pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine=engine))
@@ -301,7 +337,7 @@ def main(argv=None) -> int:
     ap.add_argument("--entries", type=int, nargs="*", default=[])
     ap.add_argument("--kernels", nargs="+", default=KERNELS, choices=KERNELS)
     ap.add_argument("--ablations", action="store_true",
-                    help="add K1's ablation trees (ABLATIONS) to its rows")
+                    help="add the ablation trees (ABLATIONS) to their rows")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -318,7 +354,9 @@ def main(argv=None) -> int:
     for i, path in enumerate(args.variant):
         others[path.name] = load_package(path.resolve(), f"glt_variant{i}")
     trees = {**others, "new": new}
-    ablated = ({name: ablation_tree(name) for name in ABLATIONS
+    ablated = ({name: ablation_tree(name, args.parent.resolve()
+                                    if name.startswith("old_") else ROOT)
+                for name in ABLATIONS
                 if set(ABLATION_ROWS[name[:3]]) & set(args.kernels)}
                if args.ablations else {})
     for pkg in (*trees.values(), *ablated.values()):
@@ -745,10 +783,83 @@ def main(argv=None) -> int:
            lambda e: e.window_reduce(g2), True)
         del engs, eng, p, g2
 
+    def turns(label, fns, extra=None):
+        """`fns` (name -> callable) timed in turns, forward then reversed,
+        unchecked: the ablations of the parent's kernels."""
+        ms = {k: [] for k in fns}
+        for k in [*fns, *reversed(list(fns))]:
+            ms[k].append(time_ms(torch, fns[k]))
+        rows.append({"row": label, **{f"{k}_ms": v for k, v in ms.items()},
+                     **(extra or {})})
+        log(f"{label}: " + ", ".join(
+            f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms"
+            for k, v in ms.items()) + f" ({card})")
+
+    def reduce():
+        """Phase C: K3 on the googleplus roll stream and pokec's "free"
+        stream, K11 on pokec BFS's PERM-C layout (MULADD): the parent's
+        kernels with their atomics as stores, old against new with the
+        group sizes and flush variants, and the split engine call."""
+        import copy
+        red = new.ops.router.reduce_groups
+
+        def facts(e):
+            g = e.groups.groups
+            t0 = time.perf_counter()
+            red(e.arrays.c_code)
+            torch.cuda.synchronize()
+            return {"groups": g.shape[0], "sole_groups": int(g[:, 3].sum()),
+                    "chunks": e.groups.order.numel(),
+                    "region_rows": e.region_rows,
+                    "regions": e.num_regions,
+                    "table_MB": e.groups.nbytes() / 1e6,
+                    "table_s": time.perf_counter() - t0}
+
+        xmul = lambda n: torch.from_numpy(np.random.default_rng(9).random(
+            n).astype(np.float32)).to("cuda")
+        for key, cls, label, old_abl in (
+                ("roll", "RouterSpMV", "K3 (googleplus roll)",
+                 "old_k3_stores"),
+                ("free", "PlanarSpMV", "K3 (pokec free)", "old_k3_stores"),
+                ("permc", "PlanarSpMV", "K11 (pokec PERM-C)",
+                 "old_k11_stores")):
+            engs = engines(cls, lays[key], "ArithmeticSemiring")
+            eng = engs["new"]
+            x = xmul(eng.num_cols)
+            stream = eng.scatter(x)
+            log(f"{label} table: {facts(eng)}")
+            if old_abl in ablated:
+                pkg = ablated[old_abl]
+                v = getattr(pkg.ops, cls)(lays[key], pkg.ArithmeticSemiring,
+                                          pkg.EngineConfig(device="cuda"))
+                turns(f"{label} old kernel, atomics as stores",
+                      {"old": lambda: engs["old"].reduce(stream),
+                       "old, stores": lambda v=v: v.reduce(stream)})
+                del v
+            more = {}
+            for n in (4, 8, 16, 32, 64, 128):
+                if n == new.ops.router.REDUCE_GROUP_CHUNKS:
+                    continue
+                v = copy.copy(eng)
+                v.groups = red(eng.arrays.c_code, n)
+                log(f"  groups of {n}: {v.groups.groups.shape[0]} groups, "
+                    f"{int(v.groups.groups[:, 3].sum())} sole")
+                more[f"groups of {n}"] = lambda v=v: v.reduce(stream)
+            for abl, pkg in ablated.items():
+                if abl.startswith("red_"):
+                    v = getattr(pkg.ops, cls)(lays[key],
+                                              pkg.ArithmeticSemiring,
+                                              pkg.EngineConfig(device="cuda"))
+                    more[abl] = lambda v=v: v.reduce(stream)
+            ab(label, engs, lambda e: e.reduce(stream), False, facts, more)
+            ab(f"split engine call, scatter -> {label}", engs,
+               lambda e: e.reduce(e.scatter(x)), False)
+            del engs, eng, more, stream
+
     for name in args.kernels:
         {"chunked": chunked, "planar": planar, "router": router,
          "tropical": tropical, "scatter": scatter, "tile": tile,
-         "walk": walk}[name]()
+         "walk": walk, "reduce": reduce}[name]()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "ab_kernels.json").write_text(json.dumps(

@@ -33,7 +33,8 @@ calls, and checks every result against the float64 oracles:
   * BFS pull, push and pull_push on the full pokec stand-in and PageRank
     on a quarter of it with planar_deal="permc" (PERM-C layouts, packed
     by the C++ greedy): K4 fused over the same form, K4p fused on PERM-C
-    rows, K4 scatter -> K11 and K4p scatter -> K11p.
+    rows, K4 scatter -> K11 (K3's kernel over the position-keyed rows)
+    and K4p scatter -> K11p.
 
 Phases, one or more lines each:
 
@@ -43,13 +44,22 @@ Phases, one or more lines each:
                the router layout, MULADD and ANDOR, each held against
                SpMVModule.compute_reference_results; K2's flush stream
                must equal its plain version bit for bit, and ANDOR K1
-               both its plain walk of the derived form and K2 -> K3's;
-               the form's init seconds, elements and MB
+               both its plain walk of the derived form and K2 -> K3's,
+               ANDOR K3 its plain version; the form's init seconds,
+               elements and MB; K3's region-group table (groups, sole
+               groups, chunks, MB, seconds to derive)
   4. pagerank  googleplus PageRank.pull(0.9, 10): engine roll, fused
   5. bfs       googleplus BFS.pull(0, 7), fused and split (K2 -> K3)
   6. times     googleplus, CUDA events, min over 5 reps of a 100-call
                loop: kernels and plain versions (ms, GTEPS), PageRank
-               ms/iter, BFS pull ms
+               ms/iter, BFS pull ms; then, counted on the host from the
+               table and the tiles' occupancy, the global reductions K3
+               issues (vector reductions and sole groups' quad stores)
+               against the float atomics of the per-chunk kernel it
+               replaced (one per warp run of a row with a nonzero sum);
+               K3's library time: index_add_ of the flushed slots
+               (gathered) into a zeroed y through a row map built
+               beforehand from the table
   7. pokec     the graph, then PageRank and BFS formatted through
                EngineConfig(sort_rows_by_degree=True) (engine "auto" ->
                planar, deal "free"), layout facts and pack seconds, the
@@ -69,9 +79,13 @@ Phases, one or more lines each:
                its store form's walk; K5's x2 bit-equal to its plain
                version; bucket K4 scatter (no K5) bit-equal to K5 -> K4
                scatter's plain versions, bucket ANDOR K4 fused to its
-               plain versions
-  10. times    pokec, as phase 6, plus the planar engine call fused and
-               split
+               plain versions, bucket ANDOR K3 on that stream to its
+               plain version and, clamped, to the oracle; ANDOR K3 on
+               the free stream bit-equal to its plain version
+  10. times    pokec, as phase 6 (K3 on the free deal's MULADD stream, its
+               table, its global reductions and its library index_add_),
+               plus the planar engine
+               call fused and split
   11. sssp     googleplus SSSP(EngineConfig(sort_rows_by_degree=True)):
                engine "auto" -> chunked; layout facts and load seconds,
                the padding-free device form (init seconds, entries,
@@ -141,10 +155,14 @@ Phases, one or more lines each:
                MULADD engine on BFS's layout: K4 fused PERM-C and K4
                scatter -> K11 against their plain versions and the
                float64 oracle; ANDOR K11 and K4 fused bit-equal to plain;
-               K11p and K4p fused PERM-C at empty, 1-vertex and 5%
-               frontiers bit-equal to plain and unpredicated, MULADD at 5%
+               K11's region-group table; K11p and K4p fused PERM-C at
+               empty, 1-vertex and 5% frontiers bit-equal to plain and
+               unpredicated, MULADD at 5%
   22. times    K11, K11p, K4 fused and K4p fused PERM-C against their plain
-               versions and bounds; torch.mv on BFS's matrix; the PERM-C
+               versions and bounds; K11's global reductions against the
+               per-chunk kernel's atomics (one per chunk, lane and row
+               with a nonzero sum); K11's library index_add_, as phase
+               6's; torch.mv on BFS's matrix; the PERM-C
                engine call fused and split against the free deal's fused
                call (phase 10's engine); BFS pull, push and pull_push ms,
                PageRank ms/iter
@@ -243,7 +261,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
         ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
     # PERM-C: the split branch's run-sum reduce and its predicated launch
     # (sm/na), and K4 fused's PERM-C instance (permc=True, with beg)
-    "K11_permc_reduce": (PERMC_SRC, "graphlily_tpu/ops/router_pallas.py:851"),
+    # K11 runs K3's kernel over the PERM-C layout's position-keyed rows
+    "K11_permc_reduce": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:851"),
     "K11p_permc_reduce_pred": (PERMC_SRC,
                                "graphlily_tpu/ops/router_pallas.py:851"),
     "K4_planar_fused_permc": (ROUTER_SRC,
@@ -397,6 +416,62 @@ def router_bounds(eng, act=None) -> dict:
     }
 
 
+def group_facts(eng) -> str:
+    """Phase C's region-group table (ops/router.reduce_groups) for the
+    log: groups, sole groups, flushed chunks, MB and the seconds to derive
+    it again on the card."""
+    import torch
+    from graphlily_tpu_torch.ops.router import reduce_groups
+    t0 = time.perf_counter()
+    reduce_groups(eng.arrays.c_code)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    g = eng.groups.groups
+    return (f"region-group table: {g.shape[0]} groups ({int(g[:, 3].sum())}"
+            f" sole) of at most {int(g[:, 1].max()) if g.numel() else 0} of "
+            f"{eng.groups.order.numel()} flushed chunks, "
+            f"{eng.groups.nbytes() / 1e6:.3f} MB, derived in {secs:.4f} s; "
+            f"region_rows {eng.region_rows}, {eng.num_regions} regions")
+
+
+def reduce_reductions(torch, eng, stream) -> str:
+    """The global reductions phase C issues on `stream`, counted on the
+    host from the engine's region-group table and its tiles' occupancy
+    (rows c_hi*128 + c_lo, position-keyed on PERM-C): K3 and K11 (K3's
+    kernel) reach y once per quad of rows a group's tile holds nonzero,
+    by a vector reduction or, in a region's only group, a store (at most:
+    a quad whose terms cancel is skipped too); the per-chunk kernels they
+    replaced issued one float atomic per warp run of a row with a nonzero
+    sum (K3) or per chunk, lane and row with a nonzero run sum (K11)."""
+    g = eng.groups.groups.long()
+    order = eng.groups.order.long()
+    rr, dev = eng.region_rows, order.device
+    slots = torch.arange(1024, device=dev)
+    pos = (order[:, None] * 1024 + slots).reshape(-1)
+    rows = eng.arrays.c_hi[pos].long() * 128 + eng.arrays.c_lo[pos].long()
+    vals = stream.reshape(-1)[pos]
+    gid = torch.repeat_interleave(torch.arange(g.shape[0], device=dev),
+                                  g[:, 1] * 1024, output_size=pos.numel())
+    keep = vals != 0
+    quads = torch.unique(gid[keep] * (rr // 4) + rows[keep] // 4)
+    sole = g[quads // (rr // 4), 3] == 1
+    if getattr(eng, "permc", False):
+        chunk = pos // 1024
+        key = torch.unique(chunk[keep] * rr + rows[keep])
+        old, what = key.numel(), "per (chunk, lane, row) run sum"
+    else:
+        head = torch.ones_like(keep)
+        head[1:] = (rows[1:] != rows[:-1]) | (pos[1:] % 32 == 0)
+        run = torch.cumsum(head.long(), 0) - 1
+        sums = torch.zeros(int(run[-1]) + 1 if run.numel() else 0,
+                           device=dev).index_add_(0, run, vals)
+        old, what = int((sums != 0).sum()), "per warp run"
+    return (f"global reductions: {int((~sole).sum())} vector reductions + "
+            f"{int(sole.sum())} quad stores against the per-chunk kernel's "
+            f"{old} float atomics ({what}) on {int(keep.sum())} nonzero "
+            f"slots")
+
+
 def mv_bound(csr) -> tuple:
     """(bytes, ops) of the MULADD SpMV y = A x as a function, the same for
     every layout, deal and derived form of one matrix: each stored entry's
@@ -421,6 +496,37 @@ def library_mv(torch, csr, xt, want: np.ndarray) -> float:
     check_close("library torch.mv", torch.mv(a, x).cpu().numpy(), want,
                 exact=False)
     return time_ms(torch, lambda: torch.mv(a, x))
+
+
+def library_reduce(torch, eng, stream) -> tuple:
+    """ms of PyTorch's own phase C on `stream`: the flushed slots gathered
+    (`index_select`) and `index_add_`ed into a zeroed y at their rows,
+    through an int64 slot map and row map built beforehand from the
+    engine's region-group table, as K3 and K11 read it (rows c_hi*128 +
+    c_lo, position-keyed on PERM-C). Checked against the plain version
+    first. Returns (the whole call, the index_add_ alone on slots
+    gathered beforehand)."""
+    order = eng.groups.order.long()
+    dev = order.device
+    pos = (order[:, None] * 1024
+           + torch.arange(1024, device=dev)).reshape(-1)
+    at = (eng.arrays.c_code.long()[order].repeat_interleave(1024)
+          * eng.region_rows + eng.arrays.c_hi[pos].long() * 128
+          + eng.arrays.c_lo[pos].long())
+    flat = stream.reshape(-1)
+    n = eng.out_len
+
+    def call():
+        return torch.zeros(n, device=dev).index_add_(
+            0, at, flat.index_select(0, pos))
+
+    check_close("library index_add_ reduce", call().cpu().numpy(),
+                eng.reduce_plain(stream).cpu().numpy().astype(np.float64),
+                exact=False)
+    src = flat.index_select(0, pos)
+    return (time_ms(torch, call),
+            time_ms(torch, lambda: torch.zeros(n, device=dev).index_add_(
+                0, at, src)))
 
 
 def main(argv=None) -> int:
@@ -545,6 +651,7 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
         if exact:
             bit_equal(torch, f"{semiring.name}: K1", y1, y1e)
             bit_equal(torch, f"{semiring.name}: K1 vs K2->K3 plain", y1, y1p)
+            bit_equal(torch, f"{semiring.name}: K3", y3, y3p)
         for label, y in (("K1", y1), ("K1 plain (form)", y1e),
                          ("K2->K3 plain", y1p), ("K3 (K2->K3)", y3),
                          ("K3 plain", y3p), ("engine call", mod.apply(xt))):
@@ -560,8 +667,8 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
             rec["K3_router_reduce"]["err"] = float((y3 - y3p).abs().max())
             spmv_eng, spmv_x, spmv_mod = eng, xt, mod
         log(f"phase 3 {semiring.name}: K2 stream bit-equal to plain"
-            f"{'; K1 bit-equal to both plain versions' if exact else ''}; "
-            f"{router_forms(eng)}; ok")
+            f"{'; K1 bit-equal to both plain versions, K3 to its' if exact else ''}; "
+            f"{router_forms(eng)}; K3 {group_facts(eng)}; ok")
 
     # ---- 4-5. main path: PageRank and BFS through the public API ----------
     # the auto ladder picks the roll router at full size (nnz >= 2M); a
@@ -622,6 +729,8 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
     split_ms = time_ms(torch, lambda: eng.reduce(eng.scatter(xt)))
     for name, (nbytes, nops) in zip(timed, router_bounds(eng).values()):
         set_bound(rec[name], nbytes, nops)
+    nbytes, nops = router_bounds(eng)["reduce"]
+    set_bound(rec["K3_router_reduce"], nbytes + eng.groups.nbytes(), nops)
     set_bound(rec["K1_router_fused"], *mv_bound(gs))
     rec["K1_router_fused"]["library_ms"] = library_mv(
         torch, gs, xt, spmv_mod.compute_reference_results(xt.cpu().numpy()))
@@ -640,6 +749,13 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
         f"({gteps(nnz, split_ms)})")
     log(f"phase 6 pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
         f"{bfs_ms:.4f} ms; card {card}")
+    log(f"phase 6 K3 on the googleplus MULADD stream: "
+        f"{reduce_reductions(torch, eng, stream)}")
+    lib_ms, add_ms = library_reduce(torch, eng, stream)
+    rec["K3_router_reduce"]["library_ms"] = lib_ms
+    log(f"phase 6 library index_add_ (gather + index_add_ into a zeroed y) "
+        f"on the same K3 stream: {lib_ms:.4f} ms, index_add_ alone "
+        f"{add_ms:.4f} ms; K3 {rec['K3_router_reduce']['ms']:.4f} ms")
     return {"g": g, "gs": gs, "roll": spmv_eng, "x": spmv_x, "bfs": bfs,
             "library_ms": rec["K1_router_fused"]["library_ms"]}
 
@@ -769,6 +885,7 @@ def pokec(torch, args, rec: dict, card: str) -> None:
             bit_equal(torch, f"pokec {label}: K4 fused", y4, y4e)
             bit_equal(torch, f"pokec {label}: K4 fused vs K4->K3 plain", y4,
                       y4p)
+            bit_equal(torch, f"pokec {label}: K3", y3, y3p)
         for name, y in (("K4 fused", y4), ("K4 fused plain (form)", y4e),
                         ("K4->K3 plain", y4p), ("K3 (K4->K3)", y3),
                         ("K3 plain", y3p)):
@@ -805,9 +922,19 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     for name, yp in (("walk", bfsb_eng.fused_entries_plain(xbb)),
                      ("K4 scatter -> K3", bfsb_eng.fused_plain(xbb))):
         bit_equal(torch, f"pokec bucket ANDOR K4 fused ({name})", yb, yp)
+    sbb = bfsb_eng.scatter(xbb)
+    y3b, y3bp = bfsb_eng.reduce(sbb), bfsb_eng.reduce_plain(sbb)
+    torch.cuda.synchronize()
+    bit_equal(torch, "pokec bucket ANDOR K3", y3b, y3bp)
+    check_close("pokec bucket ANDOR K3 (K4 scatter -> K3)",
+                (y3b != 0).cpu().numpy().astype(np.float64),
+                bfsb.SpMV_.compute_reference_results(xbb.cpu().numpy()),
+                exact=True)
     log("phase 9 bucket: K5 x2 bit-equal to plain; K4 scatter and ANDOR K4 "
         "fused (x columns resolved at init, no K5) bit-equal to their "
-        "forms' walks and to K5 -> K4 scatter (-> K3)'s plain versions ok")
+        "forms' walks and to K5 -> K4 scatter (-> K3)'s plain versions; "
+        "ANDOR K3 on the bucket stream bit-equal to its plain version and, "
+        f"clamped, to the oracle; K3 {group_facts(bfsb_eng)} ok")
 
     # ---- 10. times ----------------------------------------------------------
     eng, xt = pr_eng, spmv_x
@@ -829,7 +956,8 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     set_bound(rec["K5_planar_xperm"],
               bfsb_eng.num_col_tiles * 8 * 1024 + 8 * bfsb_eng.num_cols, 0)
     log(f"phase 10 pokec K3 bound on the planar stream: "
-        f"{bounds['reduce'][0] / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        f"{(bounds['reduce'][0] + eng.groups.nbytes()) / HBM_BYTES_PER_S * 1e3:.4f}"
+        f" ms; K3 {group_facts(eng)}")
     for name, (kernel, plain) in timed.items():
         ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
         if name != "K3_router_reduce":   # K3's entry keeps googleplus' times
@@ -860,6 +988,12 @@ def pokec(torch, args, rec: dict, card: str) -> None:
         f"MULADD SpMV: {rec['K4_planar_fused']['library_ms']:.4f} ms")
     log(f"phase 10 pokec pagerank: {pr_ms:.4f} ms/iter; bfs pull({iters}): "
         f"{bfs_ms:.4f} ms; card {card}")
+    log(f"phase 10 K3 on the pokec free MULADD stream: "
+        f"{reduce_reductions(torch, eng, stream)}")
+    lib_ms, add_ms = library_reduce(torch, eng, stream)
+    log(f"phase 10 pokec library index_add_ (gather + index_add_ into a "
+        f"zeroed y) on the same K3 stream: {lib_ms:.4f} ms, index_add_ "
+        f"alone {add_ms:.4f} ms")
     return {"g": g, "gb": gb, "bfs": bfs, "bfsb": bfsb, "pr": pr,
             "x": spmv_x}
 
@@ -1712,13 +1846,20 @@ def muladd_oracle(csr, x: np.ndarray) -> np.ndarray:
 
 
 def permc_bounds(eng, act=None) -> dict:
-    """(bytes, ops) of K11 or K11p and of K4 fused on a PERM-C layout. K11
-    reads, per live flushed chunk, its 4 KB of stream, its 3 KB of int8
-    destination-lane keys and its code, writes y once, and adds each
-    element of the live chunks once; K4p fused is router_bounds' count
-    (K4 fused's is mv_bound's)."""
+    """(bytes, ops) of K11 or K11p and of K4 fused on a PERM-C layout.
+    K11p reads, per live flushed chunk, its 4 KB of stream, its 3 KB of
+    int8 destination-lane keys and its code, writes y once, and adds each
+    element of the live chunks once; K11, K3's kernel, reads K3's bytes
+    (router_bounds: 2 B of position-keyed rows a slot) and the
+    region-group table; K4p fused is router_bounds' count (K4 fused's is
+    mv_bound's)."""
     t = router_traffic(eng, act)
-    return {"reduce": (t["live"] * (7 * 1024 + 4) + t["y"], t["elems"]),
+    if act is None:
+        nbytes, nops = router_bounds(eng)["reduce"]
+        reduce = (nbytes + eng.groups.nbytes(), nops)
+    else:
+        reduce = (t["live"] * (7 * 1024 + 4) + t["y"], t["elems"])
+    return {"reduce": reduce,
             "fused": router_bounds(eng, act)["fused"]}
 
 
@@ -1789,7 +1930,8 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
                         EngineConfig(device="cuda"))
     del layouts[:]
     log(f"phase 21 MULADD engine on the same layout: init "
-        f"{time.perf_counter() - t0:.1f} s; {planar_form(muladd)}")
+        f"{time.perf_counter() - t0:.1f} s; {planar_form(muladd)}; K11 "
+        f"{group_facts(muladd)}")
     t0 = time.perf_counter()
     pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine="planar",
                                planar_deal="permc"))
@@ -1959,6 +2101,13 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
         log(f"phase 22 {name}: {r['ms']:.4f} ms ({gteps(muladd.nnz, r['ms'])})"
             f" plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}, {nbytes / 1e6:.1f} MB)")
+    log(f"phase 22 K11 on the PERM-C MULADD stream: "
+        f"{reduce_reductions(torch, muladd, s)}")
+    lib_ms, add_ms = library_reduce(torch, muladd, s)
+    rec["K11_permc_reduce"]["library_ms"] = lib_ms
+    log(f"phase 22 library index_add_ (gather + index_add_ into a zeroed y) "
+        f"on the same K11 stream: {lib_ms:.4f} ms, index_add_ alone "
+        f"{add_ms:.4f} ms")
     rec["K4_planar_fused_permc"]["library_ms"] = library_mv(
         torch, bfs.SpMV_.csr_matrix_, xt, muladd_oracle(
             bfs.SpMV_.csr_matrix_, x))

@@ -33,10 +33,12 @@
 // independent copy, deposits never overlap (a slot cycle's runs are
 // disjoint), so K2 needs no atomics and no state across blocks; K1 and K3
 // add into y with float atomics, whose order changes from run to run
-// (ANDOR adds 0/1 counts, so it stays exact). Before its atomics K3 sums
-// each warp's runs of equal rows (warp_add_rows), K1 each thread's and then
-// each warp's. K1 reads a device form derived from these arrays at engine
-// init (below), in which every deposit's elements already carry their row.
+// (ANDOR adds 0/1 counts, so it stays exact). K1 sums each thread's runs
+// of equal rows and then each warp's before its atomics; K3 sums a group
+// of one region's flushed chunks in a shared tile first (below), and K3p
+// each warp's runs (warp_add_rows). K1 reads a device form derived from
+// these arrays at engine init (below), in which every deposit's elements
+// already carry their row; K3 reads the region-group table derived there.
 //
 // Predication (kPred). x is zero outside the frontier, so a deposit whose
 // A-chunk lies on an inactive 128-column page gathers only zero products.
@@ -148,21 +150,176 @@ __global__ void __launch_bounds__(kThreads) router_scatter_kernel(
 // K3 reduce. Replaces _router_reduce_call / _make_reduce_kernel with its
 // one-hot placement _onehot_place (router_pallas.py:756, :690, :88): each
 // flushed element is added into its row. There is no one-hot product on
-// Hopper: the add goes straight to y.
-// Bound on the H100: the float atomics on y, which stay in L2 (y is at
-// most 12 MB on every ICCAD graph), then the stream read (4 B per stream
-// slot plus 2 B of int8 hi/lo).
-// Design: one block per flushed chunk, coalesced reads; each warp sums
-// runs of equal rows before its atomics (warp_add_rows); a zero sum issues
-// no atomic, which changes no value.
-template <bool kPred>
-__global__ void __launch_bounds__(kThreads) router_reduce_kernel(
+// Hopper: the sum is taken in shared memory. The same kernel is K11, the
+// PERM-C reduce (_permc_reduce_call, router_pallas.py:851 -> :864), over
+// the position-keyed rows the planar engine derives from the layout's
+// destination-lane keys at init (io/permc_format.permc_stream_rows): it
+// beat K11's own redesign, a thread per destination lane summing its runs,
+// which read 3 B of keys a slot where this reads 2 (PERF.md §6).
+// Bound on the H100: the stream read, 4 B a slot of every flushed chunk
+// plus 2 B of int8 hi/lo, and y written once. The per-chunk kernel it
+// replaced (one global atomic per warp run of equal rows) issued 20.7M
+// float atomics for the pokec stand-in's 30.6M stream elements and read
+// at 0.65 TB/s; its atomics as plain stores ran slower still, so the
+// scattered y updates, not the atomics' rate, held it (PERF.md §6).
+// This one issues about a fifth as many global reductions there, a
+// vector reduction or store per nonzero quad of a group's tile.
+// Design: one block per group of the region-group table
+// (ops/router.reduce_groups): a dynamic shared tile of the region's rows is
+// zeroed, then the block walks its chunks, a chunk a pass, 4 consecutive
+// slots a thread with 16-byte stream loads and 4-byte hi and lo loads, the
+// next chunk's loads issued before this one is summed.
+// Runs of equal rows are summed in registers and across the warp
+// (tile_add_runs) and added into the tile with one shared atomic a run.
+// Then the tile reaches y once per nonzero quad (tile_flush): plain stores
+// for a region's only group, else one vector reduction. ANDOR adds 0/1
+// counts and stays exact; MULADD's tile sums and the vector reductions of
+// a region's groups land in any order. The block walks its chunks in
+// sequence: smaller groups (more blocks) ran faster, down to 8 chunks,
+// and two chunks a pass no faster than one (PERF.md §6).
+constexpr int kReduceThreads = 256;
+constexpr int kSlots = 4;          // consecutive slots a thread: a chunk a pass
+static_assert(kReduceThreads * kSlots == kChunk, "a chunk a pass");
+// Rows of a region: c_hi is one byte (at most 128 x 128 rows, 64 KB of
+// tile), and a multiple of 128, so quads of rows never straddle regions.
+constexpr int kMaxRegionRows = 16384;
+
+// Zero `rows` floats (a multiple of 4) of the tile with 16-byte stores.
+__device__ __forceinline__ void tile_zero(float* tile, int rows) {
+  float4* t4 = reinterpret_cast<float4*>(tile);
+  for (int i = threadIdx.x; i < rows / 4; i += blockDim.x)
+    t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// After a __syncthreads: the tile into its region of y, a quad of rows a
+// thread at a time. The region's only group (`sole`) stores its quads:
+// the caller zeroed y and no other block writes the region, so y needs no
+// atomic and comes out the same on every run. Otherwise each quad goes to
+// y with one vector reduction (atomicAdd on a float4, red.global.add.v4.f32,
+// sm_90). An all-zero quad changes nothing and is skipped. The tile holds
+// only sums of nonzero run totals, so no -0.f reaches y (the plain
+// versions' index_add_ into zeros gives +0.f there too).
+__device__ __forceinline__ void tile_flush(const float* tile,
+                                           float* __restrict__ yr, int rows,
+                                           bool sole) {
+  const float4* t4 = reinterpret_cast<const float4*>(tile);
+  float4* y4 = reinterpret_cast<float4*>(yr);
+  for (int i = threadIdx.x; i < rows / 4; i += blockDim.x) {
+    const float4 t = t4[i];
+    if (t.x == 0.f && t.y == 0.f && t.z == 0.f && t.w == 0.f) continue;
+    if (sole)
+      y4[i] = t;
+    else
+      atomicAdd(y4 + i, t);
+  }
+}
+
+// A run's total into the tile; a zero sum adds nothing.
+__device__ __forceinline__ void tile_add(float* tile, int row, float v) {
+  if (v != 0.f) atomicAdd(tile + row, v);
+}
+
+// The thread's kN (row, value) pairs, consecutive slots, into the tile
+// (K1's fold): runs of equal rows are summed in registers; the middle runs
+// go to the tile at once, the first joins the previous lane's last run
+// when their rows match, and the lanes' last runs fold across the warp
+// (warp_fold_runs), one shared atomic per run head; a warp none of whose
+// runs crosses a lane boundary skips the fold. So a hub row that
+// fills a sublane costs one shared atomic a warp, not one a slot: Hopper
+// adds floats into shared memory by a compare-and-swap loop (PERF.md), which
+// serialises on one address. All 32 lanes call it together.
+template <int kN>
+__device__ __forceinline__ void tile_add_runs(float* tile, const int (&row)[kN],
+                                              const float (&v)[kN]) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const unsigned lane = threadIdx.x & 31;
+  int first_row = -1, last_row = row[0];
+  float first_acc = 0.f, last_acc = v[0];
+  int runs = 1;
+#pragma unroll
+  for (int k = 1; k < kN; ++k) {
+    if (row[k] == last_row) {
+      last_acc += v[k];
+      continue;
+    }
+    if (runs == 1) {
+      first_row = last_row;            // held back for the previous lane
+      first_acc = last_acc;
+    } else {
+      tile_add(tile, last_row, last_acc);
+    }
+    ++runs;
+    last_row = row[k];
+    last_acc = v[k];
+  }
+  const int prev_last = __shfl_up_sync(kAll, last_row, 1);
+  // no run crosses a lane boundary (the hypersparse streams, whose rows
+  // seldom repeat): every lane adds its own runs
+  const int lead = first_row >= 0 ? first_row : last_row;
+  if (!__any_sync(kAll, lane > 0 && prev_last == lead)) {
+    if (first_row >= 0) tile_add(tile, first_row, first_acc);
+    tile_add(tile, last_row, last_acc);
+    return;
+  }
+  const int next_first = __shfl_down_sync(kAll, first_row, 1);
+  const float next_acc = __shfl_down_sync(kAll, first_acc, 1);
+  if (first_row >= 0 && !(lane > 0 && prev_last == first_row))
+    tile_add(tile, first_row, first_acc);
+  if (lane < 31 && next_first >= 0 && next_first == last_row)
+    last_acc += next_acc;
+  bool head;
+  const float sum = glt::warp_fold_runs<glt::FoldAdd>(last_row, last_acc,
+                                                      head);
+  if (head) tile_add(tile, last_row, sum);
+}
+
+// groups[b] = (first position in order, chunks, region, sole).
+__global__ void __launch_bounds__(kReduceThreads) router_reduce_kernel(
+    const int4* __restrict__ groups, const int* __restrict__ order,
+    const float* __restrict__ stream, const int8_t* __restrict__ c_hi,
+    const int8_t* __restrict__ c_lo, float* __restrict__ y,
+    int region_rows) {
+  extern __shared__ float4 tile4[];
+  float* tile = reinterpret_cast<float*>(tile4);
+  const int4 g = groups[blockIdx.x];
+  tile_zero(tile, region_rows);
+  const int p = kSlots * static_cast<int>(threadIdx.x);
+  long long at = static_cast<long long>(__ldg(order + g.x)) * kChunk + p;
+  float4 v = __ldg(reinterpret_cast<const float4*>(stream + at));
+  unsigned hi = __ldg(reinterpret_cast<const unsigned*>(c_hi + at));
+  unsigned lo = __ldg(reinterpret_cast<const unsigned*>(c_lo + at));
+  __syncthreads();
+  for (int k = 0; k < g.y; ++k) {
+    const float val[kSlots] = {v.x, v.y, v.z, v.w};
+    int row[kSlots];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j)
+      row[j] = static_cast<int>((hi >> (8 * j)) & 0xFFu) * 128
+          + static_cast<int>((lo >> (8 * j)) & 0xFFu);
+    if (k + 1 < g.y) {              // the next chunk's loads, in flight
+      at = static_cast<long long>(__ldg(order + g.x + k + 1)) * kChunk + p;
+      v = __ldg(reinterpret_cast<const float4*>(stream + at));
+      hi = __ldg(reinterpret_cast<const unsigned*>(c_hi + at));
+      lo = __ldg(reinterpret_cast<const unsigned*>(c_lo + at));
+    }
+    tile_add_runs(tile, row, val);
+  }
+  __syncthreads();
+  tile_flush(tile, y + static_cast<long long>(g.z) * region_rows,
+             region_rows, g.w != 0);
+}
+
+// K3p: K3 over the live flush chunks only, one block per chunk (the
+// predicated launch of _router_reduce_call, router_pallas.py:1962); each
+// warp sums runs of equal rows before its global atomics (warp_add_rows).
+// A dead chunk's block exits after one byte.
+__global__ void __launch_bounds__(kThreads) router_reduce_pred_kernel(
     const int* __restrict__ c_code, const float* __restrict__ stream,
     const int8_t* __restrict__ c_hi, const int8_t* __restrict__ c_lo,
     float* __restrict__ y, const uint8_t* __restrict__ live,
     int region_rows) {
   const long long s = blockIdx.x;
-  if (kPred && !live[s]) return;
+  if (!live[s]) return;
   const int code = c_code[s];
   if (code < 0) return;
   float* yr = y + static_cast<long long>(code) * region_rows;
@@ -392,13 +549,41 @@ void launch_scatter(const void* a_page, const void* a_r, const void* a_sub,
       static_cast<const uint8_t*>(act), cb, rstep, dstep);
 }
 
-template <bool kPred>
-int run_reduce(const void* c_code, const void* stream_in, const void* c_hi,
-               const void* c_lo, void* y, const void* live, int nchunks,
+// K3 (and K11) over `ngroups` groups. An empty table (no flushed chunk)
+// launches nothing and reads no pointer.
+int run_reduce(const void* groups, const void* order, const void* stream_in,
+               const void* c_hi, const void* c_lo, void* y, int ngroups,
                int region_rows, void* cuda_stream) {
+  if (ngroups < 0 || region_rows < 128 || region_rows % 128 != 0 ||
+      region_rows > kMaxRegionRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ngroups == 0) return static_cast<int>(cudaGetLastError());
+  // the tile; above the default 48 KB only after an opt-in, which holds
+  // for the current card alone (the caller makes the stream's card
+  // current), so it is made on every such launch, and its refusal is
+  // returned before the launch
+  const size_t smem = sizeof(float) * static_cast<size_t>(region_rows);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        router_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  router_reduce_kernel<<<static_cast<unsigned>(ngroups), kReduceThreads,
+                         smem, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const int4*>(groups), static_cast<const int*>(order),
+      static_cast<const float*>(stream_in), static_cast<const int8_t*>(c_hi),
+      static_cast<const int8_t*>(c_lo), static_cast<float*>(y), region_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run_reduce_pred(const void* c_code, const void* stream_in,
+                    const void* c_hi, const void* c_lo, void* y,
+                    const void* live, int nchunks, int region_rows,
+                    void* cuda_stream) {
   if (nchunks > 0) {
-    router_reduce_kernel<kPred><<<static_cast<unsigned>(nchunks), kThreads,
-                                  0, static_cast<cudaStream_t>(cuda_stream)>>>(
+    router_reduce_pred_kernel<<<static_cast<unsigned>(nchunks), kThreads, 0,
+                                static_cast<cudaStream_t>(cuda_stream)>>>(
         static_cast<const int*>(c_code), static_cast<const float*>(stream_in),
         static_cast<const int8_t*>(c_hi), static_cast<const int8_t*>(c_lo),
         static_cast<float*>(y), static_cast<const uint8_t*>(live),
@@ -497,20 +682,23 @@ extern "C" int glt_router_scatter_pred(
                            cuda_stream);
 }
 
+// K3, and K11 over a PERM-C layout's position-keyed c_hi/c_lo: groups and
+// order are the engine's region-group table (ops/router.reduce_groups,
+// (ngroups, 4) and (nlive,) int32); the stream is 16-byte aligned.
 extern "C" int glt_router_reduce(
-    const void* c_code, const void* stream_in, const void* c_hi,
-    const void* c_lo, void* y, int nchunks, int region_rows,
-    void* cuda_stream) {
-  return run_reduce<false>(c_code, stream_in, c_hi, c_lo, y, nullptr,
-                           nchunks, region_rows, cuda_stream);
+    const void* groups, const void* order, const void* stream_in,
+    const void* c_hi, const void* c_lo, void* y, int ngroups,
+    int region_rows, void* cuda_stream) {
+  return run_reduce(groups, order, stream_in, c_hi, c_lo, y, ngroups,
+                    region_rows, cuda_stream);
 }
 
 extern "C" int glt_router_reduce_pred(
     const void* c_code, const void* stream_in, const void* c_hi,
     const void* c_lo, void* y, const void* live, int nchunks,
     int region_rows, void* cuda_stream) {
-  return run_reduce<true>(c_code, stream_in, c_hi, c_lo, y, live, nchunks,
-                          region_rows, cuda_stream);
+  return run_reduce_pred(c_code, stream_in, c_hi, c_lo, y, live, nchunks,
+                         region_rows, cuda_stream);
 }
 
 // K1, K4 fused and the tropical walk: `op` is semiring.OpType, as K4

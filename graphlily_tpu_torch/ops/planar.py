@@ -13,7 +13,8 @@ elements. Kernels:
   K4 scatter  `scatter` (csrc/planar_spmv.cu): gather and store into the
               flush stream, over the engine's piece-ordered store form;
   K3 reduce   `reduce` (inherited from RouterSpMV, csrc/router_spmv.cu):
-              add the flush stream into y;
+              add the flush stream into y, a block per group of one
+              region's flushed chunks (`groups`, ops/router.reduce_groups);
   K5 xperm    `xperm` (csrc/planar_spmv.cu): x's column tiles re-laid for
               a "bucket" layout, x2; no app path launches it.
 
@@ -45,9 +46,11 @@ The first two hold the matrix's (row, column, value) triples and nothing
 of the deal: the "free", "bucket" and PERM-C layouts of one graph give
 the same arrays. The store form depends on the deal (stream slots differ
 between deals). None of the kernels needs K5. `init_seconds` times the
-forms. `__call__` is RouterSpMV's: K4 fused or K4 scatter -> K3 by the
-same fused rule (ops/router.FUSED_MAX_Y_BYTES), then the ANDOR 0/1 clamp
-and the SpMV mask, as the JAX engine does (router_pallas.py:1757-1782).
+forms and the region-group table (which the tropical pass 1, whose
+int32 stream K3 does not read, does not derive). `__call__` is RouterSpMV's: K4 fused
+or K4 scatter -> K3 by the same fused rule (ops/router.FUSED_MAX_Y_BYTES),
+then the ANDOR 0/1 clamp and the SpMV mask, as the JAX engine does
+(router_pallas.py:1757-1782).
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch
 version only when given CPU tensors: the forms' walks
 (`fused_entries_plain`, `scatter_entries_plain`), which the tests hold to
@@ -63,12 +66,14 @@ in JAX `PlanarSpMV._normalize_act`.
 PERM-C layouts (`planar_deal="permc"`, io/permc_format.py; `permc`)
 key phase C by destination lane. The engine re-keys those streams by
 stream position once at init (io/permc_format.permc_stream_rows), so the
-forms and every plain version run on them unchanged; the split branch
-reduces with K11 (`reduce`, or K11p `reduce_predicated`;
-csrc/permc_spmv.cu), which reads the destination-lane keys and sums each
-row's run of the flushed chunk. K11's plain version is K3's
-(`reduce_plain`): the same sums, added through the position-keyed rows.
-ADDMIN stays refused there, as in JAX.
+forms and every plain version run on them unchanged. The split branch
+reduces with K11 (`reduce`), which is K3's kernel and region-group table
+over those position-keyed rows (counted as `permc_reduce`; a thread per
+destination lane summing its runs lost to it, PERF.md §6), or with K11p
+(`reduce_predicated`, csrc/permc_spmv.cu), which reads the
+destination-lane keys and sums each row's run of a live flushed chunk.
+Their plain version is K3's (`reduce_plain`): the same sums, added
+through the position-keyed rows. ADDMIN stays refused there, as in JAX.
 
 TPU-only parts of the JAX engine are not carried over: the two
 accumulator banks, the looped/unrolled split, the guard batching, the
@@ -89,8 +94,8 @@ from ..io.permc_format import permc_stream_rows
 from ..io.router_format import CHUNK, deposit_targets
 from ..semiring import Semiring, MaskType
 from . import _build
-from .router import (RouterEntries, RouterSpMV, resolved_index,
-                     router_entries)
+from .router import (RouterEntries, RouterSpMV, reduce_groups,
+                     resolved_index, router_entries)
 
 
 # K4 fused's column windows: its form's segments cover 2**col_bits columns
@@ -128,7 +133,7 @@ class PlanarArrays:
     c_lo: torch.Tensor           # (nsteps*f*1024,) int8, by stream position
     xperm: torch.Tensor | None   # (ntiles*8*8*128,) int8; "bucket" only
     # PERM-C only, (nsteps*f*1024,) int8 keyed by destination lane: the
-    # layout's c_hi, c_end and c_beg, which K11 reads
+    # layout's c_hi, c_end and c_beg, which K11p reads
     c_hi_dest: torch.Tensor | None = None
     c_end: torch.Tensor | None = None
     c_beg: torch.Tensor | None = None
@@ -197,6 +202,8 @@ class PlanarSpMV(RouterSpMV):
             col_bits_no_values=min(FORM_COL_BITS_NO_VALUES, cap), index=idx)
         self.pred_entries = router_entries(            # K4p fused's
             self, "row", col_bits=TILE_COL_BITS, values=None, index=idx)
+        self.groups = (None if self.TROPICAL       # K3's, K11's
+                       else reduce_groups(self.arrays.c_code))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.perf_counter() - t0   # the derived forms
@@ -265,48 +272,34 @@ class PlanarSpMV(RouterSpMV):
         return out.view(self.nsteps, self.f, S, L)
 
     # ---- K11 and K11p: PERM-C phase C ---------------------------------------------
-    def reduce(self, stream: torch.Tensor,
-               arrays: PlanarArrays | None = None) -> torch.Tensor:
-        """Phase C of the split branch: K3, or K11 on a PERM-C layout.
-        (nregions*region_rows,) rows."""
-        if not self.permc:
-            return super().reduce(stream, arrays)
-        return self._permc_reduce(stream, None, arrays)
+    @property
+    def _reduce_key(self) -> str:
+        """K11 is K3's kernel over a PERM-C layout's position-keyed rows,
+        counted apart."""
+        return "permc_reduce" if self.permc else "reduce"
 
     def reduce_predicated(self, stream: torch.Tensor, live: torch.Tensor,
                           arrays: PlanarArrays | None = None) -> torch.Tensor:
-        """Phase C over the live flush chunks only: K3p, or K11p on a
-        PERM-C layout."""
+        """Phase C over the live flush chunks only: K3p, or on a PERM-C
+        layout K11p (a block per live flushed chunk): each chunk's row
+        runs, read through the destination-lane keys, added into y."""
         if not self.permc:
             return super().reduce_predicated(stream, live, arrays)
-        return self._permc_reduce(stream, live, arrays)
-
-    def _permc_reduce(self, stream: torch.Tensor, live: torch.Tensor | None,
-                      arrays: PlanarArrays | None) -> torch.Tensor:
-        """K11, or K11p with `live`: each flushed chunk's row runs, read
-        through the destination-lane keys, added into y."""
         a = self.arrays if arrays is None else arrays
         stream = stream.reshape(-1)
         nchunks = self.nsteps * self.f
         if not self._check(stream, nchunks * CHUNK, "stream"):
             return self.reduce_plain(stream, a, live)
+        self._check_flags(live, nchunks, "live")
         y = torch.zeros(self.out_len, dtype=torch.float32,
                         device=stream.device)
         ptrs = [t.data_ptr() for t in (a.c_code, stream, a.c_hi_dest,
-                                       a.c_end, a.c_beg, y)]
-        cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
-        if live is None:
-            key = "permc_reduce"
-            rc = _build.library().glt_permc_reduce(
-                *ptrs, nchunks, self.region_rows, cuda_stream)
-        else:
-            self._check_flags(live, nchunks, "live")
-            key = "permc_reduce_pred"
-            rc = _build.library().glt_permc_reduce_pred(
-                *ptrs, live.data_ptr(), nchunks, self.region_rows,
-                cuda_stream)
-        self._raise_on(rc, f"glt_{key}")
-        self.launches[key] += 1
+                                       a.c_end, a.c_beg, y, live)]
+        rc = _build.library().glt_permc_reduce_pred(
+            *ptrs, nchunks, self.region_rows,
+            torch.cuda.current_stream(stream.device).cuda_stream)
+        self._raise_on(rc, "glt_permc_reduce_pred")
+        self.launches["permc_reduce_pred"] += 1
         return y
 
     # ---- SpMSpV: tile activity, K4p ---------------------------------------------

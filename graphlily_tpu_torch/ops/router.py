@@ -32,13 +32,22 @@ page's deposits are skipped unread. `init_seconds` times both. Their CPU
 path (`fused_entries_plain`) walks the forms; `fused_plain` (K2's plain
 version, then K3's) stays the reference they are held to.
 
+K3 runs one block per group of the region-group table `groups`, derived
+at init too (`reduce_groups`: the flushed chunks sorted by region, cut
+into groups of at most REDUCE_GROUP_CHUNKS chunks of one region): each
+block sums its chunks in a shared tile of the region's rows and reaches y
+once per quad of rows. Its CPU path is `reduce_plain` (index_add_
+through `plain_index`). K3 and K1 read only what the engine derived from
+its own arrays: another engine's `arrays` raise.
+
 SpMSpV (`call_predicated`, JAX `__call__(tiles_active=, fidx=)`) runs the
 frontier-predicated forms K1p, K2p -> K3p (`*_predicated`, counted as
 `fused_pred`, `scatter_pred`, `reduce_pred`). Activity is per 128-column
 page (`activity`; a roll A-chunk holds one page). A deposit whose chunk's
 page is inactive gathers only zeros and is skipped; K3p skips the flush
 chunks that no live deposit targets (`live_chunks`, scattered on the
-device from the deposit targets). That is the keep-set of JAX
+device from the deposit targets), a block per chunk. That is the
+keep-set of JAX
 `_predicate_rg` and `_predicate_exact` without the host flush index: every
 deposit already knows its flush chunk. Nothing is read back to the host.
 Their plain versions are the plain versions above with the plain index
@@ -84,6 +93,16 @@ PAGE_COL_BITS = 10   # column within a 1024-column page
 # segment records (12 B each) stays at 12 KB on forms of tiny segments
 # (a hub-free region's (region, tile) windows) and does not cap occupancy.
 BLOCK_SEGMENTS = 1024
+# Phase C's grid (K3, K11): flushed chunks of one region a block sums in
+# its shared tile of the region's rows before anything reaches y
+# (`reduce_groups`). A block walks its chunks in sequence, so smaller
+# groups (more blocks in flight) ran faster, down to 8, against the tile's
+# zero and flush per group. 8 is a stand-in: it was timed only on forced
+# split runs of the pokec and googleplus stand-ins (ab_kernels.py
+# --kernels reduce, PERF.md §6; googleplus ran 5% faster at 4), which the
+# engine serves fused. It waits for a graph whose y outgrows
+# FUSED_MAX_Y_BYTES, the split branch's own traffic.
+REDUCE_GROUP_CHUNKS = 8
 
 
 @dataclasses.dataclass
@@ -266,6 +285,53 @@ def stream_tails(dst: torch.Tensor, nchunks: int) -> torch.Tensor | None:
     return count.to(torch.uint8)
 
 
+@dataclasses.dataclass
+class ReduceGroups:
+    """Phase C's grid (`reduce_groups`): the flushed chunks by region, cut
+    into groups of at most REDUCE_GROUP_CHUNKS chunks of one region."""
+
+    order: torch.Tensor    # (nlive,) int32: flushed chunks, by region
+    groups: torch.Tensor   # (ngroups, 4) int32: first position in order,
+                           # chunks, region, 1 where it is the region's
+                           # only group
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.order, self.groups))
+
+
+def reduce_groups(c_code: torch.Tensor,
+                  group_chunks: int | None = None) -> ReduceGroups:
+    """The region-group table of a flush stream whose chunk codes are
+    `c_code` (region, or -1 where the chunk is never flushed), built with
+    torch ops on its device: the flushed chunks sorted stably by region,
+    and each region's run of them cut into groups of at most
+    `group_chunks` (REDUCE_GROUP_CHUNKS when None). K3 and K11 run one
+    block per group; a region's only group writes its rows of y with plain
+    stores. A stream with no flushed chunk gives an empty table."""
+    if group_chunks is None:
+        group_chunks = REDUCE_GROUP_CHUNKS
+    if group_chunks < 1:
+        raise ValueError("a group holds at least one chunk")
+    code = c_code.long()
+    live = torch.nonzero(code >= 0).flatten()
+    order = live[torch.argsort(code[live], stable=True)]
+    region = code[order]
+    n = order.numel()
+    pos = torch.arange(n, device=code.device)
+    head = torch.ones(n, dtype=torch.bool, device=code.device)
+    head[1:] = region[1:] != region[:-1]
+    starts = torch.nonzero(head).flatten()          # each region's first
+    rid = torch.cumsum(head.long(), 0) - 1          # region run of each
+    first = ((pos - starts[rid]) % group_chunks == 0).nonzero().flatten()
+    count = torch.diff(first, append=first.new_tensor([n]))
+    size = torch.diff(starts, append=starts.new_tensor([n]))
+    sole = size[rid[first]] <= group_chunks
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    return ReduceGroups(order=i32(order), groups=i32(torch.stack(
+        [first, count, region[first], sole.long()], 1)).reshape(-1, 4))
+
+
 def entries_index(e: RouterEntries):
     """(col, row, flag) of every element of the form `e`, int64, expanded
     from its segment records and its elements' words."""
@@ -318,6 +384,7 @@ class RouterSpMV:
         t0 = time.perf_counter()
         self.entries = router_entries(self, "row")              # K1's
         self.pred_entries = router_entries(self, "deposit")     # K1p's
+        self.groups = reduce_groups(self.arrays.c_code)         # K3's
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.perf_counter() - t0   # the derived forms
@@ -416,21 +483,32 @@ class RouterSpMV:
         return stream.view(self.nsteps, self.f, 8, 128)
 
     # ---- K3 reduce -----------------------------------------------------------
+    _reduce_key = "reduce"   # its launch counter (K11's on PERM-C layouts)
+
     def reduce(self, stream: torch.Tensor,
                arrays: RouterArrays | None = None) -> torch.Tensor:
-        """Phase C of the split pipeline: (nregions*region_rows,) rows."""
-        a = self.arrays if arrays is None else arrays
+        """Phase C of the split pipeline: (nregions*region_rows,) rows,
+        one block per group of the region-group table `groups`, over the
+        rows c_hi/c_lo, both derived from the engine's own arrays (on a
+        PERM-C planar engine this is K11: the rows are position-keyed)."""
+        self._own_arrays(arrays)
         stream = stream.reshape(-1)
         if not self._check(stream, self.nsteps * self.f * CHUNK, "stream"):
-            return self.reduce_plain(stream, a)
+            return self.reduce_plain(stream)
+        g, a = self.groups, self.arrays
+        if stream.data_ptr() % 16:
+            raise ValueError("stream: the kernel reads it with 16-byte loads "
+                             "and needs it 16-byte aligned")
         y = torch.zeros(self.out_len, dtype=torch.float32,
                         device=stream.device)
-        ptrs = [t.data_ptr() for t in (a.c_code, stream, a.c_hi, a.c_lo, y)]
-        rc = _build.library().glt_router_reduce(
-            *ptrs, self.nsteps * self.f, self.region_rows,
-            torch.cuda.current_stream(stream.device).cuda_stream)
+        ptrs = [t.data_ptr() for t in (g.groups, g.order, stream, a.c_hi,
+                                       a.c_lo, y)]
+        with torch.cuda.device(stream.device):   # the tile's opt-in is per card
+            rc = _build.library().glt_router_reduce(
+                *ptrs, g.groups.shape[0], self.region_rows,
+                torch.cuda.current_stream(stream.device).cuda_stream)
         self._raise_on(rc, "glt_router_reduce")
-        self.launches["reduce"] += 1
+        self.launches[self._reduce_key] += 1
         return y
 
     # ---- K1 fused ------------------------------------------------------------

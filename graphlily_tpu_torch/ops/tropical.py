@@ -108,6 +108,10 @@ class TropicalPass1(PlanarSpMV):
         raise ValueError("K3 adds floats: the tropical walk's reference is "
                          "TropicalSpMV.window_reduce(split(scatter(x)))")
 
+    def reduce(self, *args, **kwargs):
+        raise ValueError("K3 adds floats: the tropical pass 1's stream goes "
+                         "to TropicalSpMV.split, then window_reduce")
+
 
 @dataclasses.dataclass
 class SplitPieces:

@@ -18,7 +18,10 @@ into several column windows. K4 scatter and K4p scatter run over the
 planar engine's piece-ordered store form in all three semirings and
 deals, also on blocks cut inside pieces and at a cap of three pieces a
 block; K4p fused over its tile form at three frontiers against the
-float64 oracle.
+float64 oracle. K3 and K11 run over the region-group table at the
+default group size, at one chunk a group (every split region reaches y
+through vector reductions alone), in regions of 16,384 rows (a 64 KB
+shared tile, above the default 48 KB) and on the empty matrix.
 
 Needs a CUDA card and nvcc; every test skips without a card. Imports only
 torch and the port (no jax), so on a machine without jax it runs as
@@ -1163,3 +1166,88 @@ def test_empty_matrix_gives_zeros_on_card(engine, deal, semiring, cuda):
     torch.cuda.synchronize()
     assert y.is_cuda and y.shape == (2048,) and not y.any()
     assert ys.is_cuda and not ys.any()
+
+
+# ---- phase C over the region-group table: K3 and K11 ----------------------
+REDUCE_CASES = ["default", "groups_of_1", "region_16384", "empty"]
+REDUCE_DEALS = ["roll", "free", "bucket", "permc"]
+
+
+def _reduce_engine(deal, case, semiring):
+    """An engine of `deal` for K3 (roll, "free", "bucket") or K11 (PERM-C):
+    rmat 20000/120k in 20 regions of 1,024 rows ("default"; "groups_of_1"
+    with a table of one chunk a group, so every region of several chunks
+    reaches y through vector reductions alone), in 2 regions of 16,384 rows
+    (a 64 KB tile: the shared-memory opt-in), or the empty matrix."""
+    from graphlily_tpu_torch.ops.router import reduce_groups
+    if case == "empty":
+        e = np.zeros(0, np.int64)
+        csr = csr_from_coo(e, e, np.zeros(0, np.float32), 2048, 2048)
+        region_rows = None
+    else:
+        csr = rmat_csr(20000, 120000, seed=9)
+        region_rows = 16384 if case == "region_16384" else 1024
+    if deal == "roll":
+        eng = RouterSpMV(pack_router(csr, region_rows=region_rows), semiring,
+                         EngineConfig(device="cuda"))
+    elif deal == "permc":
+        eng = PlanarSpMV(pack_permc(csr, region_rows=region_rows), semiring,
+                         EngineConfig(device="cuda"))
+    else:
+        eng = PlanarSpMV(pack_planar(csr, region_rows=region_rows,
+                                     deal=deal), semiring,
+                         EngineConfig(device="cuda"))
+    if case == "groups_of_1":
+        eng.groups = reduce_groups(eng.arrays.c_code, 1)
+    return csr, eng
+
+
+@pytest.mark.parametrize("semiring", [ArithmeticSemiring, LogicalSemiring],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("case", REDUCE_CASES)
+@pytest.mark.parametrize("deal", REDUCE_DEALS)
+def test_reduce_groups_kernel_matches_plain(deal, case, semiring, cuda):
+    """K3 (roll, "free", "bucket") and K11 (PERM-C) over the region-group
+    table: ANDOR bit-equal to the plain version and, clamped, to the
+    float64 oracle; MULADD within 1e-4 * max|y64| of both (the tile sums
+    and a region's vector reductions land in any order)."""
+    csr, eng = _reduce_engine(deal, case, semiring)
+    g = eng.groups.groups
+    if case == "empty":
+        assert g.shape == (0, 4)
+    elif case == "groups_of_1":
+        assert int(g[:, 1].max()) == 1 and not bool(g[:, 3].all())
+    rng = np.random.default_rng(7)
+    x = rng.random(eng.num_cols).astype(np.float32) + 0.5
+    x[rng.random(eng.num_cols) < 0.3] = 0.0
+    xt = torch.from_numpy(x).to(cuda)
+    stream = eng.scatter(xt)
+    y = eng.reduce(stream)
+    y_plain = eng.reduce_plain(stream)
+    torch.cuda.synchronize()
+    key = "permc_reduce" if deal == "permc" else "reduce"
+    assert eng.launches[key] == 1
+    assert sum(eng.launches.values()) == 2       # scatter and the reduce
+    want = _oracle(csr, semiring, x)
+    n = len(want)
+    if semiring is LogicalSemiring:
+        assert torch.equal(y.view(torch.int32), y_plain.view(torch.int32))
+        np.testing.assert_array_equal(
+            (y[:n] != 0).cpu().numpy().astype(np.float64), want)
+    else:
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert float((y - y_plain).abs().max()) <= 1e-4 * scale
+        err = np.abs(y[:n].cpu().numpy().astype(np.float64) - want).max()
+        assert err <= 1e-4 * scale
+    if case == "empty":
+        assert not y.any()
+
+
+@pytest.mark.parametrize("deal", ["roll", "permc"])
+def test_reduce_groups_kernel_refuses_foreign_arrays(deal, cuda):
+    """K3 and K11 read the table derived from the engine's own arrays."""
+    _, eng = _reduce_engine(deal, "default", ArithmeticSemiring)
+    _, other = _reduce_engine(deal, "default", ArithmeticSemiring)
+    stream = eng.scatter(torch.ones(eng.num_cols, device=cuda))
+    with pytest.raises(ValueError, match="own arrays"):
+        eng.reduce(stream, other.arrays)
