@@ -116,7 +116,8 @@ Phases, one or more lines each:
                unpredicated kernel for three frontiers (empty, 1 vertex,
                5% of the columns), and their times (CUDA events, min over
                5 reps of 100 calls); push and pull_push ms of each app with
-               the pull_push_time_breakdown phase split
+               the push steps, pull steps and host reads of a profiled
+               pull_push (its apps.* spans)
   18. sssp     pokec SSSP(EngineConfig(sort_rows_by_degree=True)): engine
                "auto" -> tropical, SpMSpV sharing it; layout facts, load
                and pack seconds, K8's compact form (init s, MB) and the
@@ -143,7 +144,7 @@ Phases, one or more lines each:
                googleplus tropical (triples)
                engine call against the chunked engine call on the same
                matrix, pokec SSSP pull, push and pull_push ms and the
-               pull_push_time_breakdown phase split
+               step and read spans of a profiled pull_push
   21. permc    pokec BFS(EngineConfig(sort_rows_by_degree=True,
                planar_deal="permc")) on the full graph (engine "auto" ->
                planar; SpMSpV shares it): g++ build, C++ greedy, pack and
@@ -312,6 +313,19 @@ def time_ms(torch, fn, iters: int = 100, reps: int = 5) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / iters)
     return best
+
+
+def step_spans(torch, fn) -> str:
+    """The push-step, pull-step and host-read spans of one profiled call
+    of `fn` (the app's own `apps.*` spans)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = {k.key: k.count for k in prof.key_averages()}
+    return (f"{n.get('apps.push_step', 0)} push + "
+            f"{n.get('apps.pull_step', 0)} pull steps, "
+            f"{n.get('apps.host_read', 0)} host reads")
 
 
 def check_close(label: str, y, want: np.ndarray, exact: bool) -> float:
@@ -1468,7 +1482,7 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
     log("phase 17 chunked ANDOR 5% (scale 0.1): K7p bit-equal to plain and "
         "unpredicated ok")
 
-    # the push apps' times, with the breakdown's phase split
+    # the push apps' times, with the steps of a profiled pull_push
     apps = (("googleplus bfs", gp["bfs"], "googleplus"),
             ("pokec bfs", pk["bfs"], "pokec"),
             ("googleplus sssp", ch["sssp"], "googleplus"))
@@ -1478,15 +1492,11 @@ def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
                             iters=5, reps=3)
               for name, fn in (("pull", app.pull), ("push", app.push),
                                ("pull_push", app.pull_push))}
-        bd = app.pull_push_time_breakdown(0, iters)
-        phases = ", ".join(f"{k} {v:.4f}" for k, v in bd["phases_ms"].items())
+        steps = step_spans(torch, lambda: app.pull_push(
+            0, iters, device_output=True))
         log(f"phase 17 {label}({iters}): pull {ms['pull']:.4f} ms, push "
-            f"{ms['push']:.4f} ms, pull_push {ms['pull_push']:.4f} ms; "
-            f"breakdown: {bd['push_iterations']} push + "
-            f"{bd['pull_iterations']} pull iterations, total "
-            f"{bd['total_ms']:.4f} ms, phases ms: {phases}; dispatch floor "
-            f"{bd['dispatch_floor_ms']:.4f} ms x {sum(bd['calls'].values())} "
-            f"calls; card {card}")
+            f"{ms['push']:.4f} ms, pull_push {ms['pull_push']:.4f} ms "
+            f"({steps}); card {card}")
 
 
 def tropical_bounds(eng) -> dict:
@@ -1827,15 +1837,11 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
                         iters=5, reps=3)
           for name, fn in (("pull", sssp.pull), ("push", sssp.push),
                            ("pull_push", sssp.pull_push))}
-    bd = sssp.pull_push_time_breakdown(0, iters)
-    phases = ", ".join(f"{k} {v:.4f}" for k, v in bd["phases_ms"].items())
+    steps = step_spans(torch, lambda: sssp.pull_push(
+        0, iters, device_output=True))
     log(f"phase 20 pokec sssp({iters}): pull {ms['pull']:.4f} ms, push "
-        f"{ms['push']:.4f} ms, pull_push {ms['pull_push']:.4f} ms; "
-        f"breakdown: {bd['push_iterations']} push + "
-        f"{bd['pull_iterations']} pull iterations, total "
-        f"{bd['total_ms']:.4f} ms, phases ms: {phases}; dispatch floor "
-        f"{bd['dispatch_floor_ms']:.4f} ms x {sum(bd['calls'].values())} "
-        f"calls; card {card}")
+        f"{ms['push']:.4f} ms, pull_push {ms['pull_push']:.4f} ms "
+        f"({steps}); card {card}")
 
 def muladd_oracle(csr, x: np.ndarray) -> np.ndarray:
     """Float64 y = A x over the CSR matrix's rows."""

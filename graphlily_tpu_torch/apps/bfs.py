@@ -18,8 +18,6 @@ the rest.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -30,7 +28,7 @@ from ..io.formatter import util_round_csr_matrix_dim
 from ..module import (SpMVModule, SpMSpVModule, eWiseAddModule,
                       AssignVectorDenseModule, AssignVectorSparseModule)
 from ..ops.reference import assign_vector_dense
-from ..utils.profiling import PhaseTimer, sync, dispatch_floor_ms
+from ..utils.profiling import span
 from .module_collection import ModuleCollection
 
 
@@ -97,20 +95,22 @@ class BFS(ModuleCollection):
         self.SpMSpV_.send_matrix_host_to_device()
 
     def _init_state(self, source: int):
-        n = self.matrix_num_rows_
-        frontier = torch.zeros(n, dtype=self.config.torch_dtype)
-        distance = torch.zeros(n, dtype=self.config.torch_dtype)
-        frontier[source] = 1
-        distance[source] = 1
-        return frontier.to(self.device), distance.to(self.device)
+        with span("apps.init"):
+            n = self.matrix_num_rows_
+            frontier = torch.zeros(n, dtype=self.config.torch_dtype)
+            distance = torch.zeros(n, dtype=self.config.torch_dtype)
+            frontier[source] = 1
+            distance[source] = 1
+            return frontier.to(self.device), distance.to(self.device)
 
     # ---- one iteration ---------------------------------------------------
     def _pull_step(self, it: int, frontier, distance):
         """Iteration `it` (1-based): masked SpMV, then distance = it + 1 at
         the new frontier."""
-        frontier = self.SpMV_.apply(frontier, distance)
-        return frontier, assign_vector_dense(distance, frontier, it + 1,
-                                             MaskType.WRITE_TO_ONE)
+        with span("apps.pull_step"):
+            frontier = self.SpMV_.apply(frontier, distance)
+            return frontier, assign_vector_dense(distance, frontier, it + 1,
+                                                 MaskType.WRITE_TO_ONE)
 
     def _push_step(self, it: int, frontier, distance):
         """Iteration `it` through SpMSpV on the dense frontier; the sparse
@@ -128,104 +128,52 @@ class BFS(ModuleCollection):
     def pull(self, source: int, num_iterations: int,
              device_output: bool = False):
         """Iterations 1..num_iterations of the masked SpMV."""
-        frontier, distance = self._init_state(self._internal_source(source))
-        for it in range(1, num_iterations + 1):
-            frontier, distance = self._pull_step(it, frontier, distance)
-        return self._result(distance, device_output)
+        with span("apps.bfs.pull"):
+            frontier, distance = self._init_state(
+                self._internal_source(source))
+            for it in range(1, num_iterations + 1):
+                frontier, distance = self._pull_step(it, frontier, distance)
+            return self._result(distance, device_output)
 
     def push(self, source: int, num_iterations: int, chained: bool = False,
              device_output: bool = False):
         """Iterations 1..num_iterations of SpMSpV. `chained` runs the
         module-by-module sequence through DeviceBuffers instead."""
-        source = self._internal_source(source)
-        if chained:
-            return self._external(self._push_chained(source, num_iterations))
-        frontier, distance = self._init_state(source)
-        for it in range(1, num_iterations + 1):
-            frontier, distance = self._push_step(it, frontier, distance)
-        return self._result(distance, device_output)
+        with span("apps.bfs.push"):
+            source = self._internal_source(source)
+            if chained:
+                return self._external(self._push_chained(source,
+                                                          num_iterations))
+            frontier, distance = self._init_state(source)
+            for it in range(1, num_iterations + 1):
+                with span("apps.push_step"):
+                    frontier, distance = self._push_step(it, frontier,
+                                                         distance)
+            return self._result(distance, device_output)
 
     def pull_push(self, source: int, num_iterations: int,
                   threshold: float = 0.05, device_output: bool = False):
         """Push while the frontier is sparse (one 4-byte nnz read per push
         step), then pull for the remaining iterations."""
-        n = self.matrix_num_rows_
-        frontier, distance = self._init_state(self._internal_source(source))
-        it = 0
-        while True:
-            it += 1
-            frontier, distance = self._push_step(it, frontier, distance)
-            nnz = int((frontier != 0).sum())
-            if not keep_pushing(it, num_iterations, nnz, n, threshold):
-                break
-        while it < num_iterations:
-            it += 1
-            frontier, distance = self._pull_step(it, frontier, distance)
-        return self._result(distance, device_output)
-
-    def pull_push_time_breakdown(self, source: int, num_iterations: int,
-                                 threshold: float = 0.05) -> dict:
-        """pull_push with host timings per phase, each phase synchronized;
-        the same iteration counts as pull_push. `dispatch_floor_ms` is the
-        cost of one empty launch and its sync: subtract n_calls x floor to
-        approximate device time."""
-        source = self._internal_source(source)
-        n = self.matrix_num_rows_
-        dev = self.device
-        # warm-up: the first launch of each kernel loads its library
-        fr0, dist0 = self._init_state(source)
-        self._push_step(1, fr0, dist0)
-        self._pull_step(1, fr0, dist0)
-        sync(dev)
-        floor_ms = dispatch_floor_ms(dev)
-
-        timer = PhaseTimer()
-        calls = {"spmspv": 0, "push_assign": 0, "nnz_readback": 0,
-                 "spmv": 0, "pull_assign": 0}
-        frontier, distance = self._init_state(source)
-        it = push_iters = pull_iters = 0
-        t_all = time.perf_counter()
-        while True:
-            it += 1
-            push_iters += 1
-            with timer.phase("push_spmspv"):
-                frontier = self.SpMSpV_.apply_dense(frontier, distance)
-                sync(dev)
-            with timer.phase("push_assign"):
-                distance = assign_vector_dense(distance, frontier, it + 1,
-                                               MaskType.WRITE_TO_ONE)
-                sync(dev)
-            with timer.phase("nnz_readback"):
-                nnz_host = int((frontier != 0).sum())
-            for k in ("spmspv", "push_assign", "nnz_readback"):
-                calls[k] += 1
-            if not keep_pushing(it, num_iterations, nnz_host, n, threshold):
-                break
-        while it < num_iterations:
-            it += 1
-            pull_iters += 1
-            with timer.phase("pull_spmv"):
-                frontier = self.SpMV_.apply(frontier, distance)
-                sync(dev)
-            with timer.phase("pull_assign"):
-                distance = assign_vector_dense(distance, frontier, it + 1,
-                                               MaskType.WRITE_TO_ONE)
-                sync(dev)
-            calls["spmv"] += 1
-            calls["pull_assign"] += 1
-        total_ms = (time.perf_counter() - t_all) * 1e3
-        ncalls = sum(calls.values())
-        return {
-            "phases_ms": dict(timer.times_ms),
-            "push_iterations": push_iters,
-            "pull_iterations": pull_iters,
-            "calls": calls,
-            "dispatch_floor_ms": floor_ms,
-            "dispatch_overhead_ms": floor_ms * ncalls,
-            "total_ms": total_ms,
-            "total_minus_dispatch_ms": max(total_ms - floor_ms * ncalls, 0.0),
-            "distance": self._external(distance.cpu().numpy()),
-        }
+        with span("apps.bfs.pull_push"):
+            n = self.matrix_num_rows_
+            frontier, distance = self._init_state(
+                self._internal_source(source))
+            it = 0
+            while True:
+                it += 1
+                with span("apps.push_step"):
+                    frontier, distance = self._push_step(it, frontier,
+                                                         distance)
+                    count = (frontier != 0).sum()
+                    with span("apps.host_read"):
+                        nnz = int(count)
+                if not keep_pushing(it, num_iterations, nnz, n, threshold):
+                    break
+            while it < num_iterations:
+                it += 1
+                frontier, distance = self._pull_step(it, frontier, distance)
+            return self._result(distance, device_output)
 
     def _push_chained(self, source: int, num_iterations: int) -> np.ndarray:
         """The reference call sequence, module by module: SpMSpV, copy the

@@ -19,6 +19,7 @@ from ..io.formatter import (util_round_csr_matrix_dim,
                             util_normalize_csr_matrix_by_outdegree)
 from ..module import SpMVModule, eWiseAddModule
 from ..ops.reference import ewise_add_scalar
+from ..utils.profiling import span
 from .module_collection import ModuleCollection
 
 
@@ -61,15 +62,18 @@ class PageRank(ModuleCollection):
         """`num_iterations` of rank = SpMV(rank) + (1 - damping)/n. With
         `device_output` the device tensor comes back, in the relabeled
         vertex order and without a host copy."""
-        n = self.matrix_num_rows_
-        rank = torch.full((n,), 1.0 / n, dtype=self.config.torch_dtype,
-                          device=self.device)
-        offset = (1 - damping) / n
-        for _ in range(num_iterations):
-            rank = ewise_add_scalar(self.SpMV_.apply(rank), offset)
-        if device_output:
-            return rank
-        return self._external(rank.cpu().numpy())
+        with span("apps.pagerank.pull"):
+            n = self.matrix_num_rows_
+            with span("apps.init"):
+                rank = torch.full((n,), 1.0 / n,
+                                  dtype=self.config.torch_dtype,
+                                  device=self.device)
+            offset = (1 - damping) / n
+            for _ in range(num_iterations):
+                rank = ewise_add_scalar(self.SpMV_.apply(rank), offset)
+            if device_output:
+                return rank
+            return self._external(rank.cpu().numpy())
 
     def compute_reference_results(self, damping: float, num_iterations: int):
         """Float64 CPU oracle."""

@@ -18,8 +18,6 @@ loops of launches here.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -28,7 +26,7 @@ from ..semiring import TropicalSemiring, MaskType
 from ..io.matrix import CSRMatrix, csr2csc, load_csr_matrix_from_float_npz
 from ..io.formatter import util_round_csr_matrix_dim, add_self_edges_for_sssp
 from ..module import SpMVModule, SpMSpVModule
-from ..utils.profiling import PhaseTimer, sync, dispatch_floor_ms
+from ..utils.profiling import span
 from .bfs import keep_pushing
 from .module_collection import ModuleCollection
 
@@ -76,10 +74,11 @@ class SSSP(ModuleCollection):
         self.SpMSpV_.send_matrix_host_to_device()
 
     def _init_distance(self, source: int) -> torch.Tensor:
-        d = torch.full((self.matrix_num_rows_,), self.semiring_.zero,
-                       dtype=self.config.torch_dtype)
-        d[source] = 0
-        return d.to(self.device)
+        with span("apps.init"):
+            d = torch.full((self.matrix_num_rows_,), self.semiring_.zero,
+                           dtype=self.config.torch_dtype)
+            d[source] = 0
+            return d.to(self.device)
 
     def _relax(self, y, distance):
         """(distance, new frontier, improved): the frontier's nnz is
@@ -102,92 +101,48 @@ class SSSP(ModuleCollection):
         """`num_iterations` relaxations of every edge. With
         `device_output` the device tensor comes back, in the relabeled
         vertex order and without a host copy."""
-        distance = self._init_distance(self._internal_source(source))
-        for _ in range(num_iterations):
-            distance = self.SpMV_.apply(distance)
-        return self._result(distance, device_output)
+        with span("apps.sssp.pull"):
+            distance = self._init_distance(self._internal_source(source))
+            for _ in range(num_iterations):
+                with span("apps.pull_step"):
+                    distance = self.SpMV_.apply(distance)
+            return self._result(distance, device_output)
 
     def push(self, source: int, num_iterations: int,
              device_output: bool = False):
         """`num_iterations` relaxations from the frontier only; the first
         frontier is the source at distance 0."""
-        distance = self._init_distance(self._internal_source(source))
-        frontier = distance
-        for _ in range(num_iterations):
-            distance, frontier, _ = self._push_step(frontier, distance)
-        return self._result(distance, device_output)
+        with span("apps.sssp.push"):
+            distance = self._init_distance(self._internal_source(source))
+            frontier = distance
+            for _ in range(num_iterations):
+                with span("apps.push_step"):
+                    distance, frontier, _ = self._push_step(frontier,
+                                                            distance)
+            return self._result(distance, device_output)
 
     def pull_push(self, source: int, num_iterations: int,
                   threshold: float = 0.05, device_output: bool = False):
         """Push while the frontier is sparse, then pull on the distances."""
-        n = self.matrix_num_rows_
-        distance = self._init_distance(self._internal_source(source))
-        frontier = distance
-        it = 0
-        while True:
-            it += 1
-            distance, frontier, improved = self._push_step(frontier, distance)
-            nnz = int(improved.sum())
-            if not keep_pushing(it, num_iterations, nnz, n, threshold):
-                break
-        for _ in range(it, num_iterations):
-            distance = self.SpMV_.apply(distance)
-        return self._result(distance, device_output)
-
-    def pull_push_time_breakdown(self, source: int, num_iterations: int,
-                                 threshold: float = 0.05) -> dict:
-        """pull_push with host timings per phase, each phase synchronized;
-        the same iteration counts as pull_push (see BFS)."""
-        source = self._internal_source(source)
-        n = self.matrix_num_rows_
-        dev = self.device
-        d0 = self._init_distance(source)
-        self._push_step(d0, d0)                 # warm-up
-        self.SpMV_.apply(d0)
-        sync(dev)
-        floor_ms = dispatch_floor_ms(dev)
-
-        timer = PhaseTimer()
-        calls = {"spmspv": 0, "relax": 0, "nnz_readback": 0, "spmv": 0}
-        distance = self._init_distance(source)
-        frontier = distance
-        it = push_iters = pull_iters = 0
-        t_all = time.perf_counter()
-        while True:
-            it += 1
-            push_iters += 1
-            with timer.phase("push_spmspv"):
-                y = self.SpMSpV_.apply_dense(frontier)
-                sync(dev)
-            with timer.phase("push_relax"):
-                distance, frontier, improved = self._relax(y, distance)
-                sync(dev)
-            with timer.phase("nnz_readback"):
-                nnz_host = int(improved.sum())
-            for k in ("spmspv", "relax", "nnz_readback"):
-                calls[k] += 1
-            if not keep_pushing(it, num_iterations, nnz_host, n, threshold):
-                break
-        while it < num_iterations:
-            it += 1
-            pull_iters += 1
-            with timer.phase("pull_spmv"):
-                distance = self.SpMV_.apply(distance)
-                sync(dev)
-            calls["spmv"] += 1
-        total_ms = (time.perf_counter() - t_all) * 1e3
-        ncalls = sum(calls.values())
-        return {
-            "phases_ms": dict(timer.times_ms),
-            "push_iterations": push_iters,
-            "pull_iterations": pull_iters,
-            "calls": calls,
-            "dispatch_floor_ms": floor_ms,
-            "dispatch_overhead_ms": floor_ms * ncalls,
-            "total_ms": total_ms,
-            "total_minus_dispatch_ms": max(total_ms - floor_ms * ncalls, 0.0),
-            "distance": self._external(distance.cpu().numpy()),
-        }
+        with span("apps.sssp.pull_push"):
+            n = self.matrix_num_rows_
+            distance = self._init_distance(self._internal_source(source))
+            frontier = distance
+            it = 0
+            while True:
+                it += 1
+                with span("apps.push_step"):
+                    distance, frontier, improved = self._push_step(
+                        frontier, distance)
+                    count = improved.sum()
+                    with span("apps.host_read"):
+                        nnz = int(count)
+                if not keep_pushing(it, num_iterations, nnz, n, threshold):
+                    break
+            for _ in range(it, num_iterations):
+                with span("apps.pull_step"):
+                    distance = self.SpMV_.apply(distance)
+            return self._result(distance, device_output)
 
     def compute_reference_results(self, source: int, num_iterations: int):
         """Float64 CPU oracle."""

@@ -38,6 +38,7 @@ from ..ops.chunked import ChunkedSpMV
 from ..ops.router import RouterSpMV
 from ..ops.planar import PlanarSpMV
 from ..ops.tropical import TropicalSpMV
+from ..utils.profiling import span
 from .base import BaseModule, DeviceBuffer
 from .spmv_module import resolve_router_flavor
 
@@ -177,29 +178,33 @@ class SpMSpVModule(BaseModule):
     def apply_dense(self, x: torch.Tensor, mask: torch.Tensor | None = None):
         """Dense-frontier SpMSpV for app loops: x and y dense (inactive =
         the semiring zero). Returns y alone (JAX's also returns its nnz):
-        the apps count the new frontier where they need it."""
+        the apps count the new frontier where they need it. In the span
+        `module.spmspv`."""
         zero = self.semiring_.zero
-        if self.engine is not None:
-            y = self._run_engine(x)
-        else:
-            sv = dense_to_sparse(x, zero, self.capacity)
-            _, y = spmspv_coo(self._coo, sv, self.semiring_, None,
-                              MaskType.NO_MASK, capacity=self.capacity)
-        if mask is not None and self.mask_type_ != MaskType.NO_MASK:
-            y = apply_mask_sparse_style(y, mask, self.mask_type_, zero)
-        return y
+        with span("module.spmspv"):
+            if self.engine is not None:
+                y = self._run_engine(x)
+            else:
+                sv = dense_to_sparse(x, zero, self.capacity)
+                _, y = spmspv_coo(self._coo, sv, self.semiring_, None,
+                                  MaskType.NO_MASK, capacity=self.capacity)
+            if mask is not None and self.mask_type_ != MaskType.NO_MASK:
+                y = apply_mask_sparse_style(y, mask, self.mask_type_, zero)
+            return y
 
     def apply(self, sv: SparseVector, mask: torch.Tensor | None = None
               ) -> tuple[SparseVector, torch.Tensor]:
-        """Functional core: (sparse results, dense results)."""
-        if self.engine is None:
-            return spmspv_coo(self._coo, sv, self.semiring_, mask,
-                              self.mask_type_, capacity=self.capacity)
-        zero = self.semiring_.zero
-        y = self._run_engine(sparse_to_dense(sv, self.num_cols_, zero))
-        if mask is not None and self.mask_type_ != MaskType.NO_MASK:
-            y = apply_mask_sparse_style(y, mask, self.mask_type_, zero)
-        return dense_to_sparse(y, zero, self.capacity), y
+        """Functional core: (sparse results, dense results), in the span
+        `module.spmspv`."""
+        with span("module.spmspv"):
+            if self.engine is None:
+                return spmspv_coo(self._coo, sv, self.semiring_, mask,
+                                  self.mask_type_, capacity=self.capacity)
+            zero = self.semiring_.zero
+            y = self._run_engine(sparse_to_dense(sv, self.num_cols_, zero))
+            if mask is not None and self.mask_type_ != MaskType.NO_MASK:
+                y = apply_mask_sparse_style(y, mask, self.mask_type_, zero)
+            return dense_to_sparse(y, zero, self.capacity), y
 
     def run(self) -> None:
         mask = (self.mask_buf.value if self.mask_type_ != MaskType.NO_MASK

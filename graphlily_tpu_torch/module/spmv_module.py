@@ -31,6 +31,7 @@ from ..ops.chunked import ChunkedSpMV
 from ..ops.router import RouterSpMV
 from ..ops.planar import PlanarSpMV
 from ..ops.tropical import TropicalSpMV
+from ..utils.profiling import span
 from .base import BaseModule, DeviceBuffer
 
 
@@ -167,10 +168,12 @@ class SpMVModule(BaseModule):
     # ---- execution -------------------------------------------------------
     def apply(self, x: torch.Tensor,
               mask: torch.Tensor | None = None) -> torch.Tensor:
-        """Functional core: y = mask(A (x) x)."""
-        if self.engine is not None:
-            return self.engine(x, mask, self.mask_type_)
-        return spmv_coo(self._coo, x, self.semiring_, mask, self.mask_type_)
+        """Functional core: y = mask(A (x) x), in the span `module.spmv`."""
+        with span("module.spmv"):
+            if self.engine is not None:
+                return self.engine(x, mask, self.mask_type_)
+            return spmv_coo(self._coo, x, self.semiring_, mask,
+                            self.mask_type_)
 
     def run(self) -> None:
         mask = (self.mask_buf.value if self.mask_type_ != MaskType.NO_MASK

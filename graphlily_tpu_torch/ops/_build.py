@@ -22,6 +22,8 @@ import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from ..utils.profiling import OFF, _profiler_enabled, record_function
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -134,3 +136,21 @@ def library() -> types.SimpleNamespace:
         fns[name] = fn
     # the CDLL handles stay referenced so the libraries stay loaded
     return types.SimpleNamespace(libraries=libs, **fns)
+
+
+class Launches(dict):
+    """An engine's launch counters by kernel key. `launches(key)` counts
+    one launch of `key` and returns its span, `ops.<engine>.<key>`: the
+    launch's output allocation, ctypes call and return-code check run
+    inside it, so the spans and the counts cannot drift apart."""
+
+    def __init__(self, engine: str, keys):
+        super().__init__(dict.fromkeys(keys, 0))
+        self.names = {k: f"ops.{engine}.{k}" for k in keys}
+
+    def __call__(self, key: str):
+        self[key] += 1
+        # utils.profiling.span, inlined: one Python call a launch
+        if _profiler_enabled():
+            return record_function(self.names[key])
+        return OFF

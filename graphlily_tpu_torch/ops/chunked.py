@@ -22,8 +22,8 @@ TPU memory placement. `spmv` runs it on CUDA tensors and its plain PyTorch
 version (`spmv_plain`: gather, semiring product, `scatter_reduce_` sum or
 amin into a y filled with the semiring zero, over the same real entries)
 only when given CPU tensors; each launch adds one to
-`launches["chunked"]`. `__call__` adds the ANDOR 0/1 clamp and the SpMV
-mask, as the JAX engine does.
+`launches["chunked"]` inside the span `ops.chunked.chunked`. `__call__`
+adds the ANDOR 0/1 clamp and the SpMV mask, as the JAX engine does.
 
 SpMSpV (`call_predicated`) runs K7p, the same kernel with a column-tile
 activity vector: the full grid, whose entries of inactive tiles are not
@@ -177,7 +177,8 @@ class ChunkedSpMV:
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.perf_counter() - t0   # the derived form's
         self.col_order = layout.step_touch is not None   # SpMSpV's layout
-        self.launches = {"chunked": 0, "chunked_pred": 0}
+        self.launches = _build.Launches("chunked",
+                                        ("chunked", "chunked_pred"))
         self._plain_index = None
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
@@ -185,9 +186,8 @@ class ChunkedSpMV:
         x = self._check_x(x)
         if not x.is_cuda:
             return self.spmv_plain(x)
-        y = self._launch(x, None, "glt_chunked_spmv")
-        self.launches["chunked"] += 1
-        return y
+        with self.launches("chunked"):
+            return self._launch(x, None, "glt_chunked_spmv")
 
     def _check_x(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(-1)
@@ -249,9 +249,8 @@ class ChunkedSpMV:
                 or not act.is_contiguous() or act.device != x.device:
             raise ValueError(f"act: need a contiguous ({self.nct},) uint8 "
                              f"tensor on {x.device}")
-        y = self._launch(x, act, "glt_chunked_spmv_predicated")
-        self.launches["chunked_pred"] += 1
-        return y
+        with self.launches("chunked_pred"):
+            return self._launch(x, act, "glt_chunked_spmv_predicated")
 
     def spmv_predicated_plain(self, x: torch.Tensor,
                               act: torch.Tensor) -> torch.Tensor:

@@ -56,7 +56,7 @@ version only when given CPU tensors: the forms' walks
 (`fused_entries_plain`, `scatter_entries_plain`), which the tests hold to
 the plain versions through the layout (`scatter_plain`; `fused_plain`,
 K4 scatter -> K3's plain versions through the flush stream). Each launch
-adds one to `launches[name]`.
+adds one to `launches[name]` inside the span `ops.planar.<name>`.
 
 SpMSpV (`call_predicated`, inherited) runs K4p fused or K4p scatter ->
 K3p (`fused_predicated`, `scatter_predicated`). A planar A-chunk mixes
@@ -187,10 +187,10 @@ class PlanarSpMV(RouterSpMV):
             target=dev(target).reshape(lay.nsteps, lay.dstep),
             c_code=dev(lay.c_code), c_hi=dev(c_hi), c_lo=dev(c_lo),
             xperm=None if self.chained else dev(lay.xperm), **dest_keys)
-        self.launches = {"fused": 0, "scatter": 0, "reduce": 0, "xperm": 0,
-                         "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0}
-        if self.permc:
-            self.launches.update(permc_reduce=0, permc_reduce_pred=0)
+        self.launches = _build.Launches("planar", (
+            "fused", "scatter", "reduce", "xperm", "fused_pred",
+            "scatter_pred", "reduce_pred")
+            + (("permc_reduce", "permc_reduce_pred") if self.permc else ()))
         t0 = time.perf_counter()
         idx = resolved_index(self)     # one decode for every form
         self.store_entries = router_entries(           # K4 scatter's
@@ -220,12 +220,13 @@ class PlanarSpMV(RouterSpMV):
         x = x.reshape(-1)
         if not self._check(x, self.num_cols, "x"):
             return self.xperm_plain(x, a)
-        x2 = torch.empty_like(x)
-        rc = _build.library().glt_planar_xperm(
-            a.xperm.data_ptr(), x.data_ptr(), x2.data_ptr(),
-            self.num_col_tiles, torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_planar_xperm")
-        self.launches["xperm"] += 1
+        with self.launches("xperm"):
+            x2 = torch.empty_like(x)
+            rc = _build.library().glt_planar_xperm(
+                a.xperm.data_ptr(), x.data_ptr(), x2.data_ptr(),
+                self.num_col_tiles,
+                torch.cuda.current_stream(x.device).cuda_stream)
+            self._raise_on(rc, "glt_planar_xperm")
         return x2
 
     # ---- K4 scatter ------------------------------------------------------------
@@ -250,25 +251,25 @@ class PlanarSpMV(RouterSpMV):
         e = self.store_entries
         n = self.nsteps * self.f * CHUNK
         own_zeros = act is None and e.tails is not None
-        if out is None:
-            out = (torch.empty if own_zeros else torch.zeros)(
-                n, dtype=self._stream_dtype, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptrs = [t.data_ptr() for t in (e.blocks, e.deps, e.vals, e.idx, x,
-                                       out)]
-        if act is None:
-            name, key = "glt_planar_scatter", "scatter"
-            rc = _build.library().glt_planar_scatter(
-                *ptrs, e.tails.data_ptr() if own_zeros else None,
-                e.blocks.shape[0], e.max_segments, e.col_bits,
-                self.nsteps * self.f, self._op, stream)
-        else:
-            name, key = "glt_planar_scatter_pred", "scatter_pred"
-            rc = _build.library().glt_planar_scatter_pred(
-                *ptrs, act.data_ptr(), e.blocks.shape[0], e.max_segments,
-                e.col_bits, self._op, stream)
-        self._raise_on(rc, name)
-        self.launches[key] += 1
+        with self.launches("scatter" if act is None else "scatter_pred"):
+            if out is None:
+                out = (torch.empty if own_zeros else torch.zeros)(
+                    n, dtype=self._stream_dtype, device=x.device)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            ptrs = [t.data_ptr() for t in (e.blocks, e.deps, e.vals, e.idx,
+                                           x, out)]
+            if act is None:
+                name = "glt_planar_scatter"
+                rc = _build.library().glt_planar_scatter(
+                    *ptrs, e.tails.data_ptr() if own_zeros else None,
+                    e.blocks.shape[0], e.max_segments, e.col_bits,
+                    self.nsteps * self.f, self._op, stream)
+            else:
+                name = "glt_planar_scatter_pred"
+                rc = _build.library().glt_planar_scatter_pred(
+                    *ptrs, act.data_ptr(), e.blocks.shape[0], e.max_segments,
+                    e.col_bits, self._op, stream)
+            self._raise_on(rc, name)
         return out.view(self.nsteps, self.f, S, L)
 
     # ---- K11 and K11p: PERM-C phase C ---------------------------------------------
@@ -291,15 +292,15 @@ class PlanarSpMV(RouterSpMV):
         if not self._check(stream, nchunks * CHUNK, "stream"):
             return self.reduce_plain(stream, a, live)
         self._check_flags(live, nchunks, "live")
-        y = torch.zeros(self.out_len, dtype=torch.float32,
-                        device=stream.device)
-        ptrs = [t.data_ptr() for t in (a.c_code, stream, a.c_hi_dest,
-                                       a.c_end, a.c_beg, y, live)]
-        rc = _build.library().glt_permc_reduce_pred(
-            *ptrs, nchunks, self.region_rows,
-            torch.cuda.current_stream(stream.device).cuda_stream)
-        self._raise_on(rc, "glt_permc_reduce_pred")
-        self.launches["permc_reduce_pred"] += 1
+        with self.launches("permc_reduce_pred"):
+            y = torch.zeros(self.out_len, dtype=torch.float32,
+                            device=stream.device)
+            ptrs = [t.data_ptr() for t in (a.c_code, stream, a.c_hi_dest,
+                                           a.c_end, a.c_beg, y, live)]
+            rc = _build.library().glt_permc_reduce_pred(
+                *ptrs, nchunks, self.region_rows,
+                torch.cuda.current_stream(stream.device).cuda_stream)
+            self._raise_on(rc, "glt_permc_reduce_pred")
         return y
 
     # ---- SpMSpV: tile activity, K4p ---------------------------------------------

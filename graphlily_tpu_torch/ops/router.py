@@ -14,7 +14,8 @@ csrc/router_spmv.cu carry it:
 kernel on CUDA tensors, and its plain PyTorch version (`*_plain`, same
 contract: gather, `index_copy_` into a zeroed flush stream through the
 deposit targets, `index_add_` into y) only when given CPU tensors. Each
-kernel launch adds one to `launches[name]`.
+kernel launch adds one to `launches[name]` and runs inside the span
+`ops.roll.<name>` (`ops.planar.<name>` on the planar engine).
 
 K1 and K1p do not read the layout's streams. At init the engine derives
 two padding-free device forms (`router_entries`): every real element of
@@ -388,8 +389,9 @@ class RouterSpMV:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.perf_counter() - t0   # the derived forms
-        self.launches = {"fused": 0, "scatter": 0, "reduce": 0,
-                         "fused_pred": 0, "scatter_pred": 0, "reduce_pred": 0}
+        self.launches = _build.Launches("roll", (
+            "fused", "scatter", "reduce", "fused_pred", "scatter_pred",
+            "reduce_pred"))
 
     def _init_common(self, lay, semiring: Semiring, config: EngineConfig,
                      mask_type: MaskType) -> None:
@@ -471,15 +473,16 @@ class RouterSpMV:
         x = x.reshape(-1)
         if not self._check(x, self.num_cols, "x"):
             return self.scatter_plain(x, a)
-        stream = torch.zeros(self.nsteps * self.f * CHUNK,
-                             dtype=torch.float32, device=x.device)
-        ptrs = [t.data_ptr() for t in (a.a_page, a.a_r, a.a_sub, a.a_vals,
-                                       a.rg, a.target, x, stream)]
-        rc = _build.library().glt_router_scatter(
-            *ptrs, self.nsteps, self.cb, self.rstep, self.dstep, self._and_or,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_router_scatter")
-        self.launches["scatter"] += 1
+        with self.launches("scatter"):
+            stream = torch.zeros(self.nsteps * self.f * CHUNK,
+                                 dtype=torch.float32, device=x.device)
+            ptrs = [t.data_ptr() for t in (a.a_page, a.a_r, a.a_sub,
+                                           a.a_vals, a.rg, a.target, x,
+                                           stream)]
+            rc = _build.library().glt_router_scatter(
+                *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
+                self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
+            self._raise_on(rc, "glt_router_scatter")
         return stream.view(self.nsteps, self.f, 8, 128)
 
     # ---- K3 reduce -----------------------------------------------------------
@@ -499,16 +502,17 @@ class RouterSpMV:
         if stream.data_ptr() % 16:
             raise ValueError("stream: the kernel reads it with 16-byte loads "
                              "and needs it 16-byte aligned")
-        y = torch.zeros(self.out_len, dtype=torch.float32,
-                        device=stream.device)
-        ptrs = [t.data_ptr() for t in (g.groups, g.order, stream, a.c_hi,
-                                       a.c_lo, y)]
-        with torch.cuda.device(stream.device):   # the tile's opt-in is per card
-            rc = _build.library().glt_router_reduce(
-                *ptrs, g.groups.shape[0], self.region_rows,
-                torch.cuda.current_stream(stream.device).cuda_stream)
-        self._raise_on(rc, "glt_router_reduce")
-        self.launches[self._reduce_key] += 1
+        with self.launches(self._reduce_key):
+            y = torch.zeros(self.out_len, dtype=torch.float32,
+                            device=stream.device)
+            ptrs = [t.data_ptr() for t in (g.groups, g.order, stream,
+                                           a.c_hi, a.c_lo, y)]
+            # the tile's opt-in is per card
+            with torch.cuda.device(stream.device):
+                rc = _build.library().glt_router_reduce(
+                    *ptrs, g.groups.shape[0], self.region_rows,
+                    torch.cuda.current_stream(stream.device).cuda_stream)
+            self._raise_on(rc, "glt_router_reduce")
         return y
 
     # ---- K1 fused ------------------------------------------------------------
@@ -551,17 +555,17 @@ class RouterSpMV:
         the current stream. A form without values passes a null value
         pointer."""
         e = self.entries if act is None else self.pred_entries
-        y = torch.zeros(self.out_len, dtype=self._stream_dtype,
-                        device=x.device)
-        ptrs = [None if t is None else t.data_ptr()
-                for t in (e.blocks, e.deps, e.vals, e.idx, x, y)]
-        if act is not None:
-            ptrs.append(act.data_ptr())
-        rc = getattr(_build.library(), name)(
-            *ptrs, e.blocks.shape[0], e.max_segments, e.col_bits,
-            self._op, torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, name)
-        self.launches[key] += 1
+        with self.launches(key):
+            y = torch.zeros(self.out_len, dtype=self._stream_dtype,
+                            device=x.device)
+            ptrs = [None if t is None else t.data_ptr()
+                    for t in (e.blocks, e.deps, e.vals, e.idx, x, y)]
+            if act is not None:
+                ptrs.append(act.data_ptr())
+            rc = getattr(_build.library(), name)(
+                *ptrs, e.blocks.shape[0], e.max_segments, e.col_bits,
+                self._op, torch.cuda.current_stream(x.device).cuda_stream)
+            self._raise_on(rc, name)
         return y
 
     # ---- SpMSpV: activity and live sets ----------------------------------------
@@ -633,15 +637,16 @@ class RouterSpMV:
         if not self._check(x, self.num_cols, "x"):
             return self.scatter_plain(x, a, act)
         self._check_flags(act, self.num_act, "act")
-        stream = torch.zeros(self.nsteps * self.f * CHUNK,
-                             dtype=torch.float32, device=x.device)
-        ptrs = [t.data_ptr() for t in (a.a_page, a.a_r, a.a_sub, a.a_vals,
-                                       a.rg, a.target, x, stream, act)]
-        rc = _build.library().glt_router_scatter_pred(
-            *ptrs, self.nsteps, self.cb, self.rstep, self.dstep, self._and_or,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        self._raise_on(rc, "glt_router_scatter_pred")
-        self.launches["scatter_pred"] += 1
+        with self.launches("scatter_pred"):
+            stream = torch.zeros(self.nsteps * self.f * CHUNK,
+                                 dtype=torch.float32, device=x.device)
+            ptrs = [t.data_ptr() for t in (a.a_page, a.a_r, a.a_sub,
+                                           a.a_vals, a.rg, a.target, x,
+                                           stream, act)]
+            rc = _build.library().glt_router_scatter_pred(
+                *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
+                self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
+            self._raise_on(rc, "glt_router_scatter_pred")
         return stream.view(self.nsteps, self.f, 8, 128)
 
     def reduce_predicated(self, stream: torch.Tensor, live: torch.Tensor,
@@ -652,15 +657,15 @@ class RouterSpMV:
         if not self._check(stream, self.nsteps * self.f * CHUNK, "stream"):
             return self.reduce_plain(stream, a, live)
         self._check_flags(live, self.nsteps * self.f, "live")
-        y = torch.zeros(self.out_len, dtype=torch.float32,
-                        device=stream.device)
-        ptrs = [t.data_ptr() for t in (a.c_code, stream, a.c_hi, a.c_lo, y,
-                                       live)]
-        rc = _build.library().glt_router_reduce_pred(
-            *ptrs, self.nsteps * self.f, self.region_rows,
-            torch.cuda.current_stream(stream.device).cuda_stream)
-        self._raise_on(rc, "glt_router_reduce_pred")
-        self.launches["reduce_pred"] += 1
+        with self.launches("reduce_pred"):
+            y = torch.zeros(self.out_len, dtype=torch.float32,
+                            device=stream.device)
+            ptrs = [t.data_ptr() for t in (a.c_code, stream, a.c_hi, a.c_lo,
+                                           y, live)]
+            rc = _build.library().glt_router_reduce_pred(
+                *ptrs, self.nsteps * self.f, self.region_rows,
+                torch.cuda.current_stream(stream.device).cuda_stream)
+            self._raise_on(rc, "glt_router_reduce_pred")
         return y
 
     def fused_predicated(self, x: torch.Tensor, act: torch.Tensor,

@@ -60,7 +60,8 @@ into (io/router_format.deposit_targets with the block map qblk2), so K8
 and K9 are independent copies. Each wrapper runs its kernel on CUDA
 tensors and its plain PyTorch version (`*_plain`: index copies expanded
 from the descriptors or the pieces, `scatter_reduce_` amax) only when
-given CPU tensors; each launch adds one to `launches[name]`.
+given CPU tensors; each launch adds one to `launches[name]` inside the
+span `ops.tropical.<name>` (pass 1's launches too).
 
 K8 does not read the deposit planes (1 KB a piece, a byte a lane, almost
 all empty). At init the engine derives from them, on the device, its
@@ -232,9 +233,9 @@ class TropicalSpMV:
                   if self.triples else None),
             c_win=dev(lay.c_win), sort2=dev(lay.sort2),
             rowids=dev(lay.rowids))
-        self.launches = {"fused": 0, "fused_pred": 0, "xperm": 0,
-                         "scatter": 0, "scatter_pred": 0, "split": 0,
-                         "split_triples": 0, "window_reduce": 0}
+        self.launches = _build.Launches("tropical", (
+            "fused", "fused_pred", "xperm", "scatter", "scatter_pred",
+            "split", "split_triples", "window_reduce"))
         self.planar.launches = self.launches
         self._split_index = None
         self._reduce_index = None
@@ -308,25 +309,25 @@ class TropicalSpMV:
         g1 = g1.reshape(-1)
         if not self._check_stream(g1, self.g1_numel, "g1"):
             return self.split_plain(g1)
-        g2 = torch.zeros(self.nchunks2 * CHUNK, dtype=torch.int32,
-                         device=g1.device)
-        stream = torch.cuda.current_stream(g1.device).cuda_stream
-        lib = _build.library()
-        if self.triples:
-            name = "split_triples"
-            rc = lib.glt_tropical_split_triples(
-                a.rg2.data_ptr(), a.tri2.data_ptr(), a.xsort2.data_ptr(),
-                a.in_order.data_ptr(), a.target2.data_ptr(), g1.data_ptr(),
-                g2.data_ptr(), self.nsteps2, self.kb, self.rstep2,
-                self.dstep2, stream)
-        else:
-            name = "split"
-            p = a.split
-            rc = lib.glt_tropical_split(
-                p.pieces.data_ptr(), p.runs.data_ptr(), p.lanes.data_ptr(),
-                g1.data_ptr(), g2.data_ptr(), p.pieces.shape[0], stream)
-        self.planar._raise_on(rc, f"glt_tropical_{name}")
-        self.launches[name] += 1
+        name = "split_triples" if self.triples else "split"
+        with self.launches(name):
+            g2 = torch.zeros(self.nchunks2 * CHUNK, dtype=torch.int32,
+                             device=g1.device)
+            stream = torch.cuda.current_stream(g1.device).cuda_stream
+            lib = _build.library()
+            if self.triples:
+                rc = lib.glt_tropical_split_triples(
+                    a.rg2.data_ptr(), a.tri2.data_ptr(), a.xsort2.data_ptr(),
+                    a.in_order.data_ptr(), a.target2.data_ptr(),
+                    g1.data_ptr(), g2.data_ptr(), self.nsteps2, self.kb,
+                    self.rstep2, self.dstep2, stream)
+            else:
+                p = a.split
+                rc = lib.glt_tropical_split(
+                    p.pieces.data_ptr(), p.runs.data_ptr(),
+                    p.lanes.data_ptr(), g1.data_ptr(), g2.data_ptr(),
+                    p.pieces.shape[0], stream)
+            self.planar._raise_on(rc, f"glt_tropical_{name}")
         return g2.view(self.nchunks2, S, L)
 
     # ---- K10 window reduce ---------------------------------------------------
@@ -337,14 +338,14 @@ class TropicalSpMV:
         g2 = g2.reshape(-1)
         if not self._check_stream(g2, self.nchunks2 * CHUNK, "g2"):
             return self.window_reduce_plain(g2)
-        out = torch.zeros(self.num_windows * L, dtype=torch.int32,
-                          device=g2.device)
-        rc = _build.library().glt_tropical_window_reduce(
-            a.c_win.data_ptr(), g2.data_ptr(), a.sort2.data_ptr(),
-            a.rowids.data_ptr(), out.data_ptr(), self.nchunks2,
-            torch.cuda.current_stream(g2.device).cuda_stream)
-        self.planar._raise_on(rc, "glt_tropical_window_reduce")
-        self.launches["window_reduce"] += 1
+        with self.launches("window_reduce"):
+            out = torch.zeros(self.num_windows * L, dtype=torch.int32,
+                              device=g2.device)
+            rc = _build.library().glt_tropical_window_reduce(
+                a.c_win.data_ptr(), g2.data_ptr(), a.sort2.data_ptr(),
+                a.rowids.data_ptr(), out.data_ptr(), self.nchunks2,
+                torch.cuda.current_stream(g2.device).cuda_stream)
+            self.planar._raise_on(rc, "glt_tropical_window_reduce")
         return out
 
     # ---- plain PyTorch versions ----------------------------------------------

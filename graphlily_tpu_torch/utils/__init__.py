@@ -1,1 +1,1 @@
-from .profiling import PhaseTimer, sync, dispatch_floor_ms
+from .profiling import span

@@ -306,19 +306,6 @@ def _jax_app(cls, graph):
     return app
 
 
-def _count_calls(monkeypatch, module, name):
-    """Count the calls of a module method (the push or pull steps)."""
-    calls = [0]
-    fn = getattr(module, name)
-
-    def counted(*args, **kw):
-        calls[0] += 1
-        return fn(*args, **kw)
-
-    monkeypatch.setattr(module, name, counted)
-    return calls
-
-
 @pytest.mark.parametrize("case", list(PUSH_CASES))
 @pytest.mark.parametrize("sort", SORT, ids=["plain", "degree_sorted"])
 def test_bfs_push_and_pull_push_match(sort, case):
@@ -359,29 +346,6 @@ def test_bfs_push_and_pull_push_match(sort, case):
         np.testing.assert_array_equal(app.pull_push(src, 1), one)
         assert (want > 0).sum() > 1
     assert not any(app.SpMSpV_.engine.launches.values())
-
-
-@pytest.mark.parametrize("threshold", [0.0, 0.05, 1.0])
-@pytest.mark.parametrize("app_cls", [BFS, SSSP], ids=["bfs", "sssp"])
-def test_pull_push_time_breakdown_counts(app_cls, threshold, monkeypatch):
-    """The breakdown runs the fused run's iterations (push while
-    it + 1 < n and the frontier is sparse) and returns its distances."""
-    app = app_cls(tg.EngineConfig(device="cpu"))
-    app.load_and_format_matrix(_graph())
-    pushes = _count_calls(monkeypatch, app.SpMSpV_, "apply_dense")
-    got = app.pull_push(3, 6, threshold)
-    n_push = pushes[0]
-    bd = app.pull_push_time_breakdown(3, 6, threshold)
-    assert bd["push_iterations"] == n_push
-    assert bd["pull_iterations"] == 6 - n_push
-    assert n_push == {0.0: 1, 1.0: 5}.get(threshold, n_push)
-    assert bd["calls"]["nnz_readback"] == n_push
-    assert bd["calls"]["spmv"] == 6 - n_push
-    np.testing.assert_array_equal(bd["distance"], got)
-    np.testing.assert_array_equal(got,
-                                  app.compute_reference_results(3, 6))
-    assert bd["dispatch_floor_ms"] > 0 and bd["total_ms"] > 0
-    assert set(bd["phases_ms"]) >= {"push_spmspv", "nnz_readback"}
 
 
 @pytest.mark.parametrize("engine", ["auto", "xla"])
