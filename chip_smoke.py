@@ -111,7 +111,11 @@ Phases, one or more lines each:
                chunk_order="col" layout) push(0, 7) and pull_push(0, 7)
                (K7p, ADDMIN) and BFS push on googleplus at scale 0.1 (K7p,
                ANDOR); the col layout's chunks and the batches a 1-vertex
-               frontier keeps
+               frontier keeps; every launch of SSSP's relax kernel
+               (sssp_relax) held bit for bit against its plain version on
+               that launch's own y and distance, one a push step, and its
+               time on the last push step's y and distance (wrapper calls
+               and device time) beside the plain version's and the bound
   17. kernels  each predicated kernel against its plain version and the
                unpredicated kernel for three frontiers (empty, 1 vertex,
                5% of the columns), and their times (CUDA events, min over
@@ -124,7 +128,8 @@ Phases, one or more lines each:
                pass-1 forms (row, tile and store: init s, MB);
                pull(0, 11), push(0, 11) and pull_push(0, 11, 0.05)
                bit-equal to the oracle; their launches: the walk (fused,
-               fused_pred) and no three-pass stage
+               fused_pred) and no three-pass stage; SSSP's relax kernel
+               held to its plain version as in phase 16
   19. kernels  pokec: the walk bit-equal to its plain version and to the
                three kernels' out; K4 scatter ADDMIN's stream, K8's window
                stream and K10's maxima bit-equal to their plain versions;
@@ -210,6 +215,7 @@ PLANAR_SRC = "graphlily_tpu_torch/csrc/planar_spmv.cu"
 CHUNKED_SRC = "graphlily_tpu_torch/csrc/chunked_spmv.cu"
 TROPICAL_SRC = "graphlily_tpu_torch/csrc/tropical_spmv.cu"
 PERMC_SRC = "graphlily_tpu_torch/csrc/permc_spmv.cu"
+SSSP_SRC = "graphlily_tpu_torch/csrc/sssp_relax.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K1_router_fused": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:419"),
     "K2_router_scatter": (ROUTER_SRC,
@@ -270,6 +276,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                               "graphlily_tpu/ops/router_pallas.py:1459"),
     "K4p_planar_fused_pred_permc": (
         ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:1459"),
+    # SSSP's push-step relax: no Pallas kernel; the JAX app's relax is jnp
+    # glue that XLA fuses
+    "sssp_relax": (SSSP_SRC, "none (graphlily_tpu/apps/sssp.py:112-115, "
+                   "jnp glue)"),
 }
 BUCKET_SCALE = 0.25  # the pokec stand-in's cut for the "bucket" deal
 # kernels held to their plain versions that no app path launches: K5, whose
@@ -351,6 +361,58 @@ def reset(engines) -> None:
     for eng in engines:
         for key in eng.launches:
             eng.launches[key] = 0
+
+
+class SSSPKernelCheck:
+    """While open, every call of `ops.sssp_relax.relax` by the apps is
+    held bit for bit against `relax_plain` on that call's own y and
+    distance, cloned before the in-place launch: distance, frontier and
+    count. Counts the calls and keeps the last call's inputs."""
+
+    def __init__(self, torch):
+        from graphlily_tpu_torch.ops import sssp_relax
+        self.torch, self.mod = torch, sssp_relax
+        self.calls, self.last = 0, None
+
+    def _relax(self, y, distance, count, launches):
+        m, torch = self.mod, self.torch
+        y0, d0, c0 = y.clone(), distance.clone(), int(count)
+        out = self.real(y, distance, count, launches)
+        want_d, want_f, want_c = m.relax_plain(y0, d0)
+        bit_equal(torch, "sssp_relax distance", distance, want_d)
+        bit_equal(torch, "sssp_relax frontier", y, want_f)
+        if int(count) - c0 != int(want_c):
+            raise AssertionError(f"sssp_relax counted {int(count) - c0}, "
+                                 f"plain {int(want_c)}")
+        self.calls += 1
+        self.last = (y0, d0)
+        return out
+
+    def __enter__(self):
+        self.real, self.mod.relax = self.mod.relax, self._relax
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.relax = self.real
+
+
+def device_us(torch, fn, name: str, iters: int = 100) -> float:
+    """Mean device µs of the kernels whose name holds `name`, over
+    `iters` profiled calls of `fn`."""
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name]
+    if len(times) != iters:
+        raise AssertionError(f"{name}: {len(times)} device events for "
+                             f"{iters} calls")
+    return sum(times) / iters
 
 
 def gteps(nnz: int, ms: float) -> str:
@@ -580,7 +642,7 @@ def main(argv=None) -> int:
     gp = googleplus(torch, args, rec, card)
     pk = pokec(torch, args, rec, card)
     ch = chunked(torch, args, rec, card, gp)
-    push_paths(torch, args, gp, pk, ch, rec)
+    push_paths(torch, args, gp, pk, ch, rec, card)
     predicated_kernels(torch, rec, card, gp, pk, ch)
     tropical(torch, args, rec, card, pk)
     permc(torch, args, rec, card, pk)
@@ -1228,7 +1290,8 @@ def frontier_x(torch, ncols: int, kind: str, zero: float, rng):
     return torch.from_numpy(x).to("cuda")
 
 
-def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict) -> None:
+def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict,
+               card: str) -> None:
     """Phases 14-16: push and pull_push through the public API, with the
     launch counters set to 0 just before each path and read just after."""
     from graphlily_tpu_torch.io import ICCAD_GRAPHS
@@ -1300,7 +1363,8 @@ def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict) -> None:
             raise AssertionError("SpMSpV did not pack a chunk_order='col' "
                                  "layout")
     iters = ICCAD_GRAPHS["googleplus"]["iters"]
-    act = seng.tile_activity(sssp._init_distance(sssp._internal_source(0)))
+    act = seng.tile_activity(
+        sssp._init_state(sssp._internal_source(0), 0)[0])
     log(f"phase 16 sssp SpMSpV layout (chunk_order=col): "
         f"chunks={seng.num_chunks} batches={seng.num_chunks // 32} "
         f"col_tiles={seng.nct}; a 1-vertex frontier keeps "
@@ -1308,14 +1372,26 @@ def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict) -> None:
         f"{int(seng.active_chunks(act).sum())} chunks")
     want = sssp.compute_reference_results(0, iters)
     want_small = small.compute_reference_results(0, iters)
-    reset((seng, beng))
-    runs = {"push": sssp.push(0, iters), "pull_push": sssp.pull_push(0, iters)}
+    reset((seng, beng, sssp))
+    with SSSPKernelCheck(torch) as chk:
+        runs = {"push": sssp.push(0, iters)}
+        if chk.calls != iters:
+            raise AssertionError(f"sssp push(0, {iters}) relaxed "
+                                 f"{chk.calls} times")
+        runs["pull_push"] = sssp.pull_push(0, iters)
     dist_small = small.push(0, iters)
     torch.cuda.synchronize()
+    if sssp.launches["relax"] != chk.calls:
+        raise AssertionError(f"sssp launches {dict(sssp.launches)}, relax "
+                             f"calls {chk.calls}")
     rec["K7p_chunked_pred"]["launches"] = (seng.launches["chunked_pred"]
                                            + beng.launches["chunked_pred"])
+    rec["sssp_relax"]["launches"] = sssp.launches["relax"]
     log(f"phase 16 launches: sssp SpMSpV {seng.launches} small bfs SpMSpV "
-        f"{beng.launches}")
+        f"{beng.launches} sssp {dict(sssp.launches)}: one relax a push step "
+        f"({iters} for push, {chk.calls - iters} for pull_push), each "
+        f"bit-equal to its plain version on its own inputs")
+    sssp_relax_times(torch, chk, rec, card)
     for label, dist in runs.items():
         check_close(f"sssp {label}", dist, want, exact=True)
     check_close("small bfs push", dist_small, want_small, exact=True)
@@ -1323,6 +1399,31 @@ def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict) -> None:
         f"the oracle ({int((want < float(FLOAT_INF)).sum())} reached); bfs "
         f"push(0, {iters}) at scale {0.1 * args.scale:g} on K7p (ANDOR) "
         f"equal to the oracle; ok")
+
+
+def sssp_relax_times(torch, chk: SSSPKernelCheck, rec: dict,
+                     card: str) -> None:
+    """Phase 16's time of SSSP's relax kernel on the main path's last push
+    step's y and distance (repeated calls move the same bytes), beside
+    its plain version and its bound."""
+    from graphlily_tpu_torch.ops import _build
+    m = chk.mod
+    y0, d0 = chk.last
+    n = d0.numel()
+    launches = _build.Launches("sssp", ("relax",))
+    y, d = y0.clone(), d0.clone()
+    slot = torch.zeros(1, dtype=torch.int32, device=d0.device)
+    r = rec["sssp_relax"]
+    r["err"] = 0.0   # bit-equal on every launch (SSSPKernelCheck)
+    r["ms"] = time_ms(torch, lambda: m.relax(y, d, slot[0], launches))
+    r["plain_ms"] = time_ms(torch, lambda: m.relax_plain(y0, d0))
+    set_bound(r, 16 * n, n)
+    us = device_us(torch, lambda: m.relax(y, d, slot[0], launches),
+                   "sssp_relax_kernel")
+    log(f"phase 16 sssp_relax (n={n}): {r['ms']:.4f} ms a wrapper call, "
+        f"device {us:.2f} us a launch; plain {r['plain_ms']:.4f} ms; bound "
+        f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {16 * n / 1e6:.2f} MB); "
+        f"card {card}")
 
 
 def predicated_kernels(torch, rec: dict, card: str, gp: dict, pk: dict,
@@ -1625,10 +1726,17 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         f"(K8's compact form {eng.init_seconds:.2f} s); "
         f"nnz={eng.nnz} {tropical_facts(eng)}; pass 1 "
         f"{planar_form(eng.planar)}")
-    reset((eng,))
-    runs = {"pull": sssp.pull(0, iters), "push": sssp.push(0, iters),
-            "pull_push": sssp.pull_push(0, iters, threshold=0.05)}
+    reset((eng, sssp))
+    with SSSPKernelCheck(torch) as chk:
+        runs = {"pull": sssp.pull(0, iters), "push": sssp.push(0, iters),
+                "pull_push": sssp.pull_push(0, iters, threshold=0.05)}
     torch.cuda.synchronize()
+    if sssp.launches["relax"] != chk.calls or chk.calls < iters:
+        raise AssertionError(f"pokec sssp launches {dict(sssp.launches)}, "
+                             f"relax calls {chk.calls}")
+    rec["sssp_relax"]["launches"] += sssp.launches["relax"]
+    log(f"phase 18 launches: pokec sssp {dict(sssp.launches)}, each relax "
+        f"bit-equal to its plain version on its own inputs")
     launches = dict(eng.launches)
     check_walk_only("pokec sssp", launches)
     rec["K4_planar_fused_addmin"]["launches"] = launches["fused"]

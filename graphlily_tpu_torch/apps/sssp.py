@@ -15,17 +15,24 @@ nnz is the improved count. pull_push pushes while the frontier is sparse
 (one 4-byte nnz read per push step), then pulls, with JAX's fused-loop
 iteration semantics (see apps/bfs.py). The JAX app's loops are plain
 loops of launches here.
+
+The query's state lives on the engines' device (ops/sssp_relax.py):
+`init_state` writes the initial distance there and zeroes one int32 count
+slot per iteration. On the card `relax` relaxes in place after each
+SpMSpV, one kernel launch counted in the app's `launches["relax"]` (span
+`ops.sssp.relax`), and adds the improved count to the step's slot, which
+pull_push reads; CPU tensors take `relax_plain`.
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..config import EngineConfig, DEFAULT_CONFIG
 from ..semiring import TropicalSemiring, MaskType
 from ..io.matrix import CSRMatrix, csr2csc, load_csr_matrix_from_float_npz
 from ..io.formatter import util_round_csr_matrix_dim, add_self_edges_for_sssp
 from ..module import SpMVModule, SpMSpVModule
+from ..ops import _build, sssp_relax
 from ..utils.profiling import span
 from .bfs import keep_pushing
 from .module_collection import ModuleCollection
@@ -45,6 +52,7 @@ class SSSP(ModuleCollection):
         self.add_module(self.SpMSpV_)
         self.matrix_num_rows_ = 0
         self.matrix_num_cols_ = 0
+        self.launches = _build.Launches("sssp", ("relax",))
 
     def get_nnz(self) -> int:
         return self.SpMV_.get_nnz()
@@ -73,22 +81,19 @@ class SSSP(ModuleCollection):
         self.SpMV_.send_matrix_host_to_device()
         self.SpMSpV_.send_matrix_host_to_device()
 
-    def _init_distance(self, source: int) -> torch.Tensor:
+    def _init_state(self, source: int, slots: int):
+        """(distance, `slots` zeroed count slots)."""
         with span("apps.init"):
-            d = torch.full((self.matrix_num_rows_,), self.semiring_.zero,
-                           dtype=self.config.torch_dtype)
-            d[source] = 0
-            return d.to(self.device)
+            return sssp_relax.init_state(self.matrix_num_rows_, source, slots,
+                                         self.config.torch_dtype, self.device)
 
-    def _relax(self, y, distance):
-        """(distance, new frontier, improved): the frontier's nnz is
-        improved.sum()."""
-        improved = y < distance
-        return (torch.where(improved, y, distance),
-                torch.where(improved, y, self.semiring_.zero), improved)
-
-    def _push_step(self, frontier, distance):
-        return self._relax(self.SpMSpV_.apply_dense(frontier), distance)
+    def _push_step(self, frontier, distance, counts, k: int):
+        """(distance, new frontier, its nnz as a 0-dim tensor); on the
+        card the relax runs in place and counts into slot k."""
+        y = self.SpMSpV_.apply_dense(frontier)
+        if not y.is_cuda:
+            return sssp_relax.relax_plain(y, distance)
+        return sssp_relax.relax(y, distance, counts[k], self.launches)
 
     def _result(self, distance, device_output: bool):
         if device_output:
@@ -102,7 +107,7 @@ class SSSP(ModuleCollection):
         `device_output` the device tensor comes back, in the relabeled
         vertex order and without a host copy."""
         with span("apps.sssp.pull"):
-            distance = self._init_distance(self._internal_source(source))
+            distance, _ = self._init_state(self._internal_source(source), 0)
             for _ in range(num_iterations):
                 with span("apps.pull_step"):
                     distance = self.SpMV_.apply(distance)
@@ -113,12 +118,13 @@ class SSSP(ModuleCollection):
         """`num_iterations` relaxations from the frontier only; the first
         frontier is the source at distance 0."""
         with span("apps.sssp.push"):
-            distance = self._init_distance(self._internal_source(source))
+            distance, counts = self._init_state(
+                self._internal_source(source), num_iterations)
             frontier = distance
-            for _ in range(num_iterations):
+            for k in range(num_iterations):
                 with span("apps.push_step"):
-                    distance, frontier, _ = self._push_step(frontier,
-                                                            distance)
+                    distance, frontier, _ = self._push_step(
+                        frontier, distance, counts, k)
             return self._result(distance, device_output)
 
     def pull_push(self, source: int, num_iterations: int,
@@ -126,15 +132,16 @@ class SSSP(ModuleCollection):
         """Push while the frontier is sparse, then pull on the distances."""
         with span("apps.sssp.pull_push"):
             n = self.matrix_num_rows_
-            distance = self._init_distance(self._internal_source(source))
+            # a slot per push step: at most max(1, num_iterations - 1)
+            distance, counts = self._init_state(
+                self._internal_source(source), max(num_iterations, 1))
             frontier = distance
             it = 0
             while True:
                 it += 1
                 with span("apps.push_step"):
-                    distance, frontier, improved = self._push_step(
-                        frontier, distance)
-                    count = improved.sum()
+                    distance, frontier, count = self._push_step(
+                        frontier, distance, counts, it - 1)
                     with span("apps.host_read"):
                         nnz = int(count)
                 if not keep_pushing(it, num_iterations, nnz, n, threshold):

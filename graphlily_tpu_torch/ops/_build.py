@@ -59,6 +59,8 @@ SIGNATURES = {
     "glt_tropical_split": [_P] * 5 + [_I] + [_P],
     "glt_tropical_split_triples": [_P] * 7 + [_I] * 4 + [_P],
     "glt_tropical_window_reduce": [_P] * 5 + [_I] + [_P],
+    # sssp_relax.cu: SSSP's push-step relax
+    "glt_sssp_relax": [_P] * 3 + [_I, _F, _P],
 }
 
 
@@ -136,6 +138,15 @@ def library() -> types.SimpleNamespace:
         fns[name] = fn
     # the CDLL handles stay referenced so the libraries stay loaded
     return types.SimpleNamespace(libraries=libs, **fns)
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry point `name` (its last argument the CUDA stream)
+    and raise if the launch failed."""
+    rc = getattr(library(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
 
 
 class Launches(dict):

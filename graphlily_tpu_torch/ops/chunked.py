@@ -212,13 +212,9 @@ class ChunkedSpMV:
                                        a.seg_y, a.r, a.rows, a.vals, x, y)]
         if act is not None:
             ptrs.append(act.data_ptr())
-        rc = getattr(_build.library(), name)(
-            *ptrs, a.blocks.shape[0], a.max_segments, int(self.semiring.op),
-            float(self.semiring.zero),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
-                               f"error {rc}")
+        _build.launch(name, *ptrs, a.blocks.shape[0], a.max_segments,
+                      int(self.semiring.op), float(self.semiring.zero),
+                      torch.cuda.current_stream(x.device).cuda_stream)
         return y
 
     # ---- K7p: SpMSpV over the active column tiles ------------------------

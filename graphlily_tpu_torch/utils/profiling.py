@@ -15,7 +15,8 @@ yet (ROADMAP queue 1, item 10).
   module.spmv          SpMVModule.apply
   module.spmspv        SpMSpVModule.apply_dense and apply
   ops.<engine>.<key>   one kernel launch, counted in the engine's
-                       `launches[key]` (ops/_build.Launches)
+                       `launches[key]` (ops/_build.Launches); SSSP's relax
+                       kernel as `ops.sssp.relax`, in `SSSP.launches`
 """
 from __future__ import annotations
 
