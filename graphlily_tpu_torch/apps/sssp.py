@@ -7,14 +7,14 @@ engine while its layout is feasible (up to 700,000 rows and 2 GB) and
 for the tropical engine past that (ops/tropical.py: the pokec stand-in
 and larger); the SpMSpV module packs its own chunked twin or shares the
 tropical engine. Pull is distance = A (min,+) distance. Push relaxes
-through the SpMSpV module (K7p on the chunked engine, K4p scatter ->
-K8/K9 -> K10 on the tropical one): with
-y = A (min,+) frontier, improved = y < distance, the distance takes y
-where improved, the new frontier is y there and INF elsewhere, and its
-nnz is the improved count. pull_push pushes while the frontier is sparse
-(one 4-byte nnz read per push step), then pulls, with JAX's fused-loop
-iteration semantics (see apps/bfs.py). The JAX app's loops are plain
-loops of launches here.
+through the SpMSpV module (K7p on the chunked engine, the predicated
+walk `TropicalSpMV.call_predicated`, K4p fused ADDMIN, on the tropical
+one): with y = A (min,+) frontier, improved = y < distance, the distance
+takes y where improved, the new frontier is y there and INF elsewhere,
+and its nnz is the improved count. pull_push pushes while the frontier
+is sparse (one 4-byte nnz read per push step), then pulls, with JAX's
+fused-loop iteration semantics (see apps/bfs.py). The JAX app's loops
+are plain loops of launches here.
 
 The query's state lives on the engines' device (ops/sssp_relax.py):
 `init_state` writes the initial distance there and zeroes one int32 count

@@ -11,7 +11,7 @@ reduce of the planar router (K3, K4 fused) adds. The tropical engine keeps
 the planar pass 1 and replaces the reduce with two passes built here:
 
   1. PASS 1, planar (io/planar_format.pack_planar with hi_pad=-1 and
-     pad_val=FLOAT_INF): values ride raw, clipped to [0, FLOAT_INF]; the
+     pad_val=FLOAT_INF): values ride raw, >= 0 and clipped to FLOAT_INF; the
      K4 scatter writes each product's exact int32 encoding
      E = INF_BITS - bits(min(val + x, FLOAT_INF)) (semiring.tropical_encode),
      which reverses the order of non-negative floats, so the min becomes
@@ -588,14 +588,21 @@ def pack_tropical(csr: CSRMatrix, config=DEFAULT_CONFIG,
                   region_rows: int | None = None, kb: int = 16,
                   split_format: str | None = None) -> TropicalSpMVLayout:
     """Pack for the tropical engine. Values ride raw, clipped to
-    [0, FLOAT_INF], with FLOAT_INF, the tropical annihilator, in empty
-    A-value slots; x must be >= 0 (distances). The pass-1 deal is
+    FLOAT_INF, with FLOAT_INF, the tropical annihilator, in empty
+    A-value slots. A negative stored value raises: the int32 encoding
+    orders only non-negative floats, so the walk's minima would be wrong
+    (ROADMAP queue 3, F2). x must be >= 0 too (distances), which is not
+    checked: that would take a host sync a call. The pass-1 deal is
     `config.planar_deal`; `split_format` overrides
     `config.tropical_split_format`. In the "triples" format the pass-1
     planes are packed to triple-run words too (`planar.triples`,
     `planar.planes` emptied)."""
     work = csr.copy()
     vals = work.adj_data[:work.nnz]
+    negative = int(np.count_nonzero(vals < 0))
+    if negative:
+        raise ValueError(f"the tropical engine needs stored values >= 0: "
+                         f"{negative} of {work.nnz} are negative")
     work.adj_data[:work.nnz] = np.clip(vals, 0.0, FLOAT_INF)
     if region_rows is None:
         region_rows = choose_tropical_region_rows(

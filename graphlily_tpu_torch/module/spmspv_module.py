@@ -10,9 +10,10 @@ their frontier-predicated kernels, so its work follows the frontier's
 footprint: K7p over the chunks of active column tiles (chunked engine,
 chunk_order="col" layout), K1p/K2p -> K3p over the live
 deposits of active pages (roll router), K4p -> K3p over the pieces of
-active tiles (planar router), K4p scatter (ADDMIN) -> K8/K9 -> K10 over the
-pieces of active tiles (tropical engine: a tile is active where some x
-differs from FLOAT_INF). The COO engine ("xla") compacts the frontier and
+active tiles (planar router), the predicated walk over the elements of
+active tiles (tropical engine, `TropicalSpMV.call_predicated`: K4p fused
+ADDMIN, K1p's kernel; a tile is active where some x differs from
+FLOAT_INF). The COO engine ("xla") compacts the frontier and
 runs `spmspv_coo`. JAX's `simulate_ufixed` branch (the reference's
 fixed-point value type) waits for ROADMAP queue 1, item 10: the port's
 `EngineConfig` has no such field.

@@ -16,12 +16,13 @@ each product's exact int32 encoding E = INF_BITS - bits(min(val + x,
 FLOAT_INF)) (semiring.tropical_encode, csrc/semiring_product.cuh),
 folded by row with int32 max and one atomicMax a run into a zeroed out,
 K10's own reduction. The int32 max is exact in any order, so `out` is
-bit-equal to the three passes' on every x, negative entries and F2's
-clipped weights included (ROADMAP queue 3 F2 is the reference's fault,
-and the walk keeps the port equal to it). SpMSpV (`call_predicated`) is the
-predicated walk, `fused_predicated` (K1p's kernel) over the tile form
-`pred_entries` (windows of one 1,024-column tile, each segment flagged
-by its tile, the activity unit): a dead tile's elements are not read.
+bit-equal to the three passes' on every x, negative entries included
+(ROADMAP queue 3 F2: the reference's wrong minima there, which the walk
+keeps; `pack_tropical` refuses a negative stored value). SpMSpV
+(`call_predicated`) is the predicated walk, `fused_predicated` (K1p's
+kernel) over the tile form `pred_entries` (windows of one 1,024-column
+tile, each segment flagged by its tile, the activity unit): a dead
+tile's elements are not read.
 Their plain version (`fused_plain`, the CPU path) is scatter_reduce_
 amax of the encodings over the form. Each launch counts as `fused` or
 `fused_pred`.
@@ -46,7 +47,9 @@ pipeline (tropical_pallas.py:513-564):
               out[num_windows * 128];
 
 then y = bits^-1(INF_BITS - out) and the SpMV mask, as torch ops (after
-the walk too). The walk's out has the pass-1 regions' rows (out_len),
+the walk too, in the span `tropical.decode`; SpMSpV's tile activity runs
+in `tropical.activity`: spans of the engine's glue, which count no
+launch). The walk's out has the pass-1 regions' rows (out_len),
 K10's the windows' (num_windows * 128): both index global rows, window w
 holding rows 128w..128w+127, and init checks that the regions cover
 the windows, so K10's out is a prefix of the walk's and the rows past it
@@ -91,6 +94,7 @@ from ..io.planar_format import S, L
 from ..io.router_format import CHUNK, deposit_targets
 from ..semiring import (Semiring, OpType, MaskType, apply_mask, FLOAT_INF,
                         tropical_decode)
+from ..utils.profiling import span
 from . import _build
 from .planar import PlanarSpMV, run_words
 
@@ -444,13 +448,15 @@ class TropicalSpMV:
                         mask_type: MaskType | None = None) -> torch.Tensor:
         """One SpMSpV on a dense frontier (x = FLOAT_INF off the frontier):
         `__call__`'s result, through the walk of the active tiles."""
-        return self._finish(self.fused_predicated(x, self.activity(x)),
-                            mask, mask_type)
+        with span("tropical.activity"):
+            act = self.activity(x)
+        return self._finish(self.fused_predicated(x, act), mask, mask_type)
 
     def _finish(self, out, mask, mask_type) -> torch.Tensor:
         """Decode and the SpMV mask."""
-        y = tropical_decode(out)[:self.num_rows]
-        mt = self.mask_type if mask_type is None else mask_type
-        if mask is not None and mt != MaskType.NO_MASK:
-            y = apply_mask(y, mask, mt, self.semiring.zero)
-        return y
+        with span("tropical.decode"):
+            y = tropical_decode(out)[:self.num_rows]
+            mt = self.mask_type if mask_type is None else mask_type
+            if mask is not None and mt != MaskType.NO_MASK:
+                y = apply_mask(y, mask, mt, self.semiring.zero)
+            return y

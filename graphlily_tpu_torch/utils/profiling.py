@@ -17,6 +17,9 @@ yet (ROADMAP queue 1, item 10).
   ops.<engine>.<key>   one kernel launch, counted in the engine's
                        `launches[key]` (ops/_build.Launches); SSSP's relax
                        kernel as `ops.sssp.relax`, in `SSSP.launches`
+  tropical.activity    the tropical engine's SpMSpV tile activity (torch
+                       ops, no launch counted)
+  tropical.decode      its decode and mask after each walk (the same)
 """
 from __future__ import annotations
 

@@ -10,8 +10,10 @@ here:
   * bit-equal to the three-pass plain versions,
     window_reduce(split(scatter(x))), on the tropical fixtures, both split
     formats and the "free" and "bucket" deals, on x >= 0 and on negative
-    x and stored values (ROADMAP queue 3 F2: the reference's wrong minima,
-    which the port keeps equal to JAX's). The walk's out spans the pass-1
+    x (ROADMAP queue 3 F2: the reference's wrong minima, which the port
+    keeps equal to JAX's; `pack_tropical` refuses negative stored values,
+    and a graph whose negative weights the caller clipped to 0 keeps the
+    equality). The walk's out spans the pass-1
     regions' rows: K10's out is its prefix, and the rows past it hold 0;
   * predicated at empty, one-vertex and 5% frontiers, bit-equal to the
     unpredicated walk;
@@ -96,11 +98,15 @@ def test_walk_plain_equals_three_pass_plain(name, fmt, deal, sign):
 
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_walk_on_negative_stored_values(fmt):
-    """F2's input: a graph with negative weights (the pack clips them to
-    0) and a negative x. The walk keeps the three passes' wrong minima bit
-    for bit."""
+    """F2's input: a graph with negative weights and a negative x. The pack
+    refuses the negative weights; clipped to 0 by the caller, as the pack
+    once did itself, they give a graph on which the walk keeps the three
+    passes' wrong minima on a negative x bit for bit."""
     g = rmat_csr(3000, 20000, seed=3)
     g.adj_data[:g.nnz:4] *= -1
+    with pytest.raises(ValueError, match="stored values >= 0"):
+        pack_tropical(g, tg.EngineConfig(), split_format=fmt)
+    g.adj_data[:g.nnz] = np.maximum(g.adj_data[:g.nnz], 0)
     eng = TropicalSpMV(pack_tropical(g, tg.EngineConfig(), split_format=fmt),
                        tg.TropicalSemiring, CPU)
     x = torch.from_numpy(_negative_x(eng.num_cols))
