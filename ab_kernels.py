@@ -82,6 +82,16 @@ new, old (CUDA events, min over 5 reps of 100 calls each). Rows:
                    init seconds, and K10 alone (the same kernel in both
                    trees)
 
+`--graphs graph500` (beside or in place of `standin`) adds the K1, K4
+fused and walk rows (`--kernels router planar walk`) on the benchmark's
+own graphs, drawn on the card by bench_torch's Kronecker generator from
+one seed and formatted as their cells format them: K1 on
+graph500-s18's PageRank layout (the roll router), K4 fused and K4p fused
+on graph500-s19's ("free"), the tropical engine call and SpMSpV on
+graph500-s19-k3's SSSP layout. Each tree's K1 kernels are logged first
+with the registers and spills ptxas reported and the blocks an SM holds
+by registers.
+
 `--entries E ...` also times this tree's chunked kernel with other block
 sizes (real entries per block). Prints one line per row and writes them
 to chiprun_out/ab_kernels.json.
@@ -92,7 +102,7 @@ before and after the new tree, as the parent).
 Usage: python3 ab_kernels.py --parent _archive_check/parent [--scale S]
        [--variant DIR ...] [--entries 1024 2048 4096]
        [--kernels chunked planar router tropical scatter tile walk reduce]
-       [--ablations]
+       [--graphs standin graph500] [--ablations]
 """
 from __future__ import annotations
 
@@ -112,6 +122,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 KERNELS = ["chunked", "planar", "router", "tropical", "scatter", "tile",
            "walk", "reduce"]
+GRAPHS = ["standin", "graph500"]
 
 
 def log(msg: str) -> None:
@@ -203,6 +214,39 @@ def ablation_tree(name: str, base: Path = ROOT):
     return load_package(root, f"glt_ablate_{name}")
 
 
+def log_registers(trees: dict) -> None:
+    """Each tree's K1 kernels as ptxas built them (the build log of
+    csrc/router_spmv.cu): registers, spills, and the blocks of 256 threads
+    an SM holds by its 65,536 registers (allocated 256 a warp) and its
+    2,048 threads."""
+    import re
+    for k, pkg in trees.items():
+        b = pkg.ops._build
+        log_file = b.library_path(b.CSRC_DIR / "router_spmv.cu").with_suffix(
+            ".log")
+        name = spill = None
+        for line in log_file.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name, spill = m.group(1), None
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name and "router_fused" in name:
+                regs = int(m.group(1))
+                warp = -(-regs * 32 // 256) * 256
+                try:
+                    full = subprocess.run(["c++filt", name],
+                                          capture_output=True, text=True,
+                                          check=True).stdout
+                    name = re.search(r"router_fused\w*<[^>]*>", full).group(0)
+                except (OSError, subprocess.SubprocessError, AttributeError):
+                    pass
+                log(f"{k}: {name}: {regs} registers, {spill} bytes spilled, "
+                    f"{min(8, 65536 // warp // 8)} blocks an SM by registers")
+
+
 def time_ms(torch, fn, iters: int = 100, reps: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
@@ -219,16 +263,11 @@ def time_ms(torch, fn, iters: int = 100, reps: int = 5) -> float:
     return best
 
 
-def capture_layouts(scale: float, kernels) -> dict:
-    """Pack every layout the A/B's `kernels` need through the public apps,
-    recording what the modules' packers return."""
-    from graphlily_tpu_torch import EngineConfig, ArithmeticSemiring
-    from graphlily_tpu_torch.apps import SSSP, PageRank, BFS
-    from graphlily_tpu_torch.io import (iccad_standin, degree_sort_permutation,
-                                        symmetric_permute,
-                                        util_round_csr_matrix_dim)
-    from graphlily_tpu_torch.module import (SpMVModule, spmv_module,
-                                            spmspv_module)
+def capture_layouts(scale: float, kernels, graphs) -> dict:
+    """Pack every layout the A/B's `kernels` need on the `graphs` ("standin",
+    "graph500") through the public apps, recording what the modules'
+    packers return."""
+    from graphlily_tpu_torch.module import spmv_module, spmspv_module
     got = []
     saved = {}
     for mod in (spmv_module, spmspv_module):
@@ -242,69 +281,135 @@ def capture_layouts(scale: float, kernels) -> dict:
                 return got[-1]
             setattr(mod, name, rec)
     out = {}
-    engine = "auto" if scale >= 1 else "planar"
     try:
-        t0 = time.perf_counter()
-        g = iccad_standin("googleplus", scale=scale, seed=0)
-        if "chunked" in kernels:
-            sssp = SSSP(EngineConfig(sort_rows_by_degree=True,
-                                     device="cuda"))
-            sssp.load_and_format_matrix(g)
-            out["sssp_row"], out["sssp_col"] = got[-2], got[-1]
-            gs = symmetric_permute(g, degree_sort_permutation(g))
-            util_round_csr_matrix_dim(gs, 1024, 1024)
-            m = SpMVModule(EngineConfig(engine="pallas", device="cuda"))
-            m.set_semiring(ArithmeticSemiring)
-            m.load_and_format_matrix(gs)
-            out["gp_muladd"] = got[-1]
-        if {"router", "reduce"} & set(kernels):
-            pr = PageRank(EngineConfig(
-                sort_rows_by_degree=True,
-                engine="auto" if scale >= 1 else "router"))
-            pr.load_and_format_matrix(g, 0.9)
-            if pr.SpMV_.engine_name != "roll":
-                raise AssertionError(f"googleplus resolved "
-                                     f"{pr.SpMV_.engine_name!r}, not roll")
-            out["roll"] = got[-1]
-            out["roll_csr"] = pr.SpMV_.csr_matrix_
-        log(f"googleplus layouts: {time.perf_counter() - t0:.1f} s")
-        if not {"planar", "tropical", "scatter", "tile", "walk",
-                "reduce"} & set(kernels):
-            return out
-        p = iccad_standin("pokec", scale=scale, seed=0)
-        if {"tropical", "scatter", "walk"} & set(kernels):
-            t0 = time.perf_counter()
-            sp = SSSP(EngineConfig(sort_rows_by_degree=True,
-                                   engine="auto" if scale >= 1 else "router"))
-            sp.load_and_format_matrix(p)
-            if sp.SpMV_.engine_name != "tropical":
-                raise AssertionError(f"pokec SSSP resolved "
-                                     f"{sp.SpMV_.engine_name!r}")
-            out["tropical"] = got[-1]
-            log(f"pokec tropical layout: {time.perf_counter() - t0:.1f} s")
-        if not {"planar", "scatter", "tile", "reduce"} & set(kernels):
-            return out
-        t0 = time.perf_counter()
-        pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine=engine))
-        pr.load_and_format_matrix(p, 0.9)
-        out["free"], out["free_csr"] = got[-1], pr.SpMV_.csr_matrix_
-        log(f"pokec free layout: {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        bfs = BFS(EngineConfig(sort_rows_by_degree=True, engine=engine,
-                               planar_deal="permc"))
-        bfs.load_and_format_matrix(p)
-        out["permc"], out["permc_csr"] = got[-1], bfs.SpMV_.csr_matrix_
-        log(f"pokec PERM-C layout: {time.perf_counter() - t0:.1f} s")
-        if "scatter" in kernels:
-            t0 = time.perf_counter()
-            bfs = BFS(EngineConfig(sort_rows_by_degree=True, engine=engine,
-                                   planar_deal="bucket"))
-            bfs.load_and_format_matrix(p)
-            out["bucket"] = got[-1]
-            log(f"pokec bucket layout: {time.perf_counter() - t0:.1f} s")
+        if "standin" in graphs:
+            out.update(standin_layouts(scale, kernels, got))
+        if "graph500" in graphs:
+            out.update(graph500_layouts(kernels, got))
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
+    return out
+
+
+def standin_layouts(scale: float, kernels, got: list) -> dict:
+    """The googleplus and pokec stand-ins' layouts."""
+    from graphlily_tpu_torch import EngineConfig, ArithmeticSemiring
+    from graphlily_tpu_torch.apps import SSSP, PageRank, BFS
+    from graphlily_tpu_torch.io import (iccad_standin, degree_sort_permutation,
+                                        symmetric_permute,
+                                        util_round_csr_matrix_dim)
+    from graphlily_tpu_torch.module import SpMVModule
+    out = {}
+    engine = "auto" if scale >= 1 else "planar"
+    t0 = time.perf_counter()
+    g = iccad_standin("googleplus", scale=scale, seed=0)
+    if "chunked" in kernels:
+        sssp = SSSP(EngineConfig(sort_rows_by_degree=True, device="cuda"))
+        sssp.load_and_format_matrix(g)
+        out["sssp_row"], out["sssp_col"] = got[-2], got[-1]
+        gs = symmetric_permute(g, degree_sort_permutation(g))
+        util_round_csr_matrix_dim(gs, 1024, 1024)
+        m = SpMVModule(EngineConfig(engine="pallas", device="cuda"))
+        m.set_semiring(ArithmeticSemiring)
+        m.load_and_format_matrix(gs)
+        out["gp_muladd"] = got[-1]
+    if {"router", "reduce"} & set(kernels):
+        pr = PageRank(EngineConfig(
+            sort_rows_by_degree=True,
+            engine="auto" if scale >= 1 else "router"))
+        pr.load_and_format_matrix(g, 0.9)
+        if pr.SpMV_.engine_name != "roll":
+            raise AssertionError(f"googleplus resolved "
+                                 f"{pr.SpMV_.engine_name!r}, not roll")
+        out["roll"] = got[-1]
+        out["roll_csr"] = pr.SpMV_.csr_matrix_
+    log(f"googleplus layouts: {time.perf_counter() - t0:.1f} s")
+    if not {"planar", "tropical", "scatter", "tile", "walk",
+            "reduce"} & set(kernels):
+        return out
+    p = iccad_standin("pokec", scale=scale, seed=0)
+    if {"tropical", "scatter", "walk"} & set(kernels):
+        t0 = time.perf_counter()
+        sp = SSSP(EngineConfig(sort_rows_by_degree=True,
+                               engine="auto" if scale >= 1 else "router"))
+        sp.load_and_format_matrix(p)
+        if sp.SpMV_.engine_name != "tropical":
+            raise AssertionError(f"pokec SSSP resolved "
+                                 f"{sp.SpMV_.engine_name!r}")
+        out["tropical"] = got[-1]
+        log(f"pokec tropical layout: {time.perf_counter() - t0:.1f} s")
+    if not {"planar", "scatter", "tile", "reduce"} & set(kernels):
+        return out
+    t0 = time.perf_counter()
+    pr = PageRank(EngineConfig(sort_rows_by_degree=True, engine=engine))
+    pr.load_and_format_matrix(p, 0.9)
+    out["free"], out["free_csr"] = got[-1], pr.SpMV_.csr_matrix_
+    log(f"pokec free layout: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bfs = BFS(EngineConfig(sort_rows_by_degree=True, engine=engine,
+                           planar_deal="permc"))
+    bfs.load_and_format_matrix(p)
+    out["permc"], out["permc_csr"] = got[-1], bfs.SpMV_.csr_matrix_
+    log(f"pokec PERM-C layout: {time.perf_counter() - t0:.1f} s")
+    if "scatter" in kernels:
+        t0 = time.perf_counter()
+        bfs = BFS(EngineConfig(sort_rows_by_degree=True, engine=engine,
+                               planar_deal="bucket"))
+        bfs.load_and_format_matrix(p)
+        out["bucket"] = got[-1]
+        log(f"pokec bucket layout: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# The benchmark's Graph 500 graphs (bench_torch/configs), each formatted
+# as its cell formats it: (configuration, app, layout key, the engine the
+# ladder picks) by kernel set
+GRAPH500 = {
+    "router": ("graph500-s18", "PageRank", "g500_s18", "roll"),
+    "planar": ("graph500-s19", "PageRank", "g500_s19", "planar"),
+    "walk": ("graph500-s19-k3", "SSSP", "g500_s19_k3", "tropical"),
+}
+
+
+def graph500_layouts(kernels, got: list, seed: int = 1) -> dict:
+    """The layouts of the benchmark's cells that run `kernels`' rows (K1 on
+    scale 18, K4 fused on scale 19, the tropical walk on scale 19 with
+    kernel 3's weights), from the cells' own graph generator and engine
+    settings, drawn on the card from `seed`."""
+    import torch
+    from graphlily_tpu_torch import EngineConfig
+    from graphlily_tpu_torch.apps import SSSP, PageRank
+    from graphlily_tpu_torch.io.matrix import CSRMatrix
+    sys.path.append(str(ROOT / "bench_torch"))
+    import graph as bench_graph
+    import spec
+    out = {}
+    for kernel, (name, app, key, engine) in GRAPH500.items():
+        if kernel not in kernels:
+            continue
+        t0 = time.perf_counter()
+        config = spec.load_json(spec.BENCH_DIR / "configs" / f"{name}.json")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        g = bench_graph.make(config, gen, torch.device("cuda"))
+        n = g.num_vertices
+        csr = CSRMatrix(n, n, g.weights.copy(), g.indices.copy(),
+                        g.indptr.copy())
+        cfg = EngineConfig(**config["engine"], device="cuda")
+        if app == "PageRank":
+            a = PageRank(cfg)
+            a.load_and_format_matrix(csr, damping=0.9)
+        else:
+            a = SSSP(cfg)
+            a.load_and_format_matrix(csr, unit_weights=False)
+        if a.SpMV_.engine_name != engine:
+            raise AssertionError(f"{name} resolved {a.SpMV_.engine_name!r}, "
+                                 f"not {engine!r}")
+        out[key], out[f"{key}_csr"] = got[-1], a.SpMV_.csr_matrix_
+        log(f"{name} {app} layout ({a.SpMV_.engine_name}): "
+            f"{time.perf_counter() - t0:.1f} s")
+        del a, g, csr
     return out
 
 
@@ -336,6 +441,9 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--entries", type=int, nargs="*", default=[])
     ap.add_argument("--kernels", nargs="+", default=KERNELS, choices=KERNELS)
+    ap.add_argument("--graphs", nargs="+", default=GRAPHS, choices=GRAPHS,
+                    help="the stand-ins, the benchmark's Graph 500 graphs "
+                         "(router, planar and walk rows), or both")
     ap.add_argument("--ablations", action="store_true",
                     help="add the ablation trees (ABLATIONS) to their rows")
     args = ap.parse_args(argv)
@@ -361,7 +469,8 @@ def main(argv=None) -> int:
                if args.ablations else {})
     for pkg in (*trees.values(), *ablated.values()):
         pkg.ops._build.library()
-    lays = capture_layouts(args.scale, args.kernels)
+    log_registers(trees)
+    lays = capture_layouts(args.scale, args.kernels, args.graphs)
     rng = np.random.default_rng(7)
     rows = []
 
@@ -451,15 +560,25 @@ def main(argv=None) -> int:
                           "init_s": e.init_seconds}
 
         def variant(eng, **kw):
-            """`eng` sharing its arrays, over another cut of its form."""
+            """`eng` sharing its arrays, over another cut of its form (None
+            where the cut leaves the row too few bits)."""
             v = copy.copy(eng)
             e = eng.entries
-            v.use_entries(new.ops.router.router_entries(v, "row", **{
-                "col_bits": e.col_bits, "values": e.vals is not None, **kw}))
+            try:
+                v.use_entries(new.ops.router.router_entries(v, "row", **{
+                    "col_bits": e.col_bits, "values": e.vals is not None,
+                    **kw}))
+            except ValueError as err:
+                log(f"  form {kw}: {err}")
+                return None
             log(f"  form {kw}: {form(v)}")
             return v
 
-        for key, label in (("free", "K4 fused"), ("permc", "K4 fused PERM-C")):
+        for key, label, graph in (("free", "K4 fused", "pokec"),
+                                  ("permc", "K4 fused PERM-C", "pokec"),
+                                  ("g500_s19", "K4 fused", "graph500-s19")):
+            if key not in lays:
+                continue
             lay, csr = lays[key], lays[f"{key}_csr"]
             xt = torch.from_numpy(np.random.default_rng(9).random(
                 lay.num_cols).astype(np.float32)).to("cuda")
@@ -489,11 +608,11 @@ def main(argv=None) -> int:
                             lay, getattr(pkg, semiring),
                             pkg.EngineConfig(device="cuda"))
                 more = {k: (lambda v=v: v.fused_spmv(x))
-                        for k, v in vs.items()}
+                        for k, v in vs.items() if v is not None}
                 if name == "MULADD":
                     more["torch.mv"] = lambda: torch.mv(
                         mat, x[:csr.num_cols])
-                ab(f"{label} {name} (pokec)", engs,
+                ab(f"{label} {name} ({graph})", engs,
                    lambda e: e.fused_spmv(x), name == "ANDOR", form, more,
                    unchecked=("torch.mv", *[k for k in vs
                                             if k.startswith("k1_")]))
@@ -502,14 +621,19 @@ def main(argv=None) -> int:
             for kind in ("empty", "one", "5pct"):
                 xf = frontier(torch, lay.num_cols, kind, 0.0, rng)
                 act = engs["new"].activity(xf)
-                ab(f"K4p{label[2:]} ANDOR {kind}", engs,
+                ab(f"K4p{label[2:]} ANDOR {kind} ({graph})", engs,
                    lambda e, xf=xf, act=act: e.fused_predicated(xf, act), True)
             del engs, mat
 
     def router():
         """K1 (MULADD, ANDOR) beside torch.mv, the row-ordered form, other
         block sizes and the ablations; K1p (ANDOR) at three frontiers."""
-        lay, csr = lays["roll"], lays["roll_csr"]
+        for key, graph in (("roll", "googleplus"),
+                           ("g500_s18", "graph500-s18")):
+            if key in lays:
+                router_rows(lays[key], lays[f"{key}_csr"], graph)
+
+    def router_rows(lay, csr, graph):
         xmul = torch.from_numpy(np.random.default_rng(8).random(
             lay.num_cols).astype(np.float32)).to("cuda")
         xbool = torch.from_numpy((np.random.default_rng(9).random(
@@ -527,8 +651,8 @@ def main(argv=None) -> int:
                           "device_MB": e.entries.nbytes() / 1e6,
                           "init_s": e.init_seconds}
         for semiring, xt, label in (
-                ("ArithmeticSemiring", xmul, "K1 MULADD (googleplus)"),
-                ("LogicalSemiring", xbool, "K1 ANDOR (googleplus)")):
+                ("ArithmeticSemiring", xmul, f"K1 MULADD ({graph})"),
+                ("LogicalSemiring", xbool, f"K1 ANDOR ({graph})")):
             engs = engines("RouterSpMV", lay, semiring)
             eng = engs["new"]
             variants = {}
@@ -539,7 +663,11 @@ def main(argv=None) -> int:
                                for b in (12, 13, 14, 16))):
                 v = new.ops.RouterSpMV(lay, getattr(new, semiring),
                                        new.EngineConfig(device="cuda"))
-                v.use_entries(new.ops.router.router_entries(v, **kw))
+                try:
+                    v.use_entries(new.ops.router.router_entries(v, **kw))
+                except ValueError as err:   # a window too wide for the row
+                    log(f"{label} {name}: {err}")
+                    continue
                 variants[name] = v
                 log(f"{label} {name}: {form(v)}")
             for name, pkg in ablated.items():
@@ -560,7 +688,7 @@ def main(argv=None) -> int:
         for kind in ("empty", "one", "5pct"):
             xf = frontier(torch, lay.num_cols, kind, 0.0, rng)
             act = engs["new"].activity(xf)
-            ab(f"K1p ANDOR {kind}", engs,
+            ab(f"K1p ANDOR {kind} ({graph})", engs,
                lambda e, xf=xf, act=act: e.fused_predicated(xf, act), True)
         del engs
 
@@ -744,8 +872,13 @@ def main(argv=None) -> int:
         three passes against this tree's walk, pull and at three
         frontiers; the walk's row form at 2**13-2**15 column windows; K10
         alone."""
+        for key, graph in (("tropical", "pokec SSSP"),
+                           ("g500_s19_k3", "graph500-s19 SSSP")):
+            if key in lays:
+                walk_rows(lays[key], graph)
+
+    def walk_rows(lay, graph):
         import copy
-        lay = lays["tropical"]
         engs = engines("TropicalSpMV", lay, "TropicalSemiring")
         eng = engs["new"]
         p = eng.planar
@@ -771,15 +904,15 @@ def main(argv=None) -> int:
                 f"{v.entries.nbytes() / 1e6:.1f} MB")
             more[f"window 2**{bits}"] = (
                 lambda v=v: eng._finish(v.fused_spmv(xt), None, None))
-        ab(f"tropical engine call (pokec SSSP; new row form 2**"
+        ab(f"tropical engine call ({graph}; new row form 2**"
            f"{p.entries.col_bits})", engs, lambda e: e(xt), True, more=more)
         del more
         for kind in ("empty", "one", "5pct"):
             xf = frontier(torch, lay.num_cols, kind, inf, rng)
-            ab(f"tropical SpMSpV call {kind} (pokec SSSP)", engs,
+            ab(f"tropical SpMSpV call {kind} ({graph})", engs,
                lambda e, xf=xf: e.call_predicated(xf), True)
         g2 = eng.split(eng.scatter(xt))
-        ab("K10 window reduce (pokec SSSP, unchanged)", engs,
+        ab(f"K10 window reduce ({graph}, unchanged)", engs,
            lambda e: e.window_reduce(g2), True)
         del engs, eng, p, g2
 

@@ -1,10 +1,10 @@
 // Roll-router SpMV kernels for Hopper (sm_90a): K1 fused, K2 scatter,
 // K3 reduce, and their frontier-predicated forms K1p, K2p, K3p (SpMSpV,
 // the `sm`/`na` launches of router_pallas.py:459-460, :1947-1963). K1's
-// kernel is also K4 fused and K4p fused (the planar engine's row and tile
-// forms) and, in ADDMIN mode over the tropical pass 1's row and tile
-// forms, the tropical engine's whole SpMV and SpMSpV, whose int32 max is
-// K10's window reduce folded into the walk (below). Built
+// kernel is also K4 fused (the planar engine's row form) and K1p's is K4p
+// fused (its tile form); in ADDMIN mode over the tropical pass 1's row and
+// tile forms they are the tropical engine's whole SpMV and SpMSpV, whose
+// int32 max is K10's window reduce folded into the walk (below). Built
 // by graphlily_tpu_torch/ops/_build.py with nvcc into a shared library
 // with a plain C interface; ops/router.py binds it with ctypes and holds
 // each kernel against its plain PyTorch version.
@@ -367,19 +367,57 @@ __global__ void __launch_bounds__(kThreads) router_reduce_pred_kernel(
 // Bound on the H100: device memory, 8 B per element (the bytes
 // router_traffic in chip_smoke.py counts for K1), then the y atomics in
 // L2 and the x gather (in L2: 430 KB on the googleplus stand-in).
-// Design: the grid is a table of blocks of ENTRIES_PER_BLOCK consecutive
-// elements. A block loads its segments' records into shared memory, one
-// thread each; each thread takes 8 consecutive elements with 16-byte vector
-// loads, finds their segments by one binary search and a forward walk,
-// gathers x and sums runs of equal rows in registers (a deposit's elements
-// are row-sorted too). Its middle runs go to y with one atomic each; its
-// first run joins the previous lane's last when their rows match, and the
-// lanes' last runs fold across the warp (warp_fold_runs), one atomic per
-// run head. A zero sum issues no atomic. ANDOR adds 0/1 counts and stays
-// exact; MULADD's float atomics land in any order. Measured (ab_kernels.py,
-// PERF.md, PR 8): the row order against the deposit order, block sizes,
-// and ablations (plain stores for the atomics, a constant for the x
-// gather).
+// Design: the form is a table of blocks of ENTRIES_PER_BLOCK consecutive
+// elements (its rows; also cut at every BLOCK_SEGMENTS-th segment start).
+// A row is walked a pass at a time: each of 256 threads takes 8
+// consecutive elements with 16-byte vector loads, finds their segments by
+// one binary search over the row's records in shared memory and a forward
+// walk, gathers x and sums runs of equal rows in registers (a deposit's
+// elements are row-sorted too). Its middle runs go to y with one atomic
+// each; its first run joins the previous lane's last when their rows
+// match, and the lanes' last runs fold across the warp (warp_fold_runs),
+// one atomic per run head. A zero sum issues no atomic. ANDOR adds 0/1
+// counts and stays exact; MULADD's float atomics land in any order.
+// Measured (ab_kernels.py, PERF.md §6): the row order against the deposit
+// order, block sizes, and ablations (plain stores for the atomics, a
+// constant for the x gather).
+//
+// Two kernels walk the form; run_fused takes the one the launch asks for,
+// by whether `act` is null.
+//
+// The unpredicated walk (router_fused_kernel: K1, K4 fused and the tropical
+// walk) is persistent and software-pipelined. A row lasts two passes, and
+// launched a block per row, each block waited in turn for its row's
+// record, its segment records and a barrier, then for each pass's stream
+// loads, with no stream load in flight while a pass gathered x and folded
+// its runs. Here the grid is what the card holds at once (SMs x the blocks
+// an SM holds, from cudaOccupancyMaxActiveBlocksPerMultiprocessor), and
+// each block strides over the table's rows. Before a thread gathers and
+// folds its current 8 elements it has issued the 16-byte loads of its
+// next 8 (the next pass of the row, or the first pass of the block's next
+// row), held in registers: one pass of prefetch, 64 B a thread in flight
+// through the gather and the fold, for 7-9 more registers (MULADD and
+// ADDMIN 55 -> 64, still 4 blocks an SM; ANDOR without values 48 -> 55, 5
+// -> 4 blocks; PERF.md §6). The next row's records are copied
+// with cp.async into the other half of a double-buffered shared table
+// while the current row's last pass runs, so a row costs one barrier and
+// no serial prologue. The prefetch alone moved the walk by -9% to +5%: the
+// walk also spent about 70 instructions an element, most of them the
+// segment lookup's test and walk for each element, so it is issue-bound as
+// much as memory-bound. A thread whose 8 elements lie in one segment (all
+// but a few in every row form: segments hold thousands) looks up one
+// record for all 8 and tests none. The stream is read evict-first
+// (ld.global.cs), so that x and y keep their places in L2 (5-7%). Measured
+// against the block-per-row kernel, on the benchmark's graphs: K1 7-16%,
+// K4 fused 10-18%, the tropical walk 12% faster. Occupancy bought with
+// fewer registers (5 or 6 blocks an SM) spilled and ran up to twice as
+// long, two passes a turn in place of the register copy took 80 registers
+// and gained nothing, and the stream's loads past L1 lost up to 6%.
+//
+// The predicated walk (router_fused_pred_kernel: K1p, K4p fused and the
+// predicated tropical walk) launches a block per row, whose block exits
+// after its records when none of its segments is live (below): a
+// persistent walk would step through every dead row in turn.
 //
 // Without values (kVals false, a null `vals`): the ANDOR form of a matrix
 // whose stored values are all nonzero (checked at init), 4 B an element.
@@ -404,6 +442,7 @@ __global__ void __launch_bounds__(kThreads) router_reduce_pred_kernel(
 // The full grid is launched, so nothing is read on the host.
 constexpr int kVec = 8;            // consecutive elements per thread
 constexpr int kFusedThreads = 256;
+constexpr int kPass = kVec * kFusedThreads;   // elements of a row a pass
 
 // One run's total into y. MULADD, ANDOR: a float sum added; a zero sum
 // changes nothing and issues no atomic. ADDMIN: an int32 encoding max'd
@@ -427,18 +466,216 @@ __device__ __forceinline__ float gather_x(const float* __restrict__ x,
   return __ldg(x + col);
 }
 
+// A thread's 8 consecutive words and (kVals) values.
+template <bool kVals>
+struct Stream8 {
+  unsigned w[kVec];
+  float v[kVec];
+};
+
+// kOnce: loads that mark their lines evict-first (ld.global.cs), for a
+// stream read once a walk, so that x and y keep their places in L2.
+template <bool kVals, bool kOnce>
+__device__ __forceinline__ void load_stream(Stream8<kVals>& s,
+                                            const unsigned* __restrict__ idx,
+                                            const float* __restrict__ vals,
+                                            int q) {
+  uint4 w0, w1;
+  if constexpr (kOnce) {
+    w0 = __ldcs(reinterpret_cast<const uint4*>(idx + q));
+    w1 = __ldcs(reinterpret_cast<const uint4*>(idx + q + 4));
+  } else {
+    w0 = *reinterpret_cast<const uint4*>(idx + q);
+    w1 = *reinterpret_cast<const uint4*>(idx + q + 4);
+  }
+  s.w[0] = w0.x; s.w[1] = w0.y; s.w[2] = w0.z; s.w[3] = w0.w;
+  s.w[4] = w1.x; s.w[5] = w1.y; s.w[6] = w1.z; s.w[7] = w1.w;
+  if constexpr (kVals) {
+    float4 v0, v1;
+    if constexpr (kOnce) {
+      v0 = __ldcs(reinterpret_cast<const float4*>(vals + q));
+      v1 = __ldcs(reinterpret_cast<const float4*>(vals + q + 4));
+    } else {
+      v0 = *reinterpret_cast<const float4*>(vals + q);
+      v1 = *reinterpret_cast<const float4*>(vals + q + 4);
+    }
+    s.v[0] = v0.x; s.v[1] = v0.y; s.v[2] = v0.z; s.v[3] = v0.w;
+    s.v[4] = v1.x; s.v[5] = v1.y; s.v[6] = v1.z; s.v[7] = v1.w;
+  }
+}
+
+// A thread's 8 elements after their segment lookup (col[k] the x offset of
+// element k's segment, -1 for an element not walked; row[k] its y offset):
+// the word's column and row added, x gathered, the products formed and
+// runs of equal rows summed. The middle runs reach y at once; the first
+// and the last are left for the fold across lanes (fold_lanes). kAll: every
+// element is walked, and no col is read for -1.
+template <Op kOp, bool kVals, bool kAll>
+__device__ __forceinline__ void walk_vector(
+    const float* __restrict__ x, Stored<kOp>* __restrict__ y,
+    int (&col)[kVec], int (&row)[kVec], const Stream8<kVals>& s,
+    unsigned mask, int col_bits, int& first_row, Stored<kOp>& first_acc,
+    int& last_row, Stored<kOp>& last_acc) {
+  using Acc = Stored<kOp>;
+  float xv[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    if (!kAll && col[k] < 0) continue;
+    col[k] += static_cast<int>(s.w[k] & mask);
+    row[k] += static_cast<int>(s.w[k] >> col_bits);
+    xv[k] = gather_x(x, col[k]);
+  }
+  int runs = 0;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    if (!kAll && col[k] < 0) continue;
+    Acc g;
+    if constexpr (!kVals)      // every stored value is nonzero
+      g = xv[k] != 0.f ? 1.f : 0.f;
+    else
+      g = glt::product<kOp>(s.v[k], xv[k]);
+    if (row[k] == last_row) {
+      last_acc = combine(last_acc, g);
+    } else {
+      if (runs == 1) {
+        first_row = last_row;      // held back for the previous lane
+        first_acc = last_acc;
+      } else if (runs > 1) {
+        add_row(y, last_row, last_acc);
+      }
+      ++runs;
+      last_row = row[k];
+      last_acc = g;
+    }
+  }
+}
+
+// The lanes' first and last runs of a pass: the first joins the previous
+// lane's last run when the rows match, and the last runs fold across the
+// warp, one atomic per run head. A lane that walked nothing passes rows of
+// -1. All 32 lanes call it together.
+template <Op kOp>
+__device__ __forceinline__ void fold_lanes(Stored<kOp>* __restrict__ y,
+                                           int first_row,
+                                           Stored<kOp> first_acc,
+                                           int last_row,
+                                           Stored<kOp> last_acc) {
+  using Acc = Stored<kOp>;
+  using Fold = typename std::conditional<kOp == Op::kAddMin, glt::FoldMax,
+                                         glt::FoldAdd>::type;
+  constexpr unsigned kAll = 0xffffffffu;
+  const unsigned lane = threadIdx.x & 31;
+  const int prev_last = __shfl_up_sync(kAll, last_row, 1);
+  const int next_first = __shfl_down_sync(kAll, first_row, 1);
+  const Acc next_acc = __shfl_down_sync(kAll, first_acc, 1);
+  if (first_row >= 0 && !(lane > 0 && prev_last == first_row))
+    add_row(y, first_row, first_acc);
+  if (lane < 31 && next_first >= 0 && next_first == last_row)
+    last_acc = combine(last_acc, next_acc);
+  bool head;
+  const Acc sum = glt::warp_fold_runs<Fold>(last_row, last_acc, head);
+  if (head && last_row >= 0) add_row(y, last_row, sum);
+}
+
 // blocks[b] = (e0, e1, g0, g1): elements [e0, e1) of segments [g0, g1);
-// deps[g] = (first element, x offset, y offset, activity flag).
+// deps[g] = (first element, x offset, y offset, activity flag). The grid
+// is at most nblocks; block i walks rows i, i + gridDim.x, ...
 template <Op kOp, bool kVals>
 __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
+    const int4* __restrict__ blocks, const int4* __restrict__ deps,
+    const float* __restrict__ vals, const unsigned* __restrict__ idx,
+    const float* __restrict__ x, Stored<kOp>* __restrict__ y, int nblocks,
+    int max_segments, int col_bits) {
+  using Acc = Stored<kOp>;
+  extern __shared__ int4 tables[];   // two tables of max_segments records
+  const unsigned mask = (1u << col_bits) - 1u;
+  const int t8 = kVec * static_cast<int>(threadIdx.x);
+  int at = blockIdx.x;
+  int4 b = blocks[at];
+  int4* table = tables;
+  glt::stage_records(table, deps, b, kFusedThreads);
+  int base = b.x & ~(kVec - 1);
+  Stream8<kVals> cur, ahead;
+  if (base + t8 < b.y) load_stream<kVals, true>(cur, idx, vals, base + t8);
+  at += gridDim.x;
+  int4 next = at < nblocks ? blocks[at] : b;
+  glt::cp_async_wait_all();
+  __syncthreads();
+  // every bound below is uniform across the block, so every lane reaches
+  // the shuffles and the barriers
+  for (;;) {
+    // the next pass: the row's own, or the first of the block's next row,
+    // whose records go to the other table
+    int next_base = base + kPass, next_end = b.y;
+    const bool last = next_base >= b.y;
+    const bool more = !last || at < nblocks;
+    if (last && more) {
+      next_base = next.x & ~(kVec - 1);
+      next_end = next.y;
+      glt::stage_records(table == tables ? tables + max_segments : tables,
+                         deps, next, kFusedThreads);
+    }
+    if (more && next_base + t8 < next_end)
+      load_stream<kVals, true>(ahead, idx, vals, next_base + t8);
+    // this pass, over the loads issued a pass ago
+    const int q = base + t8;
+    int first_row = -1, last_row = -1;
+    Acc first_acc = 0, last_acc = 0;
+    if (q < b.y) {
+      const int ns = b.w - b.z;
+      int col[kVec], row[kVec];
+      int j = glt::find_record(table, ns, max(q, b.x));
+      const int4 r = table[j];
+      const int end = j + 1 < ns ? min(table[j + 1].x, b.y) : b.y;
+      if (q >= b.x && q + kVec <= end) {
+        // the 8 elements lie in one segment (segments of the row forms
+        // hold thousands): one lookup for all, no test an element
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          col[k] = r.y;
+          row[k] = r.z;
+        }
+        walk_vector<kOp, kVals, true>(x, y, col, row, cur, mask, col_bits,
+                                      first_row, first_acc, last_row,
+                                      last_acc);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const int e = q + k;
+          col[k] = -1;
+          if (e < b.x || e >= b.y) continue;
+          while (j + 1 < ns && table[j + 1].x <= e) ++j;
+          col[k] = table[j].y;
+          row[k] = table[j].z;
+        }
+        walk_vector<kOp, kVals, false>(x, y, col, row, cur, mask, col_bits,
+                                       first_row, first_acc, last_row,
+                                       last_acc);
+      }
+    }
+    fold_lanes<kOp>(y, first_row, first_acc, last_row, last_acc);
+    if (!more) return;
+    if (last) {
+      b = next;
+      table = table == tables ? tables + max_segments : tables;
+      at += gridDim.x;
+      if (at < nblocks) next = blocks[at];
+      glt::cp_async_wait_all();
+      __syncthreads();
+    }
+    base = next_base;
+    cur = ahead;
+  }
+}
+
+// The predicated walk: a block per row of `blocks`.
+template <Op kOp, bool kVals>
+__global__ void __launch_bounds__(kFusedThreads) router_fused_pred_kernel(
     const int4* __restrict__ blocks, const int4* __restrict__ deps,
     const float* __restrict__ vals, const unsigned* __restrict__ idx,
     const float* __restrict__ x, Stored<kOp>* __restrict__ y,
     const uint8_t* __restrict__ act, int max_segments, int col_bits) {
   using Acc = Stored<kOp>;
-  using Fold = typename std::conditional<kOp == Op::kAddMin, glt::FoldMax,
-                                         glt::FoldAdd>::type;
-  constexpr unsigned kAll = 0xffffffffu;
   extern __shared__ int seg[];     // start, x offset, y offset of each
   int* s_start = seg;
   int* s_x = seg + max_segments;
@@ -448,17 +685,11 @@ __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
   // an inactive segment's elements: unread
   const bool live = glt::load_segments(b, deps, act, kFusedThreads, s_start,
                                        s_x, s_y);
-  if (act != nullptr) {
-    if (!__syncthreads_or(live)) return;
-  } else {
-    __syncthreads();
-  }
+  if (!__syncthreads_or(live)) return;
   const unsigned mask = (1u << col_bits) - 1u;
-  const unsigned lane = threadIdx.x & 31;
-  // the loop bound is uniform across the block, so every lane reaches the
-  // shuffles
-  for (int base = b.x & ~(kVec - 1); base < b.y;
-       base += kVec * kFusedThreads) {
+  // the loop bound is uniform across the block, so every lane reaches
+  // the shuffles
+  for (int base = b.x & ~(kVec - 1); base < b.y; base += kPass) {
     const int q = base + kVec * static_cast<int>(threadIdx.x);
     int first_row = -1, last_row = -1;
     Acc first_acc = 0, last_acc = 0;
@@ -477,61 +708,14 @@ __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
         any |= col[k] >= 0;
       }
       if (any) {
-        const uint4 w0 = *reinterpret_cast<const uint4*>(idx + q);
-        const uint4 w1 = *reinterpret_cast<const uint4*>(idx + q + 4);
-        const unsigned w[kVec] = {w0.x, w0.y, w0.z, w0.w,
-                                  w1.x, w1.y, w1.z, w1.w};
-        float v[kVec];
-        if constexpr (kVals) {
-          const float4 v0 = *reinterpret_cast<const float4*>(vals + q);
-          const float4 v1 = *reinterpret_cast<const float4*>(vals + q + 4);
-          v[0] = v0.x; v[1] = v0.y; v[2] = v0.z; v[3] = v0.w;
-          v[4] = v1.x; v[5] = v1.y; v[6] = v1.z; v[7] = v1.w;
-        }
-        float xv[kVec];
-#pragma unroll
-        for (int k = 0; k < kVec; ++k) {
-          if (col[k] < 0) continue;
-          col[k] += static_cast<int>(w[k] & mask);
-          row[k] += static_cast<int>(w[k] >> col_bits);
-          xv[k] = gather_x(x, col[k]);
-        }
-        int runs = 0;
-#pragma unroll
-        for (int k = 0; k < kVec; ++k) {
-          if (col[k] < 0) continue;
-          Acc g;
-          if constexpr (!kVals)      // every stored value is nonzero
-            g = xv[k] != 0.f ? 1.f : 0.f;
-          else
-            g = glt::product<kOp>(v[k], xv[k]);
-          if (row[k] == last_row) {
-            last_acc = combine(last_acc, g);
-          } else {
-            if (runs == 1) {
-              first_row = last_row;      // held back for the previous lane
-              first_acc = last_acc;
-            } else if (runs > 1) {
-              add_row(y, last_row, last_acc);
-            }
-            ++runs;
-            last_row = row[k];
-            last_acc = g;
-          }
-        }
+        Stream8<kVals> s;
+        load_stream<kVals, false>(s, idx, vals, q);
+        walk_vector<kOp, kVals, false>(x, y, col, row, s, mask, col_bits,
+                                       first_row, first_acc, last_row,
+                                       last_acc);
       }
     }
-    // the first run joins the previous lane's last run when the rows match
-    const int prev_last = __shfl_up_sync(kAll, last_row, 1);
-    const int next_first = __shfl_down_sync(kAll, first_row, 1);
-    const Acc next_acc = __shfl_down_sync(kAll, first_acc, 1);
-    if (first_row >= 0 && !(lane > 0 && prev_last == first_row))
-      add_row(y, first_row, first_acc);
-    if (lane < 31 && next_first >= 0 && next_first == last_row)
-      last_acc = combine(last_acc, next_acc);
-    bool head;
-    const Acc sum = glt::warp_fold_runs<Fold>(last_row, last_acc, head);
-    if (head && last_row >= 0) add_row(y, last_row, sum);
+    fold_lanes<kOp>(y, first_row, first_acc, last_row, last_acc);
   }
 }
 
@@ -549,6 +733,18 @@ void launch_scatter(const void* a_page, const void* a_r, const void* a_sub,
       static_cast<const uint8_t*>(act), cb, rstep, dstep);
 }
 
+// Dynamic shared memory above the default 48 KB only after an opt-in,
+// which holds for the current card alone (the caller makes the stream's
+// card current), so it is made on every such launch, and its refusal is
+// returned before the launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 // K3 (and K11) over `ngroups` groups. An empty table (no flushed chunk)
 // launches nothing and reads no pointer.
 int run_reduce(const void* groups, const void* order, const void* stream_in,
@@ -558,17 +754,10 @@ int run_reduce(const void* groups, const void* order, const void* stream_in,
       region_rows > kMaxRegionRows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (ngroups == 0) return static_cast<int>(cudaGetLastError());
-  // the tile; above the default 48 KB only after an opt-in, which holds
-  // for the current card alone (the caller makes the stream's card
-  // current), so it is made on every such launch, and its refusal is
-  // returned before the launch
+  // the tile
   const size_t smem = sizeof(float) * static_cast<size_t>(region_rows);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        router_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = allow_smem(router_reduce_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   router_reduce_kernel<<<static_cast<unsigned>(ngroups), kReduceThreads,
                          smem, static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const int4*>(groups), static_cast<const int*>(order),
@@ -609,30 +798,85 @@ int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The unpredicated walk's grid: the blocks the card holds at once, from
+// the device's SM count and the kernel's occupancy with `smem` bytes of
+// shared table, found on the first launch of each card and table size.
 template <Op kOp, bool kVals>
+int resident_blocks(size_t smem, int& blocks) {
+  struct Plan {
+    int device = -1;
+    size_t smem = 0;
+    int blocks = 0;
+  };
+  static thread_local Plan plan;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device != plan.device || smem != plan.smem)) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, router_fused_kernel<kOp, kVals>, kFusedThreads, smem);
+    if (err == cudaSuccess) plan = Plan{device, smem, sms * per_sm};
+  }
+  blocks = plan.blocks;
+  return static_cast<int>(err);
+}
+
+template <Op kOp, bool kVals, bool kPred>
 int launch_fused(const void* blocks, const void* deps, const void* vals,
                  const void* idx, const void* x, void* y, const void* act,
                  int nblocks, int max_segments, int col_bits,
                  cudaStream_t st) {
-  const size_t smem = 3 * sizeof(int) * static_cast<size_t>(max_segments);
-  auto kernel = router_fused_kernel<kOp, kVals>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  const auto b = static_cast<const int4*>(blocks);
+  const auto d = static_cast<const int4*>(deps);
+  const auto v = static_cast<const float*>(vals);
+  const auto w = static_cast<const unsigned*>(idx);
+  const auto xs = static_cast<const float*>(x);
+  const auto out = static_cast<Stored<kOp>*>(y);
+  if constexpr (kPred) {
+    const size_t smem = 3 * sizeof(int) * static_cast<size_t>(max_segments);
+    const cudaError_t err =
+        allow_smem(router_fused_pred_kernel<kOp, kVals>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
+    router_fused_pred_kernel<kOp, kVals><<<nblocks, kFusedThreads, smem,
+                                           st>>>(
+        b, d, v, w, xs, out, static_cast<const uint8_t*>(act), max_segments,
+        col_bits);
+  } else {
+    // two tables of whole records: the current row's and the next one's
+    const size_t smem = 2 * sizeof(int4) * static_cast<size_t>(max_segments);
+    const cudaError_t err = allow_smem(router_fused_kernel<kOp, kVals>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int grid = 0;
+    const int rc = resident_blocks<kOp, kVals>(smem, grid);
+    if (rc != 0) return rc;
+    // a table too large for an SM holds no block: the empty grid's launch
+    // is refused and its error returned
+    router_fused_kernel<kOp, kVals><<<grid < nblocks ? grid : nblocks,
+                                      kFusedThreads, smem, st>>>(
+        b, d, v, w, xs, out, nblocks, max_segments, col_bits);
   }
-  kernel<<<nblocks, kFusedThreads, smem, st>>>(
-      static_cast<const int4*>(blocks), static_cast<const int4*>(deps),
-      static_cast<const float*>(vals), static_cast<const unsigned*>(idx),
-      static_cast<const float*>(x), static_cast<Stored<kOp>*>(y),
-      static_cast<const uint8_t*>(act), max_segments, col_bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPred>
+int dispatch_fused(const void* blocks, const void* deps, const void* vals,
+                   const void* idx, const void* x, void* y, const void* act,
+                   int nblocks, int max_segments, int col_bits, int op,
+                   cudaStream_t st) {
+  auto fn = vals == nullptr ? launch_fused<Op::kAndOr, false, kPred>
+      : op == 2 ? launch_fused<Op::kAddMin, true, kPred>
+      : op == 1 ? launch_fused<Op::kAndOr, true, kPred>
+                : launch_fused<Op::kMulAdd, true, kPred>;
+  return fn(blocks, deps, vals, idx, x, y, act, nblocks, max_segments,
+            col_bits, st);
 }
 
 // `op` is semiring.OpType (0 MULADD, 1 ANDOR: a float y; 2 ADDMIN: an
 // int32 out of encodings). A null `vals` is the ANDOR form without values
-// (op must be 1).
+// (op must be 1). A null `act` takes the unpredicated walk.
 int run_fused(const void* blocks, const void* deps, const void* vals,
               const void* idx, const void* x, void* y, const void* act,
               int nblocks, int max_segments, int col_bits, int op,
@@ -645,12 +889,12 @@ int run_fused(const void* blocks, const void* deps, const void* vals,
   if (nblocks == 0) return static_cast<int>(cudaGetLastError());
   if (vals == nullptr && op != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto fn = vals == nullptr ? launch_fused<Op::kAndOr, false>
-      : op == 2 ? launch_fused<Op::kAddMin, true>
-      : op == 1 ? launch_fused<Op::kAndOr, true>
-                : launch_fused<Op::kMulAdd, true>;
-  return fn(blocks, deps, vals, idx, x, y, act, nblocks, max_segments,
-            col_bits, static_cast<cudaStream_t>(cuda_stream));
+  const auto st = static_cast<cudaStream_t>(cuda_stream);
+  return act == nullptr
+      ? dispatch_fused<false>(blocks, deps, vals, idx, x, y, act, nblocks,
+                              max_segments, col_bits, op, st)
+      : dispatch_fused<true>(blocks, deps, vals, idx, x, y, act, nblocks,
+                             max_segments, col_bits, op, st);
 }
 
 }  // namespace
@@ -701,9 +945,9 @@ extern "C" int glt_router_reduce_pred(
                          region_rows, cuda_stream);
 }
 
-// K1, K4 fused and the tropical walk: `op` is semiring.OpType, as K4
-// scatter takes it (0 MULADD, 1 ANDOR: y float32; 2 ADDMIN: y an int32
-// out of encodings, zeroed).
+// K1, K4 fused and the tropical walk, the persistent walk over `nblocks`
+// rows: `op` is semiring.OpType, as K4 scatter takes it (0 MULADD, 1
+// ANDOR: y float32; 2 ADDMIN: y an int32 out of encodings, zeroed).
 extern "C" int glt_router_fused(
     const void* blocks, const void* deps, const void* vals, const void* idx,
     const void* x, void* y, int nblocks, int max_segments, int col_bits,
@@ -714,7 +958,7 @@ extern "C" int glt_router_fused(
 
 // K1p: act is the (num_cols/128,) uint8 page activity; K4p fused and the
 // predicated tropical walk: the (num_cols/1024,) uint8 tile activity. Each
-// segment's flag indexes it.
+// segment's flag indexes it. A block per row.
 extern "C" int glt_router_fused_pred(
     const void* blocks, const void* deps, const void* vals, const void* idx,
     const void* x, void* y, const void* act, int nblocks, int max_segments,
