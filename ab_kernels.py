@@ -73,9 +73,10 @@ new, old (CUDA events, min over 5 reps of 100 calls each). Rows:
                    destination-lane design it replaced with `--variant`
                    on a tree that has it
   walk             ("walk") the tropical engine call on pokec SSSP's layout
-                   ("planes"): the parent's three passes (K4 scatter ADDMIN
-                   -> K8 -> K10) against this tree's walk (K1's kernel in
-                   ADDMIN mode over the pass-1 row form), pull and
+                   ("planes"), each tree's walk (K1's kernel in ADDMIN
+                   mode over the pass-1 row form) beside its three passes
+                   (`TropicalStages`: the parent must have that class),
+                   pull and
                    SpMSpV at empty, 1-vertex and 5% frontiers (the tile
                    form), the walk's row form at column windows of 2**13,
                    2**14 and 2**15 columns, the row and tile forms' MB and
@@ -267,19 +268,19 @@ def capture_layouts(scale: float, kernels, graphs) -> dict:
     """Pack every layout the A/B's `kernels` need on the `graphs` ("standin",
     "graph500") through the public apps, recording what the modules'
     packers return."""
-    from graphlily_tpu_torch.module import spmv_module, spmspv_module
+    from graphlily_tpu_torch.module import spmv_module
     got = []
     saved = {}
-    for mod in (spmv_module, spmspv_module):
-        for name in ("pack_csr_chunks", "pack_planar", "pack_router",
-                     "pack_tropical"):
-            fn = getattr(mod, name)
-            saved[(mod, name)] = fn
+    # both modules' ladders pack through spmv_module.build_engine
+    for name in ("pack_csr_chunks", "pack_planar", "pack_router",
+                 "pack_tropical_pass1"):
+        fn = getattr(spmv_module, name)
+        saved[name] = fn
 
-            def rec(*a, _fn=fn, **kw):
-                got.append(_fn(*a, **kw))
-                return got[-1]
-            setattr(mod, name, rec)
+        def rec(*a, _fn=fn, **kw):
+            got.append(_fn(*a, **kw))
+            return got[-1]
+        setattr(spmv_module, name, rec)
     out = {}
     try:
         if "standin" in graphs:
@@ -287,9 +288,16 @@ def capture_layouts(scale: float, kernels, graphs) -> dict:
         if "graph500" in graphs:
             out.update(graph500_layouts(kernels, got))
     finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
+        for name, fn in saved.items():
+            setattr(spmv_module, name, fn)
     return out
+
+
+def full_tropical_layout(pass1):
+    """The three passes' layout over the pass 1 an SSSP app's engine, the
+    walk, was built on (io/tropical_format.pack_tropical_schedule)."""
+    from graphlily_tpu_torch.io import pack_tropical_schedule
+    return pack_tropical_schedule(pass1)
 
 
 def standin_layouts(scale: float, kernels, got: list) -> dict:
@@ -331,13 +339,14 @@ def standin_layouts(scale: float, kernels, got: list) -> dict:
     p = iccad_standin("pokec", scale=scale, seed=0)
     if {"tropical", "scatter", "walk"} & set(kernels):
         t0 = time.perf_counter()
-        sp = SSSP(EngineConfig(sort_rows_by_degree=True,
-                               engine="auto" if scale >= 1 else "router"))
+        cfg = EngineConfig(sort_rows_by_degree=True,
+                           engine="auto" if scale >= 1 else "router")
+        sp = SSSP(cfg)
         sp.load_and_format_matrix(p)
         if sp.SpMV_.engine_name != "tropical":
             raise AssertionError(f"pokec SSSP resolved "
                                  f"{sp.SpMV_.engine_name!r}")
-        out["tropical"] = got[-1]
+        out["tropical"] = full_tropical_layout(got[-1])
         log(f"pokec tropical layout: {time.perf_counter() - t0:.1f} s")
     if not {"planar", "scatter", "tile", "reduce"} & set(kernels):
         return out
@@ -406,7 +415,9 @@ def graph500_layouts(kernels, got: list, seed: int = 1) -> dict:
         if a.SpMV_.engine_name != engine:
             raise AssertionError(f"{name} resolved {a.SpMV_.engine_name!r}, "
                                  f"not {engine!r}")
-        out[key], out[f"{key}_csr"] = got[-1], a.SpMV_.csr_matrix_
+        out[key] = (full_tropical_layout(got[-1]) if engine == "tropical"
+                    else got[-1])
+        out[f"{key}_csr"] = a.SpMV_.csr_matrix_
         log(f"{name} {app} layout ({a.SpMV_.engine_name}): "
             f"{time.perf_counter() - t0:.1f} s")
         del a, g, csr
@@ -474,10 +485,17 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(7)
     rows = []
 
+    def build(pkg, cls: str, lay, semiring: str):
+        """`cls` of the tree `pkg` on `lay`; the three passes
+        (`TropicalStages`) take no semiring."""
+        cfg = pkg.EngineConfig(device="cuda")
+        if cls == "TropicalStages":
+            return pkg.ops.TropicalStages(lay, cfg)
+        return getattr(pkg.ops, cls)(lay, getattr(pkg, semiring), cfg)
+
     def engines(cls: str, lay, semiring: str) -> dict:
         """One engine of `cls` per tree, on the same layout."""
-        return {k: getattr(pkg.ops, cls)(lay, getattr(pkg, semiring),
-                                         pkg.EngineConfig(device="cuda"))
+        return {k: build(pkg, cls, lay, semiring)
                 for k, pkg in trees.items()}
 
     def ab(label, engs, call, exact, extra=None, more=None, unchecked=()):
@@ -706,9 +724,8 @@ def main(argv=None) -> int:
                                   planes2=np.zeros((0, 0, 8, 128), np.int8))
         log(f"K9 triples derived from the planes: "
             f"{time.perf_counter() - t0:.1f} s")
-        engs = engines("TropicalSpMV", lay, "TropicalSemiring")
-        k9 = new.ops.TropicalSpMV(tri, new.TropicalSemiring,
-                                  new.EngineConfig(device="cuda"))
+        engs = engines("TropicalStages", lay, "TropicalSemiring")
+        k9 = build(new, "TropicalStages", tri, "TropicalSemiring")
         x = rng.integers(0, 1000, lay.num_cols).astype(np.float32)
         x[rng.random(lay.num_cols) < 0.5] = inf
         g1 = engs["new"].scatter(torch.from_numpy(x).to("cuda"))
@@ -727,8 +744,7 @@ def main(argv=None) -> int:
         k8_ablated = [name for name in ablated if name.startswith("k8_")]
         for name in k8_ablated:
             pkg = ablated[name]
-            v = pkg.ops.TropicalSpMV(lay, pkg.TropicalSemiring,
-                                     pkg.EngineConfig(device="cuda"))
+            v = build(pkg, "TropicalStages", lay, "TropicalSemiring")
             more[name] = lambda v=v: v.split(g1)
         ab("K8 split (pokec SSSP)", engs, lambda e: e.split(g1), True, form,
            more, unchecked=("g2 fill", *k8_ablated))
@@ -779,11 +795,11 @@ def main(argv=None) -> int:
                   "MULADD"),
                  ("permc", "PlanarSpMV", "ArithmeticSemiring", xmul,
                   "MULADD"),
-                 ("tropical", "TropicalSpMV", "TropicalSemiring", xmin,
+                 ("tropical", "TropicalStages", "TropicalSemiring", xmin,
                   "ADDMIN")]
         for key, cls, semiring, make_x, name in rows_:
             engs = engines(cls, lays[key], semiring)
-            pass1 = lambda e: e.planar if cls == "TropicalSpMV" else e
+            pass1 = lambda e: e.walk.planar if cls == "TropicalStages" else e
             eng = pass1(engs["new"])
             x = make_x(eng.num_cols)
             n = eng.nsteps * eng.f * 1024
@@ -796,8 +812,7 @@ def main(argv=None) -> int:
                     "kernel alone": store_only(eng, x)}
             for abl, pkg in ablated.items():
                 if abl.startswith("k4_"):
-                    v = getattr(pkg.ops, cls)(lays[key], getattr(pkg, semiring),
-                                              pkg.EngineConfig(device="cuda"))
+                    v = build(pkg, cls, lays[key], semiring)
                     more[abl] = lambda v=v: v.scatter(x)
             ab(f"K4 scatter {name} (pokec {key})", engs,
                lambda e: e.scatter(x), True, lambda e: form(pass1(e)), more,
@@ -868,10 +883,10 @@ def main(argv=None) -> int:
             del engs, eng, vs
 
     def walk():
-        """The tropical engine call on pokec SSSP's layout: the parent's
-        three passes against this tree's walk, pull and at three
-        frontiers; the walk's row form at 2**13-2**15 column windows; K10
-        alone."""
+        """The tropical engine call (the walk) on pokec SSSP's layout, the
+        parent's against this tree's, pull and at three frontiers, each
+        tree's beside its three passes (`TropicalStages`); the walk's row
+        form at 2**13-2**15 column windows; K10 alone."""
         for key, graph in (("tropical", "pokec SSSP"),
                            ("g500_s19_k3", "graph500-s19 SSSP")):
             if key in lays:
@@ -879,16 +894,17 @@ def main(argv=None) -> int:
 
     def walk_rows(lay, graph):
         import copy
-        engs = engines("TropicalSpMV", lay, "TropicalSemiring")
+        engs = engines("TropicalStages", lay, "TropicalSemiring")
         eng = engs["new"]
-        p = eng.planar
+        p = eng.walk.planar
         log(f"walk forms: row {p.entries.idx.numel()} elements, "
             f"{p.entries.deps.shape[0]} segments, col_bits "
             f"{p.entries.col_bits}, {p.entries.nbytes() / 1e6:.1f} MB; tile "
             f"{p.pred_entries.deps.shape[0]} segments, "
-            f"{p.pred_entries.nbytes() / 1e6:.1f} MB; store "
-            f"{p.store_entries.nbytes() / 1e6:.1f} MB; the three derived in "
-            f"{p.init_seconds:.2f} s")
+            f"{p.pred_entries.nbytes() / 1e6:.1f} MB, the two derived in "
+            f"{p.init_seconds:.2f} s; the three passes' store form "
+            f"{p.store_entries.nbytes() / 1e6:.1f} MB, derived with K8's "
+            f"in {eng.init_seconds:.2f} s")
         x = rng.integers(0, 1000, lay.num_cols).astype(np.float32)
         x[rng.random(lay.num_cols) < 0.5] = inf
         xt = torch.from_numpy(x).to("cuda")
@@ -903,14 +919,15 @@ def main(argv=None) -> int:
                 f"{v.entries.deps.shape[0]} segments, "
                 f"{v.entries.nbytes() / 1e6:.1f} MB")
             more[f"window 2**{bits}"] = (
-                lambda v=v: eng._finish(v.fused_spmv(xt), None, None))
+                lambda v=v: eng.walk._finish(v.fused_spmv(xt), None, None))
         ab(f"tropical engine call ({graph}; new row form 2**"
-           f"{p.entries.col_bits})", engs, lambda e: e(xt), True, more=more)
+           f"{p.entries.col_bits})", engs, lambda e: e.walk(xt), True,
+           more=more)
         del more
         for kind in ("empty", "one", "5pct"):
             xf = frontier(torch, lay.num_cols, kind, inf, rng)
             ab(f"tropical SpMSpV call {kind} ({graph})", engs,
-               lambda e, xf=xf: e.call_predicated(xf), True)
+               lambda e, xf=xf: e.walk.call_predicated(xf), True)
         g2 = eng.split(eng.scatter(xt))
         ab(f"K10 window reduce ({graph}, unchanged)", engs,
            lambda e: e.window_reduce(g2), True)

@@ -26,10 +26,11 @@ calls, and checks every result against the float64 oracles:
     (its walk: K4 fused and K4p fused in ADDMIN mode, K1's kernel over
     the pass-1 row and tile forms, folding K10's max into the walk), and
     SSSP on half of the googleplus stand-in through the tropical engine
-    by name in the "triples" split format; the engine's three-pass stages
-    (K4 scatter and K4p scatter in ADDMIN mode, K8 or K9 split, K10
-    window reduce), which no app path launches, are held to their plain
-    versions and to the walk;
+    by name; the TPU's three-pass stages (`TropicalStages`: K4 scatter
+    and K4p scatter in ADDMIN mode, K8 or K9 split, K10 window reduce),
+    which no app path builds, are built beside each ("planes" on pokec,
+    "triples" on googleplus) and held to their plain versions and to the
+    walk;
   * BFS pull, push and pull_push on the full pokec stand-in and PageRank
     on a quarter of it with planar_deal="permc" (PERM-C layouts, packed
     by the C++ greedy): K4 fused over the same form, K4p fused on PERM-C
@@ -123,26 +124,29 @@ Phases, one or more lines each:
                the push steps, pull steps and host reads of a profiled
                pull_push (its apps.* spans)
   18. sssp     pokec SSSP(EngineConfig(sort_rows_by_degree=True)): engine
-               "auto" -> tropical, SpMSpV sharing it; layout facts, load
-               and pack seconds, K8's compact form (init s, MB) and the
-               pass-1 forms (row, tile and store: init s, MB);
+               "auto" -> tropical, SpMSpV sharing it; load and pass-1 pack
+               seconds, the walk's forms (row and tile: init s, MB);
                pull(0, 11), push(0, 11) and pull_push(0, 11, 0.05)
                bit-equal to the oracle; their launches: the walk (fused,
-               fused_pred) and no three-pass stage; SSSP's relax kernel
-               held to its plain version as in phase 16
-  19. kernels  pokec: the walk bit-equal to its plain version and to the
-               three kernels' out; K4 scatter ADDMIN's stream, K8's window
-               stream and K10's maxima bit-equal to their plain versions;
-               the predicated walk and K4p scatter ADDMIN against their
-               plain versions, the unpredicated walk and scatter and the
-               three-pass out at empty, 1-vertex and 5% frontiers; googleplus
-               SSSP at scale 0.5 (TRIPLES_SCALE: cut from the full graph
-               to keep the whole run near 750 s) with
-               engine="router", tropical_split_format="triples": pull(0, 7)
-               and push(0, 7) against the oracle, K9 bit-equal to its plain
-               version, the walk bit-equal to the three kernels' out, the
-               tropical and a chunked engine call on its matrix against
-               the oracle; the SSSP runs launch the walk only
+               fused_pred), the engine's only counters; SSSP's relax
+               kernel held to its plain version as in phase 16
+  19. kernels  pokec: the three passes built on the pass 1 the app's
+               walk reads (layout facts, schedule pack seconds, the store
+               form and K8's compact form: init s, MB); the app's walk
+               bit-equal to its plain version and to the three kernels'
+               out; K4 scatter ADDMIN's stream, K8's window stream and
+               K10's maxima bit-equal to their plain versions; the
+               predicated walk and K4p scatter ADDMIN against their plain
+               versions, the unpredicated walk and scatter and the
+               three-pass out at empty, 1-vertex and 5% frontiers;
+               googleplus SSSP at scale 0.5 (TRIPLES_SCALE: cut from the
+               full graph to keep the whole run near 750 s) with
+               engine="router": pull(0, 7) and push(0, 7) against the
+               oracle; its three passes' schedule packed with
+               split_format="triples": K9 bit-equal to its plain version,
+               the walk bit-equal to the three kernels' out, the tropical
+               and a chunked engine call on its matrix against the
+               oracle; the SSSP runs launch the walk only
   20. times    the walk (and at three frontiers, predicated), the
                three-pass kernels and their plain versions, bounds, the
                pokec tropical engine call against the three passes, the
@@ -177,11 +181,11 @@ The launch counters are set to 0 right before each path's app runs
 (phases 4-5, 8, 11, 12, 14-16, 18, 19's googleplus SSSP and 21) and read
 right after; every kernel of the path must have run there (K5, which no
 app path runs since K4 scatter and K4p fused read x columns resolved at
-init, and the tropical engine's three-pass stages K4 scatter ADDMIN, K4p
-scatter ADDMIN, K8, K9 and K10, which its walk replaces on every app
-path, keep their rows with 0 launches). Then it prints the kernels' JSON
-line: per
-kernel its launches on the app paths, its largest difference from its
+init, keeps its row with 0 launches). The three-pass stages K4 scatter
+ADDMIN, K4p scatter ADDMIN, K8, K9 and K10 (STAGES) have no launches to
+count: no app engine owns them (the tropical engine is its walk), so
+their rows print launches null. Then it prints the kernels' JSON line:
+per kernel its launches on the app paths, its largest difference from its
 plain version, its time, its plain version's, its bound (the larger of
 the bytes it must move over 3.35 TB/s and its fp32 operations over
 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's
@@ -201,6 +205,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import importlib.util
 import math
 import subprocess
 import sys
@@ -210,6 +215,13 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+# the SpMV function's bound, from the benchmark's bounds.py (which imports
+# nothing), loaded by path: bench_torch/ does not join sys.path
+_spec = importlib.util.spec_from_file_location(
+    "bench_torch_bounds", ROOT / "bench_torch" / "bounds.py")
+_bounds = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_bounds)
+mv_bound = _bounds.mv_bound
 ROUTER_SRC = "graphlily_tpu_torch/csrc/router_spmv.cu"
 PLANAR_SRC = "graphlily_tpu_torch/csrc/planar_spmv.cu"
 CHUNKED_SRC = "graphlily_tpu_torch/csrc/chunked_spmv.cu"
@@ -282,22 +294,19 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                    "jnp glue)"),
 }
 BUCKET_SCALE = 0.25  # the pokec stand-in's cut for the "bucket" deal
-# kernels held to their plain versions that no app path launches: K5, whose
-# x2 the planar forms resolve at engine init, and the tropical engine's
-# three-pass stages, whose SpMV and SpMSpV run its walk
-OFF_PATH = {"K5_planar_xperm", "K4_planar_scatter_addmin",
-            "K4p_planar_scatter_pred_addmin", "K8_tropical_split",
-            "K9_tropical_split_triples", "K10_tropical_window_reduce"}
-THREE_PASS = ("scatter", "scatter_pred", "split", "split_triples",
-              "window_reduce")
+# the TPU's three-pass stages, held to their plain versions and the walk;
+# no app engine owns them (the tropical engine's SpMV and SpMSpV are its
+# walk), so their launches are not counted: null in the kernels line
+STAGES = {"K4_planar_scatter_addmin", "K4p_planar_scatter_pred_addmin",
+          "K8_tropical_split", "K9_tropical_split_triples",
+          "K10_tropical_window_reduce"}
+# K5 is held to its plain version and counted on the app paths, where no
+# path launches it: the planar forms resolve x2 at engine init
+OFF_PATH = {"K5_planar_xperm"}
 TRIPLES_SCALE = 0.5  # the googleplus stand-in's cut for the "triples" SSSP
 MULADD_RTOL = 1e-4   # fp32 atomics in any order over hub rows of ~1e5 terms
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks at 700 W
 FP32_OPS_PER_S = 67e12
-
-
-def log(msg: str) -> None:
-    print(msg, flush=True)
 
 
 def card_line() -> str:
@@ -306,6 +315,10 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
 
 
 def time_ms(torch, fn, iters: int = 100, reps: int = 5) -> float:
@@ -548,16 +561,6 @@ def reduce_reductions(torch, eng, stream) -> str:
             f"slots")
 
 
-def mv_bound(csr) -> tuple:
-    """(bytes, ops) of the MULADD SpMV y = A x as a function, the same for
-    every layout, deal and derived form of one matrix: each stored entry's
-    4 B value and 4 B column, one 4 B row word a row (CSR's row
-    pointer), x read once and y written once; a multiply and an add an
-    entry. K1 and K4 fused (both deals) are held to it."""
-    return (8 * csr.nnz + 4 * (csr.num_rows + 1) + 4 * csr.num_cols
-            + 4 * csr.num_rows, 2 * csr.nnz)
-
-
 def library_mv(torch, csr, xt, want: np.ndarray) -> float:
     """ms of `torch.mv` on a CSR tensor of `csr` (cuSPARSE), the one
     PyTorch call that computes the same MULADD SpMV; checked against the
@@ -648,7 +651,9 @@ def main(argv=None) -> int:
     permc(torch, args, rec, card, pk)
 
     for name, r in rec.items():
-        if r.get("launches", 0) == 0 and name not in OFF_PATH:
+        if name in STAGES:
+            r["launches"] = None    # no app engine owns them: not counted
+        elif r.get("launches", 0) == 0 and name not in OFF_PATH:
             raise AssertionError(f"{name} was not launched on an app path")
     kernels = [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -807,7 +812,8 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
         set_bound(rec[name], nbytes, nops)
     nbytes, nops = router_bounds(eng)["reduce"]
     set_bound(rec["K3_router_reduce"], nbytes + eng.groups.nbytes(), nops)
-    set_bound(rec["K1_router_fused"], *mv_bound(gs))
+    set_bound(rec["K1_router_fused"],
+              *mv_bound(gs.num_rows, gs.num_cols, gs.nnz))
     rec["K1_router_fused"]["library_ms"] = library_mv(
         torch, gs, xt, spmv_mod.compute_reference_results(xt.cpu().numpy()))
     log(f"phase 6 library torch.mv (CSR, cuSPARSE) on the same MULADD "
@@ -1027,7 +1033,9 @@ def pokec(torch, args, rec: dict, card: str) -> None:
                             lambda: bfsb_eng.xperm_plain(xb)),
     }
     bounds = router_bounds(eng)
-    set_bound(rec["K4_planar_fused"], *mv_bound(pr.SpMV_.csr_matrix_))
+    pcsr = pr.SpMV_.csr_matrix_
+    set_bound(rec["K4_planar_fused"],
+              *mv_bound(pcsr.num_rows, pcsr.num_cols, pcsr.nnz))
     set_bound(rec["K4_planar_scatter"], *bounds["scatter"])
     set_bound(rec["K5_planar_xperm"],
               bfsb_eng.num_col_tiles * 8 * 1024 + 8 * bfsb_eng.num_cols, 0)
@@ -1270,13 +1278,13 @@ def chunked_form(eng, slots: int) -> str:
 
 def planar_form(eng) -> str:
     """The planar engine's derived forms for the log: K4 fused's row form,
-    K4p fused's tile form and K4 scatter's store form, with their init
-    seconds."""
+    K4p fused's tile form and K4 scatter's store form (which the tropical
+    walk's pass 1 does not derive), with their init seconds."""
+    forms = [("K4 fused", eng.entries), ("K4p fused", eng.pred_entries)]
+    if hasattr(eng, "store_entries"):
+        forms.append(("K4 scatter", eng.store_entries))
     return "; ".join([f"derived forms: init {eng.init_seconds:.2f} s",
-                      *(form_facts(label, e) for label, e in (
-                          ("K4 fused", eng.entries),
-                          ("K4p fused", eng.pred_entries),
-                          ("K4 scatter", eng.store_entries)))])
+                      *(form_facts(label, e) for label, e in forms)])
 
 
 def frontier_x(torch, ncols: int, kind: str, zero: float, rng):
@@ -1609,7 +1617,7 @@ def tropical_bounds(eng) -> dict:
     plane bytes of empty lanes are not counted. K10 reads each entry's g2
     value, sort and row bytes and c_win, writes out, and does one max an
     entry."""
-    nel = eng.nnz
+    nel = eng.walk.nnz
     slots = eng.nsteps2 * eng.dstep2
     desc = slots * (12 + (32 if eng.triples else 0)) + 4 * eng.nsteps2 * eng.kb
     split = nel * (8 if eng.triples else 5) + desc + 4 * eng.nchunks2 * 1024
@@ -1618,8 +1626,9 @@ def tropical_bounds(eng) -> dict:
 
 
 def tropical_facts(eng) -> str:
-    """The layout facts of a tropical engine, for the log."""
-    p = eng.planar
+    """The layout facts of a tropical engine's three passes
+    (`TropicalStages`), for the log."""
+    p = eng.walk.planar
     a = eng.arrays
     deposit = (a.xsort2.numel() * 4 + a.tri2.numel() * 4 if eng.triples
                else a.split.nbytes())
@@ -1631,25 +1640,26 @@ def tropical_facts(eng) -> str:
             f"nsteps2={eng.nsteps2} kb={eng.kb} rstep2={eng.rstep2} "
             f"dstep2={eng.dstep2} f2={eng.f2} "
             f"nblocks2={eng.nchunks2 // eng.f2} pieces={live} "
-            f"fill2={eng.nnz / (eng.nchunks2 * 1024):.3f} "
+            f"fill2={eng.walk.nnz / (eng.nchunks2 * 1024):.3f} "
             f"split_deposit_MB={deposit / 1e6:.1f} "
             f"g2_MB={eng.nchunks2 * 4096 / 1e6:.1f}")
 
 
 def check_walk_only(label: str, launches: dict) -> None:
     """An SSSP run on the tropical engine launched its walk (K4 fused and
-    K4p fused in ADDMIN mode) and no three-pass stage."""
-    if (launches["fused"] == 0 or launches["fused_pred"] == 0
-            or any(launches[k] for k in THREE_PASS)):
-        raise AssertionError(f"{label} launches {launches}: the walk must "
-                             "run, and no three-pass stage")
+    K4p fused in ADDMIN mode), the engine's only kernels."""
+    if set(launches) != {"fused", "fused_pred"} or not all(
+            launches.values()):
+        raise AssertionError(f"{label} launches {launches}: the engine is "
+                             "the walk, and both walks must run")
 
 
-def walk_is_three_pass(torch, label: str, eng, out, three) -> None:
+def walk_is_three_pass(torch, label: str, stages, out, three) -> None:
     """The walk's out (the pass-1 regions' rows) holds K10's out (the
     windows' rows) as its prefix, bit for bit, and 0 past it."""
-    n = eng.num_windows * 128
-    if (out.dtype != torch.int32 or out.numel() != eng.planar.out_len
+    n = stages.num_windows * 128
+    if (out.dtype != torch.int32
+            or out.numel() != stages.walk.planar.out_len
             or not torch.equal(out[:n], three) or bool(out[n:].any())):
         raise AssertionError(f"{label} differs from the three passes' out")
 
@@ -1679,53 +1689,74 @@ def decoded_err(a, b) -> float:
 
 
 def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
-    """Phases 18-20: SSSP on the tropical engine (pokec, planes; googleplus
-    at TRIPLES_SCALE, triples), each kernel against its plain version, and
-    times."""
+    """Phases 18-20: SSSP on the tropical engine (pokec; googleplus at
+    TRIPLES_SCALE), the three passes built beside it (`TropicalStages`:
+    pokec planes, googleplus triples), each kernel against its plain
+    version, and times."""
     from graphlily_tpu_torch import (EngineConfig, FLOAT_INF,
                                      TropicalSemiring)
     from graphlily_tpu_torch.apps import SSSP
-    from graphlily_tpu_torch.io import ICCAD_GRAPHS, iccad_standin
-    from graphlily_tpu_torch.module import SpMVModule
+    from graphlily_tpu_torch.io import (ICCAD_GRAPHS, iccad_standin,
+                                        pack_tropical_schedule)
+    from graphlily_tpu_torch.module import SpMVModule, spmv_module
+    from graphlily_tpu_torch.ops import TropicalStages
     dev = torch.device("cuda")
     inf = float(FLOAT_INF)
     iters = ICCAD_GRAPHS["pokec"]["iters"]
 
     def load(graph, cfg):
         """An SSSP app formatted for `graph`, its SpMV module's formatting
-        (pack + engine init) timed apart from the whole load."""
+        (pack + engine init) timed apart from the whole load, and the
+        pass-1 layout its ladder packed."""
         app = SSSP(cfg)
         inner, secs = app.SpMV_.load_and_format_matrix, {}
+        pack, packed = spmv_module.pack_tropical_pass1, []
 
         def timed(*a, **kw):
             t = time.perf_counter()
             inner(*a, **kw)
             secs["pack"] = time.perf_counter() - t
         app.SpMV_.load_and_format_matrix = timed
+        spmv_module.pack_tropical_pass1 = (
+            lambda *a, **kw: packed.append(pack(*a, **kw)) or packed[-1])
         t0 = time.perf_counter()
-        app.load_and_format_matrix(graph)
+        try:
+            app.load_and_format_matrix(graph)
+        finally:
+            spmv_module.pack_tropical_pass1 = pack
         secs["load"] = time.perf_counter() - t0
         eng = app.SpMV_.engine
         if app.SpMV_.engine_name != "tropical":
             raise AssertionError(f"SSSP resolved {app.SpMV_.engine_name!r}, "
                                  "not tropical")
-        if app.SpMSpV_.engine is not eng:
-            raise AssertionError("SSSP's SpMSpV does not share the tropical "
-                                 "engine")
-        return app, eng, secs
+        if app.SpMSpV_.engine is not eng or len(packed) != 1:
+            raise AssertionError(f"SSSP's SpMSpV does not share the tropical "
+                                 f"engine ({len(packed)} pass-1 packs)")
+        return app, eng, secs, packed[0]
+
+    def stages(pass1, cfg, split_format):
+        """The three passes over the pass 1 the app's walk was built on,
+        and their schedule pack + init seconds."""
+        t = time.perf_counter()
+        st = TropicalStages(pack_tropical_schedule(
+            pass1, split_format=split_format), cfg)
+        torch.cuda.synchronize()
+        if st.triples != (split_format == "triples"):
+            raise AssertionError(f"the three passes are not in the "
+                                 f"{split_format} format")
+        return st, time.perf_counter() - t
 
     # ---- 18. main path: pokec SSSP pull, push and pull_push -----------------
     # the ladder picks the tropical engine at full size (1.63M rows > 700k);
     # a shrunken graph asks for it by name
     engine = "auto" if args.scale >= 1 else "router"
-    sssp, eng, secs = load(pk["g"], EngineConfig(sort_rows_by_degree=True,
-                                                 engine=engine))
+    cfg = EngineConfig(sort_rows_by_degree=True, engine=engine)
+    sssp, eng, secs, pass1 = load(pk["g"], cfg)
     log(f"phase 18 pokec sssp (scale={args.scale}): engine={engine} -> "
         f"tropical, SpMSpV shares it; relabel+self edges+pack+init "
-        f"{secs['load']:.1f} s, of which pack+init {secs['pack']:.1f} s "
-        f"(K8's compact form {eng.init_seconds:.2f} s); "
-        f"nnz={eng.nnz} {tropical_facts(eng)}; pass 1 "
-        f"{planar_form(eng.planar)}")
+        f"{secs['load']:.1f} s, of which pass-1 pack+init "
+        f"{secs['pack']:.1f} s (the walk's forms {eng.init_seconds:.2f} "
+        f"s); nnz={eng.nnz}; pass 1 {planar_form(eng.planar)}")
     reset((eng, sssp))
     with SSSPKernelCheck(torch) as chk:
         runs = {"pull": sssp.pull(0, iters), "push": sssp.push(0, iters),
@@ -1741,13 +1772,7 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
     check_walk_only("pokec sssp", launches)
     rec["K4_planar_fused_addmin"]["launches"] = launches["fused"]
     rec["K4p_planar_fused_pred_addmin"]["launches"] = launches["fused_pred"]
-    rec["K4_planar_scatter_addmin"]["launches"] = launches["scatter"]
-    rec["K4p_planar_scatter_pred_addmin"]["launches"] = launches[
-        "scatter_pred"]
-    rec["K8_tropical_split"]["launches"] = launches["split"]
-    rec["K10_tropical_window_reduce"]["launches"] = launches["window_reduce"]
-    log(f"phase 18 launches: pokec sssp {launches} (the walk only; K5: "
-        f"{launches['xperm']})")
+    log(f"phase 18 launches: pokec sssp {launches} (the walk only)")
     t0 = time.perf_counter()
     want = sssp.compute_reference_results(0, iters)
     oracle_s = time.perf_counter() - t0
@@ -1758,18 +1783,23 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         f"({int((want < inf).sum())} reached, oracle {oracle_s:.1f} s) ok")
 
     # ---- 19. each kernel against its plain version --------------------------
+    st, st_s = stages(pass1, cfg, "auto")
+    log(f"phase 19 pokec three passes (split format auto): schedule "
+        f"pack+init {st_s:.1f} s (the store form and K8's "
+        f"{st.init_seconds:.2f} s); "
+        f"{tropical_facts(st)}")
     rng = np.random.default_rng(19)
     x = rng.integers(0, 1000, eng.num_cols).astype(np.float32)
     x[rng.random(eng.num_cols) < 0.5] = inf    # integers: exact fp32 sums
     xt = torch.from_numpy(x).to(dev)
     walk, walkp = eng.fused(xt), eng.fused_plain(xt)
-    g1, g1p = eng.scatter(xt), eng.scatter_plain(xt)
-    g1e = eng.planar.scatter_entries_plain(xt)
-    g2, g2p = eng.split(g1), eng.split_plain(g1)
-    out, outp = eng.window_reduce(g2), eng.window_reduce_plain(g2)
+    g1, g1p = st.scatter(xt), st.scatter_plain(xt)
+    g1e = st.walk.planar.scatter_entries_plain(xt)
+    g2, g2p = st.split(g1), st.split_plain(g1)
+    out, outp = st.window_reduce(g2), st.window_reduce_plain(g2)
     torch.cuda.synchronize()
     bit_equal(torch, "pokec tropical walk", walk, walkp)
-    walk_is_three_pass(torch, "pokec tropical walk", eng, walk, out)
+    walk_is_three_pass(torch, "pokec tropical walk", st, walk, out)
     bit_equal(torch, "pokec K4 scatter ADDMIN stream", g1, g1p)
     bit_equal(torch, "pokec K4 scatter ADDMIN stream (store form walk)", g1,
               g1e)
@@ -1791,28 +1821,28 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         act = eng.activity(xf)
         w, wp, wfull = (eng.fused_predicated(xf, act),
                         eng.fused_plain(xf, act), eng.fused(xf))
-        s, sp, full = (eng.scatter_predicated(xf, act),
-                       eng.scatter_plain(xf, act), eng.scatter(xf))
-        three = eng.window_reduce(eng.split(full))
+        s, sp, full = (st.scatter_predicated(xf, act),
+                       st.scatter_plain(xf, act), st.scatter(xf))
+        three = st.window_reduce(st.split(full))
         y, yfull = eng.call_predicated(xf), eng(xf)
         torch.cuda.synchronize()
         bit_equal(torch, f"pokec predicated walk {kind}", w, wp)
         bit_equal(torch, f"pokec predicated walk {kind} vs unpredicated", w,
                   wfull)
-        walk_is_three_pass(torch, f"pokec predicated walk {kind}", eng, w,
+        walk_is_three_pass(torch, f"pokec predicated walk {kind}", st, w,
                            three)
         bit_equal(torch, f"pokec K4p ADDMIN {kind}", s, sp)
         bit_equal(torch, f"pokec K4p ADDMIN {kind} (store form walk)", s,
-                  eng.planar.scatter_entries_plain(xf, act))
+                  st.walk.planar.scatter_entries_plain(xf, act))
         bit_equal(torch, f"pokec K4p ADDMIN {kind} vs unpredicated", s, full)
         bit_equal(torch, f"pokec tropical SpMSpV {kind} vs SpMV", y, yfull)
         walk_ms = time_ms(torch, lambda: eng.fused_predicated(xf, act))
-        ms = time_ms(torch, lambda: eng.scatter_predicated(xf, act))
+        ms = time_ms(torch, lambda: st.scatter_predicated(xf, act))
         call_ms = time_ms(torch, lambda: eng.call_predicated(xf))
-        three_ms = time_ms(torch, lambda: eng.window_reduce(eng.split(
-            eng.scatter_predicated(xf, act))))
+        three_ms = time_ms(torch, lambda: st.window_reduce(st.split(
+            st.scatter_predicated(xf, act))))
         wbytes, wops = walk_bound(torch, eng, act)
-        nbytes, nops = router_bounds(eng.planar, act)["scatter"]
+        nbytes, nops = router_bounds(st.walk.planar, act)["scatter"]
         log(f"phase 19 pokec tropical SpMSpV {kind}: active tiles "
             f"{int(act.sum())}/{eng.num_col_tiles}; predicated walk "
             f"{walk_ms:.4f} ms (bound {wbytes / HBM_BYTES_PER_S * 1e3:.6f}),"
@@ -1823,7 +1853,7 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         times[kind] = (ms, s, sp, walk_ms, w, wp, (wbytes, wops))
     r = rec["K4p_planar_scatter_pred_addmin"]
     r["ms"], r["err"] = times["5pct"][0], decoded_err(*times["5pct"][1:3])
-    r["plain_ms"] = time_ms(torch, lambda: eng.scatter_plain(xf, act),
+    r["plain_ms"] = time_ms(torch, lambda: st.scatter_plain(xf, act),
                             iters=10)
     set_bound(r, nbytes, nops)
     r = rec["K4p_planar_fused_pred_addmin"]
@@ -1836,25 +1866,21 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
     # too), which keeps the whole run near 750 s since PERM-C joined it
     giters = ICCAD_GRAPHS["googleplus"]["iters"]
     gscale = TRIPLES_SCALE * args.scale
-    gsssp, geng, gsecs = load(
-        iccad_standin("googleplus", scale=gscale, seed=0),
-        EngineConfig(sort_rows_by_degree=True, engine="router",
-                     tropical_split_format="triples"))
-    if not geng.triples:
-        raise AssertionError("the googleplus layout is not in triples format")
-    log(f"phase 19 googleplus sssp (scale {gscale:g}), engine=router, split "
-        f"format triples: relabel+self edges+pack+init {gsecs['load']:.1f} s,"
-        f" of which "
-        f"pack+init {gsecs['pack']:.1f} s; nnz={geng.nnz} "
-        f"{tropical_facts(geng)}")
+    gcfg = EngineConfig(sort_rows_by_degree=True, engine="router")
+    gsssp, geng, gsecs, gpass1 = load(
+        iccad_standin("googleplus", scale=gscale, seed=0), gcfg)
+    gst, gst_s = stages(gpass1, gcfg, "triples")
+    log(f"phase 19 googleplus sssp (scale {gscale:g}), engine=router: "
+        f"relabel+self edges+pack+init {gsecs['load']:.1f} s, of which "
+        f"pass-1 pack+init {gsecs['pack']:.1f} s; nnz={geng.nnz}; three "
+        f"passes (split format triples) schedule pack+init {gst_s:.1f} s; "
+        f"{tropical_facts(gst)}")
     reset((geng,))
     gruns = {"pull": gsssp.pull(0, giters), "push": gsssp.push(0, giters)}
     torch.cuda.synchronize()
-    check_walk_only("googleplus sssp (triples)", geng.launches)
-    rec["K9_tropical_split_triples"]["launches"] = geng.launches[
-        "split_triples"]
-    log(f"phase 19 launches: googleplus sssp (triples) {geng.launches} "
-        f"(the walk only)")
+    check_walk_only("googleplus sssp", geng.launches)
+    log(f"phase 19 launches: googleplus sssp {geng.launches} (the walk "
+        f"only)")
     gwant = gsssp.compute_reference_results(0, giters)
     for label, dist in gruns.items():
         check_close(f"googleplus triples sssp {label}", dist, gwant,
@@ -1873,17 +1899,17 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
     for label, y in (("tropical", geng(xg)), ("chunked", gchunked.apply(xg))):
         check_close(f"googleplus {label} engine call", y.cpu().numpy(), gwant,
                     exact=True)
-    h1 = geng.scatter(xg)
-    h2, h2p = geng.split(h1), geng.split_plain(h1)
-    hout = geng.window_reduce(h2)
+    h1 = gst.scatter(xg)
+    h2, h2p = gst.split(h1), gst.split_plain(h1)
+    hout = gst.window_reduce(h2)
     hwalk = geng.fused(xg)
     torch.cuda.synchronize()
     bit_equal(torch, "googleplus K4 scatter ADDMIN (triples)", h1,
-              geng.scatter_plain(xg))
+              gst.scatter_plain(xg))
     bit_equal(torch, "googleplus K9 window stream", h2, h2p)
-    bit_equal(torch, "googleplus K10 out", hout, geng.window_reduce_plain(h2))
+    bit_equal(torch, "googleplus K10 out", hout, gst.window_reduce_plain(h2))
     bit_equal(torch, "googleplus tropical walk", hwalk, geng.fused_plain(xg))
-    walk_is_three_pass(torch, "googleplus tropical walk", geng, hwalk, hout)
+    walk_is_three_pass(torch, "googleplus tropical walk", gst, hwalk, hout)
     rec["K9_tropical_split_triples"]["err"] = decoded_err(h2, h2p)
     log(f"phase 19 googleplus: sssp pull(0, {giters}) and push(0, {giters}) "
         f"equal to the oracle; the tropical and chunked engine calls equal "
@@ -1892,22 +1918,23 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         f"ok")
 
     # ---- 20. times ------------------------------------------------------------
-    bounds = tropical_bounds(eng)
+    bounds = tropical_bounds(st)
     timed = {
         "K4_planar_fused_addmin": (lambda: eng.fused(xt),
                                    lambda: eng.fused_plain(xt),
                                    walk_bound(torch, eng)),
-        "K4_planar_scatter_addmin": (lambda: eng.scatter(xt),
-                                     lambda: eng.scatter_plain(xt),
-                                     router_bounds(eng.planar)["scatter"]),
-        "K8_tropical_split": (lambda: eng.split(g1),
-                              lambda: eng.split_plain(g1), bounds["split"]),
-        "K10_tropical_window_reduce": (lambda: eng.window_reduce(g2),
-                                       lambda: eng.window_reduce_plain(g2),
+        "K4_planar_scatter_addmin": (lambda: st.scatter(xt),
+                                     lambda: st.scatter_plain(xt),
+                                     router_bounds(st.walk.planar)[
+                                         "scatter"]),
+        "K8_tropical_split": (lambda: st.split(g1),
+                              lambda: st.split_plain(g1), bounds["split"]),
+        "K10_tropical_window_reduce": (lambda: st.window_reduce(g2),
+                                       lambda: st.window_reduce_plain(g2),
                                        bounds["window_reduce"]),
-        "K9_tropical_split_triples": (lambda: geng.split(h1),
-                                      lambda: geng.split_plain(h1),
-                                      tropical_bounds(geng)["split"]),
+        "K9_tropical_split_triples": (lambda: gst.split(h1),
+                                      lambda: gst.split_plain(h1),
+                                      tropical_bounds(gst)["split"]),
     }
     for name, (kernel, plain, (nbytes, nops)) in timed.items():
         r = rec[name]
@@ -1917,23 +1944,23 @@ def tropical(torch, args, rec: dict, card: str, pk: dict) -> None:
         log(f"phase 20 {name}: {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
             f"ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{nbytes / 1e6:.1f} MB)")
-    split = eng.arrays.split
+    split = st.arrays.split
     live = split.pieces.shape[0]
     log(f"phase 20 K8 reads its compact form, not the planes: {live} "
         f"pieces, {split.lanes.numel()} elements, {split.nbytes() / 1e6:.1f}"
         f" MB (the planes it was derived from: {live} x 1 KB = "
-        f"{live * 1024 / 1e6:.1f} MB of live planes), derived in "
-        f"{eng.init_seconds:.2f} s")
+        f"{live * 1024 / 1e6:.1f} MB of live planes), derived with the "
+        f"store form in {st.init_seconds:.2f} s")
     call_ms = time_ms(torch, lambda: eng(xt))
-    three_ms = time_ms(torch, lambda: eng.window_reduce(eng.split(
-        eng.scatter(xt))))
+    three_ms = time_ms(torch, lambda: st.window_reduce(st.split(
+        st.scatter(xt))))
     p = eng.planar
     log(f"phase 20 pokec tropical engine call (the walk + decode): "
         f"{call_ms:.4f} ms ({gteps(eng.nnz, call_ms)}); the three passes "
         f"it replaces (K4 scatter -> K8 -> K10, no decode): {three_ms:.4f} "
         f"ms; the walk's forms: row {p.entries.nbytes() / 1e6:.1f} MB, tile "
-        f"{p.pred_entries.nbytes() / 1e6:.1f} MB, derived with the store "
-        f"form in {p.init_seconds:.2f} s")
+        f"{p.pred_entries.nbytes() / 1e6:.1f} MB, derived in "
+        f"{p.init_seconds:.2f} s")
     chunked = gchunked.engine
     t_ms = time_ms(torch, lambda: geng(xg))
     c_ms = time_ms(torch, lambda: chunked(xg))
@@ -2201,12 +2228,14 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
                                                eng.pred_plain_entries()),
         iters=10)
     bounds = permc_bounds(muladd)
+    bcsr = bfs.SpMV_.csr_matrix_
     timed = {"K11_permc_reduce": (lambda: muladd.reduce(s),
                                   lambda: muladd.reduce_plain(s),
                                   bounds["reduce"]),
              "K4_planar_fused_permc": (lambda: muladd.fused_spmv(xt),
                                        lambda: muladd.fused_entries_plain(xt),
-                                       mv_bound(bfs.SpMV_.csr_matrix_))}
+                                       mv_bound(bcsr.num_rows, bcsr.num_cols,
+                                                bcsr.nnz))}
     for name, (kernel, plain, (nbytes, nops)) in timed.items():
         r = rec[name]
         r["ms"] = time_ms(torch, kernel)

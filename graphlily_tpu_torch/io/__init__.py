@@ -13,5 +13,6 @@ from .planar_format import (PlanarSpMVLayout, choose_planar_region_rows,
                             pack_planar, planes_to_triples)
 from .permc_format import pack_permc, permc_stream_rows
 from .tropical_format import (TropicalSpMVLayout, pack_tropical,
+                              pack_tropical_pass1, pack_tropical_schedule,
                               choose_tropical_region_rows,
                               resolve_tropical_split_format)

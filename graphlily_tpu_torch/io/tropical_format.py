@@ -1,14 +1,17 @@
-"""Tropical (min-plus) SpMV layout: the split-pass schedule builder (numpy,
-host side).
+"""Tropical (min-plus) SpMV layouts (numpy, host side): pass 1, which the
+engine's walk reads, and the split-pass schedules of the TPU's three
+passes.
 
 The port's copy of the numpy path of `graphlily_tpu/io/tropical_format.py`
 (its `native=False` path: the C++ schedule builder is ROADMAP item 5a):
 for every input it builds the same arrays bit for bit, and the tests hold
-the two equal. The engine that runs it is ops/tropical.py.
+the two equal. ops/tropical.py runs them: `TropicalSpMV`, the walk, over
+`pack_tropical_pass1`'s layout; `TropicalStages`, the three passes, over
+`pack_tropical`'s.
 
 Why a layout of its own: min has no matrix-unit form, and the flush-stream
-reduce of the planar router (K3, K4 fused) adds. The tropical engine keeps
-the planar pass 1 and replaces the reduce with two passes built here:
+reduce of the planar router (K3, K4 fused) adds. The TPU keeps the planar
+pass 1 and replaces the reduce with two passes built here:
 
   1. PASS 1, planar (io/planar_format.pack_planar with hi_pad=-1 and
      pad_val=FLOAT_INF): values ride raw, >= 0 and clipped to FLOAT_INF; the
@@ -442,19 +445,16 @@ PLANES2_BYTES_PER_NNZ = 30.0   # the planes2 rate of pokec/hollywood-class
 # layouts (the JAX package's measured figure; the rule is its own)
 
 
-def resolve_tropical_split_format(nnz: int, config=None,
-                                  split_format: str | None = None) -> str:
+def resolve_tropical_split_format(nnz: int, split_format: str = "auto") -> str:
     """"planes" or "triples" for a graph of `nnz` entries: `split_format`,
-    else the config's `tropical_split_format`; "auto" picks triples where
-    the planes would pass AUTO_TRIPLES_PLANES_BYTES."""
-    fmt = (getattr(config, "tropical_split_format", "planes")
-           if split_format is None else split_format)
-    if fmt == "auto":
+    where "auto" picks triples where the planes would pass
+    AUTO_TRIPLES_PLANES_BYTES."""
+    if split_format == "auto":
         return ("triples" if nnz * PLANES2_BYTES_PER_NNZ
                 >= AUTO_TRIPLES_PLANES_BYTES else "planes")
-    if fmt not in SPLIT_FORMATS:
-        raise ValueError(f"unknown split_format {fmt!r}")
-    return fmt
+    if split_format not in SPLIT_FORMATS:
+        raise ValueError(f"unknown split_format {split_format!r}")
+    return split_format
 
 
 def derive_split_triples(lay: PlanarSpMVLayout, parts: dict):
@@ -584,41 +584,56 @@ def compact_window_stream(parts: dict) -> dict:
                 fill2=parts["fill2"] * (nsteps2 * f2) / max(n_out, 1))
 
 
-def pack_tropical(csr: CSRMatrix, config=DEFAULT_CONFIG,
-                  region_rows: int | None = None, kb: int = 16,
-                  split_format: str | None = None) -> TropicalSpMVLayout:
-    """Pack for the tropical engine. Values ride raw, clipped to
-    FLOAT_INF, with FLOAT_INF, the tropical annihilator, in empty
-    A-value slots. A negative stored value raises: the int32 encoding
-    orders only non-negative floats, so the walk's minima would be wrong
-    (ROADMAP queue 3, F2). x must be >= 0 too (distances), which is not
-    checked: that would take a host sync a call. The pass-1 deal is
-    `config.planar_deal`; `split_format` overrides
-    `config.tropical_split_format`. In the "triples" format the pass-1
-    planes are packed to triple-run words too (`planar.triples`,
-    `planar.planes` emptied)."""
+def pack_tropical_pass1(csr: CSRMatrix, config=DEFAULT_CONFIG,
+                        region_rows: int | None = None) -> PlanarSpMVLayout:
+    """The pass-1 layout, all the engine's walk reads, in the deal
+    `config.planar_deal`. Values ride raw, clipped to FLOAT_INF, with
+    FLOAT_INF, the tropical annihilator, in empty A-value slots. A
+    negative stored value raises: the int32 encoding orders only
+    non-negative floats, so the walk's minima would be wrong (ROADMAP
+    queue 3, F2). x must be >= 0 too (distances), which is not checked:
+    that would take a host sync a call. An empty matrix raises as the
+    JAX package's split schedule does."""
     work = csr.copy()
     vals = work.adj_data[:work.nnz]
     negative = int(np.count_nonzero(vals < 0))
     if negative:
         raise ValueError(f"the tropical engine needs stored values >= 0: "
                          f"{negative} of {work.nnz} are negative")
+    if not work.nnz:
+        raise AssertionError("empty layout")
     work.adj_data[:work.nnz] = np.clip(vals, 0.0, FLOAT_INF)
     if region_rows is None:
         region_rows = choose_tropical_region_rows(
             -(-csr.num_rows // 1024) * 1024)
-    lay = pack_planar(work, region_rows=region_rows, hi_pad=-1,
-                      pad_val=float(FLOAT_INF),
-                      deal=config.planar_deal)
+    return pack_planar(work, region_rows=region_rows, hi_pad=-1,
+                       pad_val=float(FLOAT_INF), deal=config.planar_deal)
+
+
+def pack_tropical_schedule(lay: PlanarSpMVLayout, kb: int = 16,
+                           split_format: str = "auto") -> TropicalSpMVLayout:
+    """The full three-pass layout (ops/tropical.TropicalStages) over the
+    pass-1 layout `lay` (`pack_tropical_pass1`): the split and reduce
+    schedules in `split_format` ("planes", "triples" or "auto",
+    `resolve_tropical_split_format`). In the "triples" format it holds a
+    copy of `lay` whose planes are packed to triple-run words
+    (`planar.triples`, `planar.planes` emptied); `lay` is not changed."""
     parts = build_split_schedule(lay, kb=kb)
-    fmt = resolve_tropical_split_format(csr.nnz, config, split_format)
-    if fmt == "triples":
+    if resolve_tropical_split_format(lay.nnz, split_format) == "triples":
         xsort2, triples2 = derive_split_triples(lay, parts)
         parts = dict(parts, xsort2=xsort2, triples2=triples2,
                      planes2=np.zeros((0, 0, S, L), np.int8))
-        lay.triples = planes_to_triples(lay)
-        lay.planes = np.zeros((0, 0, S, L), np.int8)
+        lay = dataclasses.replace(lay, triples=planes_to_triples(lay),
+                                  planes=np.zeros((0, 0, S, L), np.int8))
     parts = compact_window_stream(parts)
     return TropicalSpMVLayout(
         planar=lay, num_rows=lay.num_rows, num_cols=lay.num_cols,
         nnz=lay.nnz, **parts)
+
+
+def pack_tropical(csr: CSRMatrix, config=DEFAULT_CONFIG,
+                  region_rows: int | None = None, kb: int = 16,
+                  split_format: str = "auto") -> TropicalSpMVLayout:
+    """`pack_tropical_schedule` over `pack_tropical_pass1`'s layout."""
+    return pack_tropical_schedule(
+        pack_tropical_pass1(csr, config, region_rows), kb, split_format)

@@ -28,20 +28,15 @@ import torch
 from ..config import EngineConfig, DEFAULT_CONFIG
 from ..semiring import MaskType, OpType, FLOAT_INF, apply_mask_sparse_style
 from ..io.matrix import CSCMatrix, csc2csr
-from ..io.formatter import estimate_chunk_layout_gb, pack_csr_chunks
-from ..io.router_format import pack_router
-from ..io.planar_format import pack_planar
-from ..io.tropical_format import pack_tropical
 from ..ops.reference import coo_from_csc, spmspv_coo
 from ..ops.vector import (SparseVector, sparse_from_entries, sparse_to_dense,
                           dense_to_sparse)
 from ..ops.chunked import ChunkedSpMV
 from ..ops.router import RouterSpMV
-from ..ops.planar import PlanarSpMV
 from ..ops.tropical import TropicalSpMV
 from ..utils.profiling import span
 from .base import BaseModule, DeviceBuffer
-from .spmv_module import resolve_router_flavor
+from .spmv_module import build_engine, chunked_feasible, resolve_router_flavor
 
 
 class SpMSpVModule(BaseModule):
@@ -87,32 +82,15 @@ class SpMSpVModule(BaseModule):
                 and csc_matrix.num_rows % 1024 == 0
                 and csc_matrix.num_cols % 1024 == 0):
             csr_twin = csc2csr(csc_matrix)
-            tropical = self.semiring_.op == OpType.ADDMIN
-            feasible = (estimate_chunk_layout_gb(csr_twin) <= 2.0
-                        and csr_twin.num_rows <= 700_000)
-            use_chunked = engine == "pallas" or feasible
-            if tropical and not use_chunked:
-                self.engine_name = "tropical"
-                self.engine = TropicalSpMV(
-                    pack_tropical(csr_twin, self.config), self.semiring_,
-                    self.config, MaskType.NO_MASK)
-            elif use_chunked:
+            if engine == "pallas" or chunked_feasible(csr_twin):
                 self.engine_name = "chunked"
-                self.engine = ChunkedSpMV(
-                    pack_csr_chunks(csr_twin,
-                                    pad_val=float(self.semiring_.zero),
-                                    chunk_order="col"),
-                    self.semiring_, self.config, MaskType.NO_MASK)
-            elif resolve_router_flavor(csr_twin) == "roll":
-                self.engine_name = "roll"
-                self.engine = RouterSpMV(pack_router(csr_twin),
-                                         self.semiring_, self.config,
-                                         MaskType.NO_MASK)
+            elif self.semiring_.op == OpType.ADDMIN:
+                self.engine_name = "tropical"
             else:
-                self.engine_name = "planar"
-                self.engine = PlanarSpMV(
-                    pack_planar(csr_twin, deal=self.config.planar_deal),
-                    self.semiring_, self.config, MaskType.NO_MASK)
+                self.engine_name = resolve_router_flavor(csr_twin)
+            self.engine = build_engine(
+                self.engine_name, csr_twin, self.semiring_, self.config,
+                MaskType.NO_MASK, chunk_order="col")
         else:
             self.engine_name = "xla"
             self._coo = coo_from_csc(csc_matrix, dtype=self.config.torch_dtype,

@@ -25,7 +25,7 @@ from ..io.formatter import (util_round_csr_matrix_dim,
                             estimate_chunk_layout_gb, pack_csr_chunks)
 from ..io.router_format import choose_region_rows, pack_router
 from ..io.planar_format import pack_planar
-from ..io.tropical_format import pack_tropical
+from ..io.tropical_format import pack_tropical_pass1
 from ..ops.reference import coo_from_csr, spmv_coo
 from ..ops.chunked import ChunkedSpMV
 from ..ops.router import RouterSpMV
@@ -33,6 +33,39 @@ from ..ops.planar import PlanarSpMV
 from ..ops.tropical import TropicalSpMV
 from ..utils.profiling import span
 from .base import BaseModule, DeviceBuffer
+
+
+# The chunked layout's limits, which both modules' ladders apply
+CHUNKED_MAX_ROWS = 700_000
+CHUNKED_MAX_GB = 2.0
+
+
+def chunked_feasible(csr: CSRMatrix) -> bool:
+    """Whether the chunked layout serves `csr`: at most CHUNKED_MAX_ROWS
+    rows and CHUNKED_MAX_GB by `estimate_chunk_layout_gb`."""
+    return (csr.num_rows <= CHUNKED_MAX_ROWS
+            and estimate_chunk_layout_gb(csr) <= CHUNKED_MAX_GB)
+
+
+def build_engine(name: str, csr: CSRMatrix, semiring, config: EngineConfig,
+                 mask_type: MaskType, chunk_order: str = "row"):
+    """The engine `name` ("chunked", "roll", "planar" or "tropical") over
+    `csr`, packed for it; None for "xla", whose COO form each module
+    builds. The chunked layout is in `chunk_order`: "row" for SpMV, "col"
+    for SpMSpV."""
+    if name == "chunked":
+        return ChunkedSpMV(pack_csr_chunks(csr, pad_val=float(semiring.zero),
+                                           chunk_order=chunk_order),
+                           semiring, config, mask_type)
+    if name == "roll":
+        return RouterSpMV(pack_router(csr), semiring, config, mask_type)
+    if name == "planar":
+        return PlanarSpMV(pack_planar(csr, deal=config.planar_deal),
+                          semiring, config, mask_type)
+    if name == "tropical":
+        return TropicalSpMV(pack_tropical_pass1(csr, config), semiring,
+                            config, mask_type)
+    return None
 
 
 def resolve_router_flavor(csr) -> str:
@@ -53,11 +86,8 @@ def resolve_engine(csr: CSRMatrix, engine: str, tropical: bool) -> str:
     if engine == "pallas":
         return "chunked"
     if engine == "auto":
-        if tropical or csr.nnz < 2_000_000:
-            feasible = (csr.num_rows <= 700_000
-                        and estimate_chunk_layout_gb(csr) <= 2.0)
-            if feasible:
-                return "chunked"
+        if (tropical or csr.nnz < 2_000_000) and chunked_feasible(csr):
+            return "chunked"
         if tropical:
             return "tropical"
         engine = "router"
@@ -95,21 +125,8 @@ class SpMVModule(BaseModule):
         name = resolve_engine(csr_matrix, self.config.resolve_engine(),
                               self.semiring_.op == OpType.ADDMIN)
         self.engine_name = name
-        if name == "chunked":
-            self.engine = ChunkedSpMV(
-                pack_csr_chunks(csr_matrix, pad_val=float(self.semiring_.zero)),
-                self.semiring_, self.config, self.mask_type_)
-        elif name == "roll":
-            self.engine = RouterSpMV(pack_router(csr_matrix), self.semiring_,
-                                     self.config, self.mask_type_)
-        elif name == "planar":
-            self.engine = PlanarSpMV(
-                pack_planar(csr_matrix, deal=self.config.planar_deal),
-                self.semiring_, self.config, self.mask_type_)
-        elif name == "tropical":
-            self.engine = TropicalSpMV(
-                pack_tropical(csr_matrix, self.config), self.semiring_,
-                self.config, self.mask_type_)
+        self.engine = build_engine(name, csr_matrix, self.semiring_,
+                                   self.config, self.mask_type_)
         if self.engine is not None:
             self.num_rows_ = self.engine.num_rows
             self.num_cols_ = self.engine.num_cols

@@ -7,4 +7,4 @@ from .reference import (COODevice, coo_from_csr, coo_from_csc, spmv_coo,
 from .router import RouterSpMV, RouterArrays
 from .planar import PlanarSpMV, PlanarArrays
 from .chunked import ChunkedSpMV, ChunkArrays
-from .tropical import TropicalSpMV, TropicalArrays
+from .tropical import TropicalSpMV, TropicalStages, TropicalArrays

@@ -156,8 +156,14 @@ class Launches(dict):
     inside it, so the spans and the counts cannot drift apart."""
 
     def __init__(self, engine: str, keys):
-        super().__init__(dict.fromkeys(keys, 0))
-        self.names = {k: f"ops.{engine}.{k}" for k in keys}
+        super().__init__()
+        self.engine, self.names = engine, {}
+        self.extend(keys)
+
+    def extend(self, keys) -> None:
+        """Count `keys` too, from 0, in spans of the same engine."""
+        for k in keys:
+            self[k], self.names[k] = 0, f"ops.{self.engine}.{k}"
 
     def __call__(self, key: str):
         self[key] += 1

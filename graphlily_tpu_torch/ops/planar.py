@@ -46,8 +46,9 @@ The first two hold the matrix's (row, column, value) triples and nothing
 of the deal: the "free", "bucket" and PERM-C layouts of one graph give
 the same arrays. The store form depends on the deal (stream slots differ
 between deals). None of the kernels needs K5. `init_seconds` times the
-forms and the region-group table (which the tropical pass 1, whose
-int32 stream K3 does not read, does not derive). `__call__` is RouterSpMV's: K4 fused
+forms and the region-group table (`_derive_forms`; the tropical pass 1
+derives only the walks' forms, and TropicalStages its store form with
+`derive_store_form`). `__call__` is RouterSpMV's: K4 fused
 or K4 scatter -> K3 by the same fused rule (ops/router.FUSED_MAX_Y_BYTES),
 then the ANDOR 0/1 clamp and the SpMV mask, as the JAX engine does
 (router_pallas.py:1757-1782).
@@ -108,10 +109,6 @@ from .router import (RouterEntries, RouterSpMV, reduce_groups,
 # widths unmeasured
 FORM_COL_BITS = 14
 FORM_COL_BITS_NO_VALUES = 13
-# the tropical pass 1's row form, which the ADDMIN walk reads: 2**13
-# columns ran 0.7% faster than 2**14 and 9% faster than 2**15 on the
-# pokec stand-in alone (ab_kernels.py --kernels walk, PERF.md §6)
-FORM_COL_BITS_ADDMIN = 13
 # K4p fused's tile form: windows of one column tile, the activity unit
 TILE_COL_BITS = 10
 
@@ -192,21 +189,32 @@ class PlanarSpMV(RouterSpMV):
             "scatter_pred", "reduce_pred")
             + (("permc_reduce", "permc_reduce_pred") if self.permc else ()))
         t0 = time.perf_counter()
-        idx = resolved_index(self)     # one decode for every form
-        self.store_entries = router_entries(           # K4 scatter's
-            self, "stream", index=idx)
-        cap = 31 - int(self.region_rows - 1).bit_length()
-        bits = FORM_COL_BITS_ADDMIN if self.TROPICAL else FORM_COL_BITS
-        self.entries = router_entries(                 # K4 fused's
-            self, "row", col_bits=min(bits, cap), values=None,
-            col_bits_no_values=min(FORM_COL_BITS_NO_VALUES, cap), index=idx)
-        self.pred_entries = router_entries(            # K4p fused's
-            self, "row", col_bits=TILE_COL_BITS, values=None, index=idx)
-        self.groups = (None if self.TROPICAL       # K3's, K11's
-                       else reduce_groups(self.arrays.c_code))
+        self._derive_forms(resolved_index(self))   # one decode for all
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.perf_counter() - t0   # the derived forms
+
+    def _derive_forms(self, idx: dict) -> None:
+        """The forms the kernels read, from one decode `idx`: K4 scatter's
+        store form, K3's (K11's) region-group table and the walks'."""
+        self.derive_store_form(idx)
+        self.groups = reduce_groups(self.arrays.c_code)
+        self._derive_walk_forms(idx, FORM_COL_BITS)
+
+    def derive_store_form(self, idx: dict | None = None) -> None:
+        """K4 scatter's store form, from the decode `idx` (its own without)."""
+        self.store_entries = router_entries(self, "stream", index=idx)
+
+    def _derive_walk_forms(self, idx: dict, col_bits: int) -> None:
+        """K4 fused's row form, in windows of 2**col_bits columns (fewer
+        where the row within a region needs more of the word), and K4p
+        fused's tile form."""
+        cap = 31 - int(self.region_rows - 1).bit_length()
+        self.entries = router_entries(
+            self, "row", col_bits=min(col_bits, cap), values=None,
+            col_bits_no_values=min(FORM_COL_BITS_NO_VALUES, cap), index=idx)
+        self.pred_entries = router_entries(
+            self, "row", col_bits=TILE_COL_BITS, values=None, index=idx)
 
     # ---- K5 xperm --------------------------------------------------------------
     def xperm(self, x: torch.Tensor,
@@ -222,11 +230,10 @@ class PlanarSpMV(RouterSpMV):
             return self.xperm_plain(x, a)
         with self.launches("xperm"):
             x2 = torch.empty_like(x)
-            rc = _build.library().glt_planar_xperm(
-                a.xperm.data_ptr(), x.data_ptr(), x2.data_ptr(),
-                self.num_col_tiles,
+            _build.launch(
+                "glt_planar_xperm", a.xperm.data_ptr(), x.data_ptr(),
+                x2.data_ptr(), self.num_col_tiles,
                 torch.cuda.current_stream(x.device).cuda_stream)
-            self._raise_on(rc, "glt_planar_xperm")
         return x2
 
     # ---- K4 scatter ------------------------------------------------------------
@@ -259,17 +266,16 @@ class PlanarSpMV(RouterSpMV):
             ptrs = [t.data_ptr() for t in (e.blocks, e.deps, e.vals, e.idx,
                                            x, out)]
             if act is None:
-                name = "glt_planar_scatter"
-                rc = _build.library().glt_planar_scatter(
-                    *ptrs, e.tails.data_ptr() if own_zeros else None,
+                _build.launch(
+                    "glt_planar_scatter", *ptrs,
+                    e.tails.data_ptr() if own_zeros else None,
                     e.blocks.shape[0], e.max_segments, e.col_bits,
                     self.nsteps * self.f, self._op, stream)
             else:
-                name = "glt_planar_scatter_pred"
-                rc = _build.library().glt_planar_scatter_pred(
-                    *ptrs, act.data_ptr(), e.blocks.shape[0], e.max_segments,
-                    e.col_bits, self._op, stream)
-            self._raise_on(rc, name)
+                _build.launch(
+                    "glt_planar_scatter_pred", *ptrs, act.data_ptr(),
+                    e.blocks.shape[0], e.max_segments, e.col_bits, self._op,
+                    stream)
         return out.view(self.nsteps, self.f, S, L)
 
     # ---- K11 and K11p: PERM-C phase C ---------------------------------------------
@@ -297,10 +303,9 @@ class PlanarSpMV(RouterSpMV):
                             device=stream.device)
             ptrs = [t.data_ptr() for t in (a.c_code, stream, a.c_hi_dest,
                                            a.c_end, a.c_beg, y, live)]
-            rc = _build.library().glt_permc_reduce_pred(
-                *ptrs, nchunks, self.region_rows,
+            _build.launch(
+                "glt_permc_reduce_pred", *ptrs, nchunks, self.region_rows,
                 torch.cuda.current_stream(stream.device).cuda_stream)
-            self._raise_on(rc, "glt_permc_reduce_pred")
         return y
 
     # ---- SpMSpV: tile activity, K4p ---------------------------------------------

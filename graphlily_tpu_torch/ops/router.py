@@ -459,12 +459,6 @@ class RouterSpMV:
         """float32, or int32 for the tropical engine's ADDMIN encodings."""
         return torch.int32 if self.TROPICAL else torch.float32
 
-    @staticmethod
-    def _raise_on(rc: int, name: str) -> None:
-        if rc != 0:
-            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
-                               f"error {rc}")
-
     # ---- K2 scatter ----------------------------------------------------------
     def scatter(self, x: torch.Tensor,
                 arrays: RouterArrays | None = None) -> torch.Tensor:
@@ -479,10 +473,10 @@ class RouterSpMV:
             ptrs = [t.data_ptr() for t in (a.a_page, a.a_r, a.a_sub,
                                            a.a_vals, a.rg, a.target, x,
                                            stream)]
-            rc = _build.library().glt_router_scatter(
-                *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
-                self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
-            self._raise_on(rc, "glt_router_scatter")
+            _build.launch(
+                "glt_router_scatter", *ptrs, self.nsteps, self.cb,
+                self.rstep, self.dstep, self._and_or,
+                torch.cuda.current_stream(x.device).cuda_stream)
         return stream.view(self.nsteps, self.f, 8, 128)
 
     # ---- K3 reduce -----------------------------------------------------------
@@ -509,10 +503,10 @@ class RouterSpMV:
                                            a.c_hi, a.c_lo, y)]
             # the tile's opt-in is per card
             with torch.cuda.device(stream.device):
-                rc = _build.library().glt_router_reduce(
-                    *ptrs, g.groups.shape[0], self.region_rows,
+                _build.launch(
+                    "glt_router_reduce", *ptrs, g.groups.shape[0],
+                    self.region_rows,
                     torch.cuda.current_stream(stream.device).cuda_stream)
-            self._raise_on(rc, "glt_router_reduce")
         return y
 
     # ---- K1 fused ------------------------------------------------------------
@@ -562,10 +556,9 @@ class RouterSpMV:
                     for t in (e.blocks, e.deps, e.vals, e.idx, x, y)]
             if act is not None:
                 ptrs.append(act.data_ptr())
-            rc = getattr(_build.library(), name)(
-                *ptrs, e.blocks.shape[0], e.max_segments, e.col_bits,
+            _build.launch(
+                name, *ptrs, e.blocks.shape[0], e.max_segments, e.col_bits,
                 self._op, torch.cuda.current_stream(x.device).cuda_stream)
-            self._raise_on(rc, name)
         return y
 
     # ---- SpMSpV: activity and live sets ----------------------------------------
@@ -643,10 +636,10 @@ class RouterSpMV:
             ptrs = [t.data_ptr() for t in (a.a_page, a.a_r, a.a_sub,
                                            a.a_vals, a.rg, a.target, x,
                                            stream, act)]
-            rc = _build.library().glt_router_scatter_pred(
-                *ptrs, self.nsteps, self.cb, self.rstep, self.dstep,
-                self._and_or, torch.cuda.current_stream(x.device).cuda_stream)
-            self._raise_on(rc, "glt_router_scatter_pred")
+            _build.launch(
+                "glt_router_scatter_pred", *ptrs, self.nsteps, self.cb,
+                self.rstep, self.dstep, self._and_or,
+                torch.cuda.current_stream(x.device).cuda_stream)
         return stream.view(self.nsteps, self.f, 8, 128)
 
     def reduce_predicated(self, stream: torch.Tensor, live: torch.Tensor,
@@ -662,10 +655,10 @@ class RouterSpMV:
                             device=stream.device)
             ptrs = [t.data_ptr() for t in (a.c_code, stream, a.c_hi, a.c_lo,
                                            y, live)]
-            rc = _build.library().glt_router_reduce_pred(
-                *ptrs, self.nsteps * self.f, self.region_rows,
+            _build.launch(
+                "glt_router_reduce_pred", *ptrs, self.nsteps * self.f,
+                self.region_rows,
                 torch.cuda.current_stream(stream.device).cuda_stream)
-            self._raise_on(rc, "glt_router_reduce_pred")
         return y
 
     def fused_predicated(self, x: torch.Tensor, act: torch.Tensor,

@@ -1,12 +1,12 @@
-"""Tropical (min-plus) SpMV engine on Hopper: one ADDMIN walk of the planar
-pass 1's row-sorted form; the TPU's three passes (planar pass 1 -> window
-split -> window reduce) kept as its stages.
-
-Counterpart of `TropicalSpMV` in graphlily_tpu/ops/tropical_pallas.py:435,
-over the same `TropicalSpMVLayout` (io/tropical_format.py; either
-package's layout: both are plain numpy and identical). The ladder sends
-SSSP here where the chunked layout is infeasible (module/spmv_module.
-resolve_engine).
+"""Tropical (min-plus) SpMV on Hopper: the engine, `TropicalSpMV`, one
+ADDMIN walk of the planar pass 1's row-sorted form, over the layout of
+io/tropical_format.pack_tropical_pass1; and `TropicalStages`, the TPU's
+three passes (planar pass 1 -> window split -> window reduce) over the
+full layout of `pack_tropical`, which only the code that compares
+against them builds. Counterpart of `TropicalSpMV` in
+graphlily_tpu/ops/tropical_pallas.py:435 (either package's layouts: both
+are plain numpy and identical). The ladder sends SSSP to the engine where
+the chunked layout is infeasible (module/spmv_module.resolve_engine).
 
 One SpMV (`__call__`) is one walk, `fused`: K1's kernel in ADDMIN mode
 (csrc/router_spmv.cu, K4 fused's instance) over the pass-1 engine's row
@@ -14,73 +14,55 @@ form `entries` (every element with its value, sorted by row within each
 region and window of 2**FORM_COL_BITS_ADDMIN columns, ops/planar.py):
 each product's exact int32 encoding E = INF_BITS - bits(min(val + x,
 FLOAT_INF)) (semiring.tropical_encode, csrc/semiring_product.cuh),
-folded by row with int32 max and one atomicMax a run into a zeroed out,
-K10's own reduction. The int32 max is exact in any order, so `out` is
-bit-equal to the three passes' on every x, negative entries included
-(ROADMAP queue 3 F2: the reference's wrong minima there, which the walk
-keeps; `pack_tropical` refuses a negative stored value). SpMSpV
-(`call_predicated`) is the predicated walk, `fused_predicated` (K1p's
-kernel) over the tile form `pred_entries` (windows of one 1,024-column
-tile, each segment flagged by its tile, the activity unit): a dead
-tile's elements are not read.
-Their plain version (`fused_plain`, the CPU path) is scatter_reduce_
-amax of the encodings over the form. Each launch counts as `fused` or
-`fused_pred`.
+folded by row with int32 max and one atomicMax a run into a zeroed out.
+The int32 max is exact in any order, so `out` is bit-equal to the three
+passes' on every x. SpMSpV (`call_predicated`) is the predicated walk,
+`fused_predicated` (K1p's kernel) over the tile form `pred_entries`
+(windows of one 1,024-column tile, each segment flagged by its tile): a
+column tile is active where any x differs from FLOAT_INF, the semiring
+zero (a source sits at distance 0), and a dead tile's elements are not
+read. The plain version (`fused_plain`, the CPU path) is
+scatter_reduce_ amax of the encodings over the form. Then y =
+bits^-1(INF_BITS - out) and the SpMV mask in the span `tropical.decode`;
+SpMSpV's tile activity runs in `tropical.activity` (glue: no launch).
 
-The three passes stay as the engine's stages, held to their plain
-versions and to the walk; no app path launches them. They are the JAX
-pipeline (tropical_pallas.py:513-564):
+The stages are the JAX pipeline (tropical_pallas.py:513-564), held to
+their plain versions and to the walk; no app path builds them:
 
-  K4 scatter  pass 1 in ADDMIN mode (csrc/planar_spmv.cu, over the pass-1
-              engine's piece-ordered store form, which resolves a "bucket"
-              element's x2 slot to its x column, so K5 never runs):
-              every product's exact int32 encoding
-              E = INF_BITS - bits(min(val + x, FLOAT_INF))
-              (semiring.tropical_encode) into a zeroed region-major flush
-              stream g1, whose zeros are E(FLOAT_INF), the identity of max;
-              K4p scatter over the pieces of active tiles for SpMSpV;
+  K4 scatter  pass 1 in ADDMIN mode (csrc/planar_spmv.cu) over the store
+              form the stages derive on the walk's pass 1: every
+              product's encoding into a zeroed region-major flush stream
+              g1, whose zeros are E(FLOAT_INF), the identity of max; K4p
+              scatter over the pieces of active tiles;
   K8 / K9     `split` (csrc/tropical_spmv.cu): g1, read through `in_order`,
               into the window-pure chunks of the compact window stream g2,
               from the deposit planes (K8, split format "planes") or the
               sort planes and run words (K9, "triples");
   K10         `window_reduce`: the int32 max of every window row into
-              out[num_windows * 128];
-
-then y = bits^-1(INF_BITS - out) and the SpMV mask, as torch ops (after
-the walk too, in the span `tropical.decode`; SpMSpV's tile activity runs
-in `tropical.activity`: spans of the engine's glue, which count no
-launch). The walk's out has the pass-1 regions' rows (out_len),
-K10's the windows' (num_windows * 128): both index global rows, window w
-holding rows 128w..128w+127, and init checks that the regions cover
-the windows, so K10's out is a prefix of the walk's and the rows past it
-hold 0. Pass 1 is a PlanarSpMV in ADDMIN mode (`TropicalPass1`) that
-derives the row, tile and store forms and shares this engine's
-`launches`.
+              out[num_windows * 128], a prefix of the walk's out (the
+              pass-1 regions' rows, out_len), which the stages check.
 
 The TPU kernels carry digit accumulators from grid step to grid step. Here
 the host resolves, once, the window chunk each split deposit is flushed
 into (io/router_format.deposit_targets with the block map qblk2), so K8
 and K9 are independent copies. Each wrapper runs its kernel on CUDA
-tensors and its plain PyTorch version (`*_plain`: index copies expanded
-from the descriptors or the pieces, `scatter_reduce_` amax) only when
-given CPU tensors; each launch adds one to `launches[name]` inside the
-span `ops.tropical.<name>` (pass 1's launches too).
+tensors and its plain PyTorch version (`*_plain`) only when given CPU
+tensors; each launch adds one to `launches[name]` inside the span
+`ops.tropical.<name>` (the stages add their keys to the walk's dict).
 
 K8 does not read the deposit planes (1 KB a piece, a byte a lane, almost
-all empty). At init the engine derives from them, on the device, its
-compact form (`split_pieces`): for each live piece its source and target
-chunks and first element, one run word per sublane (each (piece,
-sublane) moves one contiguous destination run: d0 << 7 | n << 14, the
-word format of csrc/piece_runs.cuh with a0 unused), and one source-lane
-byte per moved element. The planes then leave the device; `init_seconds`
-times the form.
+all empty). The stages derive from them, on the device, its compact form
+(`split_pieces`): for each live piece its source and target chunks and
+first element, one run word per sublane (d0 << 7 | n << 14, the word
+format of csrc/piece_runs.cuh with a0 unused), and one source-lane byte
+per moved element. The engine's `init_seconds` times the walk's forms;
+the stages' times the store form and K8's.
 
 x must be >= 0 (distances): padding A-slots hold FLOAT_INF, the tropical
-annihilator, and the encoding orders only non-negative floats. SpMSpV
-(`call_predicated`) flags a column tile active where any x differs from
-FLOAT_INF, the semiring zero (not where x != 0: a source sits at distance
-0). The JAX engine's `out_3d` view, accumulator banks, looped split and
-guard batching are TPU-only and not carried over.
+annihilator, and the encoding orders only non-negative floats; the pack
+refuses a negative stored value (ROADMAP queue 3, F2). The JAX engine's
+`out_3d` view, accumulator banks, looped split and guard batching are
+TPU-only and not carried over.
 """
 from __future__ import annotations
 
@@ -90,32 +72,41 @@ import time
 import torch
 
 from ..config import EngineConfig, DEFAULT_CONFIG
-from ..io.planar_format import S, L
+from ..io.planar_format import S, L, PlanarSpMVLayout
 from ..io.router_format import CHUNK, deposit_targets
-from ..semiring import (Semiring, OpType, MaskType, apply_mask, FLOAT_INF,
-                        tropical_decode)
+from ..semiring import (Semiring, MaskType, TropicalSemiring, apply_mask,
+                        FLOAT_INF, tropical_decode)
 from ..utils.profiling import span
 from . import _build
 from .planar import PlanarSpMV, run_words
 
+# the tropical pass 1's row form, which the ADDMIN walk reads: 2**13
+# columns ran 0.7% faster than 2**14 and 9% faster than 2**15 on the
+# pokec stand-in alone (ab_kernels.py --kernels walk, PERF.md §6)
+FORM_COL_BITS_ADDMIN = 13
+
 
 class TropicalPass1(PlanarSpMV):
-    """The planar pass 1 in ADDMIN mode. K4 fused's walk (`fused_spmv`,
-    `fused_predicated`) writes the int32 max of the encodings by row over
-    its row and tile forms; K4 scatter and K4p scatter write the
-    encodings into the flush stream over its store form. K3 refuses the
-    int32 stream, so the walk's reference is the three passes
-    (TropicalSpMV.scatter, split, window_reduce), not `fused_plain`."""
+    """The planar pass 1 in ADDMIN mode, the walk's. K4 fused's walk
+    (`fused_spmv`, `fused_predicated`) writes the int32 max of the
+    encodings by row over its row and tile forms, which are all it
+    derives; TropicalStages adds the store form that K4 scatter and K4p
+    scatter read. K3 refuses the int32 stream, so the walk's reference is
+    the three passes (TropicalStages.scatter, split, window_reduce), not
+    `fused_plain`."""
 
     TROPICAL = True
 
+    def _derive_forms(self, idx: dict) -> None:
+        self._derive_walk_forms(idx, FORM_COL_BITS_ADDMIN)
+
     def fused_plain(self, *args, **kwargs):
         raise ValueError("K3 adds floats: the tropical walk's reference is "
-                         "TropicalSpMV.window_reduce(split(scatter(x)))")
+                         "TropicalStages.window_reduce(split(scatter(x)))")
 
     def reduce(self, *args, **kwargs):
         raise ValueError("K3 adds floats: the tropical pass 1's stream goes "
-                         "to TropicalSpMV.split, then window_reduce")
+                         "to TropicalStages.split, then window_reduce")
 
 
 @dataclasses.dataclass
@@ -186,80 +177,25 @@ class TropicalArrays:
 
 
 class TropicalSpMV:
-    """Tropical SpMV over a fixed layout: `__call__(x, mask, mask_type)`
-    and `call_predicated(x, mask, mask_type)` through the walk (`fused`,
-    `fused_predicated`), and the three-pass stages `scatter`, `split`,
-    `window_reduce`."""
+    """Tropical SpMV over a pass-1 layout (io/tropical_format.
+    pack_tropical_pass1): `__call__(x, mask, mask_type)` and
+    `call_predicated(x, mask, mask_type)`, each one walk (`fused`,
+    `fused_predicated`)."""
 
     ACT_COLS = 1024   # columns per activity flag: a column tile
 
-    def __init__(self, layout, semiring: Semiring,
+    def __init__(self, layout: PlanarSpMVLayout, semiring: Semiring,
                  config: EngineConfig = DEFAULT_CONFIG,
                  mask_type: MaskType = MaskType.NO_MASK):
-        if semiring.op != OpType.ADDMIN:
-            raise ValueError("the tropical engine runs ADDMIN only; "
-                             "PlanarSpMV and RouterSpMV run MULADD/ANDOR")
-        lay = layout
-        self.planar = TropicalPass1(lay.planar, semiring, config)
+        self.planar = TropicalPass1(layout, semiring, config)
         self.semiring = semiring
         self.mask_type = mask_type
-        self.num_rows, self.num_cols = lay.num_rows, lay.num_cols
-        self.num_col_tiles = lay.num_col_tiles
-        self.nnz = lay.nnz
-        self.num_windows = lay.num_windows
-        self.kb, self.f2 = lay.kb, lay.f2
-        self.nsteps2, self.rstep2 = lay.nsteps2, lay.rstep2
-        self.dstep2 = lay.dstep2
-        self.nchunks2 = len(lay.c_win)           # window-stream chunks
-        self.triples = lay.triples2 is not None
-        if int(lay.c_win.max(initial=-1)) >= self.num_windows:
-            raise ValueError("a window chunk names a window past the rows")
-        if self.num_windows * L > self.planar.out_len:
-            raise ValueError("the windows' rows pass the pass-1 regions': "
-                             "the walk's out would not hold K10's")
-        dev = self.planar._dev
-        target2 = deposit_targets(lay.rg2, lay.dstep2, lay.f2,
-                                  block=lay.qblk2)
-        rg2 = dev(lay.rg2).reshape(lay.nsteps2, lay.rstep2, 2)
-        target2 = dev(target2).reshape(lay.nsteps2, lay.dstep2)
-        in_order = dev(lay.in_order)
-        t0 = time.perf_counter()
-        split = None if self.triples else split_pieces(
-            rg2, dev(lay.planes2), in_order, target2, lay.kb, lay.dstep2)
-        if self.planar.device.type == "cuda":
-            torch.cuda.synchronize(self.planar.device)
-        self.init_seconds = time.perf_counter() - t0   # K8's form
-        self.arrays = TropicalArrays(
-            in_order=in_order, rg2=rg2, target2=target2, split=split,
-            xsort2=dev(lay.xsort2) if self.triples else None,
-            tri2=(dev(run_words(lay.triples2, lay.nsteps2, lay.dstep2))
-                  .reshape(lay.nsteps2, lay.dstep2, S)
-                  if self.triples else None),
-            c_win=dev(lay.c_win), sort2=dev(lay.sort2),
-            rowids=dev(lay.rowids))
-        self.launches = _build.Launches("tropical", (
-            "fused", "fused_pred", "xperm", "scatter", "scatter_pred",
-            "split", "split_triples", "window_reduce"))
-        self.planar.launches = self.launches
-        self._split_index = None
-        self._reduce_index = None
-
-    # ---- argument checks ---------------------------------------------------
-    def _check_stream(self, t: torch.Tensor, numel: int, what: str) -> bool:
-        """Validate an int32 stream; True when the kernel runs (CUDA)."""
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{what}: need a contiguous int32 tensor")
-        if t.numel() != numel:
-            raise ValueError(f"{what}: {t.numel()} elements, expected {numel}")
-        if t.device != self.arrays.c_win.device:
-            raise ValueError(f"{what} on {t.device}, engine arrays on "
-                             f"{self.arrays.c_win.device}")
-        return t.is_cuda
-
-    @property
-    def g1_numel(self) -> int:
-        p = self.planar
-        return p.nsteps * p.f * CHUNK
+        self.num_rows, self.num_cols = layout.num_rows, layout.num_cols
+        self.num_col_tiles = layout.num_col_tiles
+        self.nnz = layout.nnz
+        self.init_seconds = self.planar.init_seconds   # the walk's forms
+        self.launches = self.planar.launches = _build.Launches(
+            "tropical", ("fused", "fused_pred"))
 
     # ---- the walk: K4 fused and K4p fused (ADDMIN) ----------------------------
     def fused(self, x: torch.Tensor) -> torch.Tensor:
@@ -283,26 +219,111 @@ class TropicalSpMV:
         form = p.entries if act is None else p.pred_entries
         return p.fused_entries_plain(x.reshape(-1), act, form)
 
-    # ---- pass 1: K4 scatter and K4p scatter (ADDMIN) ------------------------
-    def scatter(self, x: torch.Tensor) -> torch.Tensor:
-        """The int32 flush stream g1, (nsteps, f, 8, 128)."""
-        return self.planar.scatter(x)
-
-    def scatter_predicated(self, x: torch.Tensor,
-                           act: torch.Tensor) -> torch.Tensor:
-        """g1 over the pieces of active tiles only; the others stay 0."""
-        return self.planar.scatter_predicated(x, act)
-
-    def scatter_plain(self, x: torch.Tensor,
-                      act: torch.Tensor | None = None) -> torch.Tensor:
-        """K4 scatter's plain version (K4p scatter's with `act`)."""
-        return self.planar.scatter_plain(x, None, act)
-
     def activity(self, x: torch.Tensor) -> torch.Tensor:
         """uint8 frontier activity, one flag per column tile: any x there
         other than FLOAT_INF, the semiring zero."""
         return (x.reshape(-1, self.ACT_COLS) != float(FLOAT_INF)).any(1).to(
             torch.uint8)
+
+    # ---- SpMV and SpMSpV -------------------------------------------------------
+    def __call__(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                 mask_type: MaskType | None = None) -> torch.Tensor:
+        """One SpMV, y = mask(A (min,+) x), (num_rows,): the walk."""
+        return self._finish(self.fused(x), mask, mask_type)
+
+    def call_predicated(self, x: torch.Tensor,
+                        mask: torch.Tensor | None = None,
+                        mask_type: MaskType | None = None) -> torch.Tensor:
+        """One SpMSpV on a dense frontier (x = FLOAT_INF off the frontier):
+        `__call__`'s result, through the walk of the active tiles."""
+        with span("tropical.activity"):
+            act = self.activity(x)
+        return self._finish(self.fused_predicated(x, act), mask, mask_type)
+
+    def _finish(self, out, mask, mask_type) -> torch.Tensor:
+        """Decode and the SpMV mask."""
+        with span("tropical.decode"):
+            y = tropical_decode(out)[:self.num_rows]
+            mt = self.mask_type if mask_type is None else mask_type
+            if mask is not None and mt != MaskType.NO_MASK:
+                y = apply_mask(y, mask, mt, self.semiring.zero)
+            return y
+
+
+class TropicalStages:
+    """The TPU's three passes over a full layout (io/tropical_format.
+    pack_tropical): `scatter` (K4 scatter ADDMIN; K4p scatter with
+    `scatter_predicated`), `split` (K8 or K9) and `window_reduce` (K10),
+    each with its plain version, beside `walk`, the engine over the same
+    pass 1, to which they are held."""
+
+    def __init__(self, layout, config: EngineConfig = DEFAULT_CONFIG):
+        lay = layout
+        self.walk = TropicalSpMV(lay.planar, TropicalSemiring, config)
+        p = self.walk.planar
+        self.num_windows = lay.num_windows
+        self.kb, self.f2, self.dstep2 = lay.kb, lay.f2, lay.dstep2
+        self.nsteps2, self.rstep2 = lay.nsteps2, lay.rstep2
+        self.nchunks2 = len(lay.c_win)           # window-stream chunks
+        self.g1_numel = p.nsteps * p.f * CHUNK   # pass 1's flush stream
+        self.triples = lay.triples2 is not None
+        if int(lay.c_win.max(initial=-1)) >= self.num_windows:
+            raise ValueError("a window chunk names a window past the rows")
+        if self.num_windows * L > p.out_len:
+            raise ValueError("the windows' rows pass the pass-1 regions': "
+                             "the walk's out would not hold K10's")
+        dev = p._dev
+        target2 = deposit_targets(lay.rg2, lay.dstep2, lay.f2,
+                                  block=lay.qblk2)
+        rg2 = dev(lay.rg2).reshape(lay.nsteps2, lay.rstep2, 2)
+        target2 = dev(target2).reshape(lay.nsteps2, lay.dstep2)
+        in_order = dev(lay.in_order)
+        t0 = time.perf_counter()
+        p.derive_store_form()   # K4 scatter's
+        split = None if self.triples else split_pieces(
+            rg2, dev(lay.planes2), in_order, target2, lay.kb, lay.dstep2)
+        if p.device.type == "cuda":
+            torch.cuda.synchronize(p.device)
+        self.init_seconds = time.perf_counter() - t0   # the two forms
+        self.arrays = TropicalArrays(
+            in_order=in_order, rg2=rg2, target2=target2, split=split,
+            xsort2=dev(lay.xsort2) if self.triples else None,
+            tri2=(dev(run_words(lay.triples2, lay.nsteps2, lay.dstep2))
+                  .reshape(lay.nsteps2, lay.dstep2, S)
+                  if self.triples else None),
+            c_win=dev(lay.c_win), sort2=dev(lay.sort2),
+            rowids=dev(lay.rowids))
+        self.launches = self.walk.launches   # its pass 1's too
+        self.launches.extend(("xperm", "scatter", "scatter_pred", "split",
+                              "split_triples", "window_reduce"))
+        self._split_index = self._reduce_index = None
+
+    # ---- argument checks ---------------------------------------------------
+    def _check_stream(self, t: torch.Tensor, numel: int, what: str) -> bool:
+        """Validate an int32 stream; True when the kernel runs (CUDA)."""
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{what}: need a contiguous int32 tensor")
+        if t.numel() != numel:
+            raise ValueError(f"{what}: {t.numel()} elements, expected {numel}")
+        if t.device != self.arrays.c_win.device:
+            raise ValueError(f"{what} on {t.device}, engine arrays on "
+                             f"{self.arrays.c_win.device}")
+        return t.is_cuda
+
+    # ---- pass 1: K4 scatter and K4p scatter (ADDMIN) ------------------------
+    def scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The int32 flush stream g1, (nsteps, f, 8, 128)."""
+        return self.walk.planar.scatter(x)
+
+    def scatter_predicated(self, x: torch.Tensor,
+                           act: torch.Tensor) -> torch.Tensor:
+        """g1 over the pieces of active tiles only; the others stay 0."""
+        return self.walk.planar.scatter_predicated(x, act)
+
+    def scatter_plain(self, x: torch.Tensor,
+                      act: torch.Tensor | None = None) -> torch.Tensor:
+        """K4 scatter's plain version (K4p scatter's with `act`)."""
+        return self.walk.planar.scatter_plain(x, None, act)
 
     # ---- K8 / K9 split -------------------------------------------------------
     def split(self, g1: torch.Tensor) -> torch.Tensor:
@@ -313,25 +334,23 @@ class TropicalSpMV:
         g1 = g1.reshape(-1)
         if not self._check_stream(g1, self.g1_numel, "g1"):
             return self.split_plain(g1)
-        name = "split_triples" if self.triples else "split"
-        with self.launches(name):
+        with self.launches("split_triples" if self.triples else "split"):
             g2 = torch.zeros(self.nchunks2 * CHUNK, dtype=torch.int32,
                              device=g1.device)
             stream = torch.cuda.current_stream(g1.device).cuda_stream
-            lib = _build.library()
             if self.triples:
-                rc = lib.glt_tropical_split_triples(
-                    a.rg2.data_ptr(), a.tri2.data_ptr(), a.xsort2.data_ptr(),
+                _build.launch(
+                    "glt_tropical_split_triples", a.rg2.data_ptr(),
+                    a.tri2.data_ptr(), a.xsort2.data_ptr(),
                     a.in_order.data_ptr(), a.target2.data_ptr(),
                     g1.data_ptr(), g2.data_ptr(), self.nsteps2, self.kb,
                     self.rstep2, self.dstep2, stream)
             else:
                 p = a.split
-                rc = lib.glt_tropical_split(
-                    p.pieces.data_ptr(), p.runs.data_ptr(),
-                    p.lanes.data_ptr(), g1.data_ptr(), g2.data_ptr(),
-                    p.pieces.shape[0], stream)
-            self.planar._raise_on(rc, f"glt_tropical_{name}")
+                _build.launch(
+                    "glt_tropical_split", p.pieces.data_ptr(),
+                    p.runs.data_ptr(), p.lanes.data_ptr(), g1.data_ptr(),
+                    g2.data_ptr(), p.pieces.shape[0], stream)
         return g2.view(self.nchunks2, S, L)
 
     # ---- K10 window reduce ---------------------------------------------------
@@ -345,11 +364,11 @@ class TropicalSpMV:
         with self.launches("window_reduce"):
             out = torch.zeros(self.num_windows * L, dtype=torch.int32,
                               device=g2.device)
-            rc = _build.library().glt_tropical_window_reduce(
-                a.c_win.data_ptr(), g2.data_ptr(), a.sort2.data_ptr(),
-                a.rowids.data_ptr(), out.data_ptr(), self.nchunks2,
+            _build.launch(
+                "glt_tropical_window_reduce", a.c_win.data_ptr(),
+                g2.data_ptr(), a.sort2.data_ptr(), a.rowids.data_ptr(),
+                out.data_ptr(), self.nchunks2,
                 torch.cuda.current_stream(g2.device).cuda_stream)
-            self.planar._raise_on(rc, "glt_tropical_window_reduce")
         return out
 
     # ---- plain PyTorch versions ----------------------------------------------
@@ -436,27 +455,3 @@ class TropicalSpMV:
                           device=g2.device)
         out.scatter_reduce_(0, idx["row"], g2.reshape(-1)[idx["src"]], "amax")
         return out
-
-    # ---- SpMV and SpMSpV -------------------------------------------------------
-    def __call__(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                 mask_type: MaskType | None = None) -> torch.Tensor:
-        """One SpMV, y = mask(A (min,+) x), (num_rows,): the walk."""
-        return self._finish(self.fused(x), mask, mask_type)
-
-    def call_predicated(self, x: torch.Tensor,
-                        mask: torch.Tensor | None = None,
-                        mask_type: MaskType | None = None) -> torch.Tensor:
-        """One SpMSpV on a dense frontier (x = FLOAT_INF off the frontier):
-        `__call__`'s result, through the walk of the active tiles."""
-        with span("tropical.activity"):
-            act = self.activity(x)
-        return self._finish(self.fused_predicated(x, act), mask, mask_type)
-
-    def _finish(self, out, mask, mask_type) -> torch.Tensor:
-        """Decode and the SpMV mask."""
-        with span("tropical.decode"):
-            y = tropical_decode(out)[:self.num_rows]
-            mt = self.mask_type if mask_type is None else mask_type
-            if mask is not None and mt != MaskType.NO_MASK:
-                y = apply_mask(y, mask, mt, self.semiring.zero)
-            return y

@@ -31,7 +31,7 @@ import torch
 
 from graphlily_tpu_torch import (ArithmeticSemiring, LogicalSemiring,
                                  TropicalSemiring, EngineConfig)
-from graphlily_tpu_torch.io import rmat_csr, pack_planar, pack_tropical
+from graphlily_tpu_torch.io import rmat_csr, pack_planar, pack_tropical_pass1
 from graphlily_tpu_torch.ops import PlanarSpMV, TropicalSpMV
 from graphlily_tpu_torch.ops.router import (BLOCK_SEGMENTS,
                                             ENTRIES_PER_BLOCK, VECTOR,
@@ -68,8 +68,8 @@ CASES = {
 def _layout(graph: str, tropical: bool):
     csr = GRAPHS[graph]()
     if tropical:
-        return pack_tropical(csr, EngineConfig(planar_deal="free"),
-                             region_rows=2048, kb=4, split_format="planes")
+        return pack_tropical_pass1(csr, EngineConfig(planar_deal="free"),
+                                   region_rows=2048)
     return pack_planar(csr, region_rows=2048, deal="free")
 
 

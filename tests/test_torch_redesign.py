@@ -50,7 +50,7 @@ from graphlily_tpu_torch.io import (pack_csr_chunks, pack_planar, pack_permc,
                                     pack_router, pack_tropical,
                                     util_round_csr_matrix_dim)
 from graphlily_tpu_torch.ops import (ChunkedSpMV, PlanarSpMV, RouterSpMV,
-                                     TropicalSpMV)
+                                     TropicalStages)
 from graphlily_tpu_torch.ops.chunked import chunk_entries, entry_slots
 from graphlily_tpu_torch.ops.planar import (FORM_COL_BITS,
                                             FORM_COL_BITS_NO_VALUES)
@@ -701,7 +701,7 @@ def _tropical(name, deal):
     lay = pack_tropical(build(), tg.EngineConfig(planar_deal=deal),
                         region_rows=region_rows, kb=kb,
                         split_format="planes")
-    return lay, TropicalSpMV(lay, tg.TropicalSemiring, CPU)
+    return lay, TropicalStages(lay, CPU)
 
 
 @pytest.mark.parametrize("deal", TROPICAL_DEALS)

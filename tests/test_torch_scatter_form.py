@@ -32,7 +32,7 @@ from graphlily_tpu.io import matrix as jmatrix
 import graphlily_tpu_torch as tg
 from graphlily_tpu_torch.io import (pack_planar, pack_permc, pack_tropical,
                                     util_round_csr_matrix_dim)
-from graphlily_tpu_torch.ops import PlanarSpMV, TropicalSpMV
+from graphlily_tpu_torch.ops import PlanarSpMV, TropicalStages
 from graphlily_tpu_torch.ops.router import entries_index
 from graphlily_tpu_torch.module import SpMVModule
 
@@ -64,7 +64,7 @@ def _tropical(name, deal):
     build, region_rows, kb = TROPICAL_FIXTURES[name]
     lay = pack_tropical(build(), tg.EngineConfig(planar_deal=deal),
                         region_rows=region_rows, kb=kb, split_format="planes")
-    return TropicalSpMV(lay, tg.TropicalSemiring, CPU)
+    return TropicalStages(lay, CPU)
 
 
 def _x(ncols, kind, zero, seed=3):
@@ -121,15 +121,15 @@ def test_tropical_store_walk_equals_scatter_plain(name, deal, kind):
     skipped pieces hold 0, the encoding of FLOAT_INF."""
     eng = _tropical(name, deal)
     inf = float(tg.FLOAT_INF)
-    x = _x(eng.num_cols, kind, inf) * 100
+    x = _x(eng.walk.num_cols, kind, inf) * 100
     x[x == inf * 100] = inf
-    act = None if kind == "full" else eng.activity(x)
+    act = None if kind == "full" else eng.walk.activity(x)
     g1 = eng.scatter(x) if act is None else eng.scatter_predicated(x, act)
     assert g1.dtype == torch.int32
     assert _same_bits(g1, eng.scatter_plain(x, act))
     if act is not None:
         assert _same_bits(g1, eng.scatter(x))
-    assert eng.planar.store_entries.tails is not None
+    assert eng.walk.planar.store_entries.tails is not None
 
 
 @pytest.mark.parametrize("deal", DEALS)

@@ -30,7 +30,7 @@ from graphlily_tpu_torch.io import (rmat_csr, pack_router, pack_planar,
                                     pack_permc, pack_csr_chunks,
                                     pack_tropical)
 from graphlily_tpu_torch.ops import (RouterSpMV, PlanarSpMV, ChunkedSpMV,
-                                     TropicalSpMV)
+                                     TropicalStages)
 from graphlily_tpu_torch.utils import profiling
 
 from test_torch_fixtures import one_thread
@@ -208,16 +208,16 @@ def _engine(name):
         x = _x(eng.num_cols, 0.0)
         return eng, lambda: (eng(x), eng.call_predicated(x))
     csr = rmat_csr(3000, 20000, seed=3)
-    eng = TropicalSpMV(pack_tropical(csr, EngineConfig()), TropicalSemiring,
-                       card)
-    x = _x(eng.num_cols, TropicalSemiring.zero)
+    stages = TropicalStages(pack_tropical(csr, EngineConfig()), card)
+    walk = stages.walk
+    x = _x(walk.num_cols, TropicalSemiring.zero)
 
     def run():
-        eng(x)
-        eng.call_predicated(x)
-        eng.window_reduce(eng.split(eng.scatter(x)))
-        eng.scatter_predicated(x, eng.activity(x))
-    return eng, run
+        walk(x)
+        walk.call_predicated(x)
+        stages.window_reduce(stages.split(stages.scatter(x)))
+        stages.scatter_predicated(x, walk.activity(x))
+    return stages, run
 
 
 @pytest.mark.gpu

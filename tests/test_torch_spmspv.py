@@ -41,7 +41,7 @@ from graphlily_tpu_torch.io import (rmat_csr, csr2csc, pack_router,
                                     pack_planar, pack_csr_chunks,
                                     util_round_csr_matrix_dim)
 from graphlily_tpu_torch.module import SpMVModule, SpMSpVModule
-from graphlily_tpu_torch.module import spmspv_module as tspmspv
+from graphlily_tpu_torch.module import spmv_module as tspmv
 from graphlily_tpu_torch.ops import (RouterSpMV, PlanarSpMV, ChunkedSpMV,
                                      TropicalSpMV, sparse_from_entries)
 
@@ -368,7 +368,7 @@ def test_spmspv_ladder_branches(monkeypatch):
     mod.load_and_format_matrix(csr2csc(_graph("rmat")), reuse_from=spmv)
     assert mod.engine_name == "chunked" and mod.engine is not spmv.engine
     assert mod.engine.col_order and not spmv.engine.col_order
-    monkeypatch.setattr(tspmspv, "estimate_chunk_layout_gb", lambda c: 3.0)
+    monkeypatch.setattr(tspmv, "estimate_chunk_layout_gb", lambda c: 3.0)
     mod = SpMSpVModule(tg.EngineConfig(engine="router", device="cpu"))
     mod.set_semiring(tg.TropicalSemiring)
     mod.load_and_format_matrix(csr2csc(_graph("rmat")))

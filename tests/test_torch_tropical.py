@@ -1,6 +1,7 @@
 """The port's tropical engine on the CPU (plain PyTorch versions of its
-ADDMIN walk, and of its three-pass stages K4 scatter in ADDMIN mode, K8/K9
-split and K10 window reduce) against the JAX package.
+ADDMIN walk, `TropicalSpMV`, and of the three-pass stages, `TropicalStages`:
+K4 scatter in ADDMIN mode, K8/K9 split and K10 window reduce) against the
+JAX package.
 
 The graphs are the JAX tropical tests' (test_torch_fixtures.
 TROPICAL_FIXTURES): RMAT at the production kb, a multi-region RMAT whose
@@ -8,7 +9,8 @@ regions drain between one another, a hub row whose digit cycles split
 deposits, and a graph with empty rows. Cases:
 
   * the port's `pack_tropical` builds every array of JAX
-    `pack_tropical(..., native=False)`, both split formats, both deals;
+    `pack_tropical(..., native=False)`, both split formats, both deals,
+    and `pack_tropical_pass1` its pass 1, on which the walk runs;
   * the block-mapped split targets (io/router_format.deposit_targets)
     equal a sequential walk of the descriptor stream, and the plain split
     equals a step-by-step emulation of the Pallas split kernel
@@ -43,11 +45,15 @@ import graphlily_tpu_torch as tg
 from graphlily_tpu_torch.apps import SSSP
 from graphlily_tpu_torch.io import (CSRMatrix, csr_from_coo, csr2csc,
                                     deposit_targets, pack_tropical,
-                                    rmat_csr, util_round_csr_matrix_dim)
+                                    pack_tropical_pass1,
+                                    pack_tropical_schedule, rmat_csr,
+                                    util_round_csr_matrix_dim)
 from graphlily_tpu_torch.module import SpMVModule, SpMSpVModule
-from graphlily_tpu_torch.module import spmspv_module as tspmspv
 from graphlily_tpu_torch.module.spmv_module import resolve_engine
-from graphlily_tpu_torch.ops import TropicalSpMV, sparse_from_entries
+from graphlily_tpu_torch.module import spmv_module as tspmv
+from graphlily_tpu_torch.ops import (TropicalSpMV, TropicalStages,
+                                     sparse_from_entries)
+from graphlily_tpu_torch.ops.planar import piece_words
 
 from test_torch_fixtures import TROPICAL_FIXTURES
 from test_torch_io import to_jax
@@ -56,7 +62,8 @@ CPU = tg.EngineConfig(device="cpu")
 INF = float(tg.FLOAT_INF)
 FORMATS = ["planes", "triples"]
 DEALS = ["free", "bucket"]
-NO_LAUNCHES = {"fused": 0, "fused_pred": 0, "xperm": 0, "scatter": 0,
+WALK_NO_LAUNCHES = {"fused": 0, "fused_pred": 0}
+NO_LAUNCHES = {**WALK_NO_LAUNCHES, "xperm": 0, "scatter": 0,
                "scatter_pred": 0, "split": 0, "split_triples": 0,
                "window_reduce": 0}
 
@@ -71,8 +78,15 @@ def _layout(name, fmt, deal="free"):
 
 
 def _engine(name, fmt, deal="free", mask_type=tg.MaskType.NO_MASK):
+    """The walk over the layout's pass 1."""
     csr, lay = _layout(name, fmt, deal)
-    return csr, TropicalSpMV(lay, tg.TropicalSemiring, CPU, mask_type)
+    return csr, TropicalSpMV(lay.planar, tg.TropicalSemiring, CPU,
+                             mask_type)
+
+
+def _stages(name, fmt, deal="free"):
+    csr, lay = _layout(name, fmt, deal)
+    return csr, TropicalStages(lay, CPU)
 
 
 def _x(n, seed=12345, inf_frac=0.3):
@@ -136,6 +150,49 @@ def test_pack_tropical_matches_jax(name, fmt, deal):
     assert (lay.planar.triples is not None) == (fmt == "triples")
     if name == "multi_region":
         assert lay.planar.num_regions > 1 and lay.region_digits == 16
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_pass1_pack_is_the_full_pack_pass1(fmt):
+    """`pack_tropical_pass1` builds the pass 1 of `pack_tropical` in either
+    split format ("triples" empties the planes: the same piece words), and
+    the walks over the two are bit-equal, predicated too."""
+    g = rmat_csr(12000, 60000, seed=11)
+    pass1 = pack_tropical_pass1(g, tg.EngineConfig())
+    full = pack_tropical(g, tg.EngineConfig(), split_format=fmt).planar
+    if fmt == "planes":
+        _assert_same_fields(pass1, full)
+    else:
+        assert full.planes.size == 0 and pass1.triples is None
+        _assert_same_fields(pass1, full, skip=("planes", "triples"))
+    np.testing.assert_array_equal(piece_words(pass1), piece_words(full))
+    walk, full_walk = (TropicalSpMV(lay, tg.TropicalSemiring, CPU)
+                       for lay in (pass1, full))
+    x = _x(walk.num_cols)
+    assert torch.equal(walk.fused(torch.from_numpy(x)),
+                       full_walk.fused(torch.from_numpy(x)))
+    x[(np.arange(walk.num_cols) // 1024) % 3 != 0] = INF
+    xt = torch.from_numpy(x)
+    act = walk.activity(xt)
+    assert 0 < int(act.sum()) < act.numel()
+    assert torch.equal(walk.fused_predicated(xt, act),
+                       full_walk.fused_predicated(xt, act))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_schedule_over_pass1_is_the_full_pack(fmt):
+    """`pack_tropical_schedule` over a pass-1 layout gives `pack_tropical`'s
+    full layout, and leaves that pass 1 as it was: the walk built on it
+    reads it after the stages' layout is made."""
+    g = rmat_csr(12000, 60000, seed=12)
+    pass1 = pack_tropical_pass1(g, tg.EngineConfig())
+    planes = pass1.planes.copy()
+    lay = pack_tropical_schedule(pass1, split_format=fmt)
+    want = pack_tropical(g, tg.EngineConfig(), split_format=fmt)
+    _assert_same_fields(lay, want, skip=("planar",))
+    _assert_same_fields(lay.planar, want.planar)
+    assert pass1.triples is None
+    np.testing.assert_array_equal(pass1.planes, planes)
 
 
 def _walk_targets(lay) -> np.ndarray:
@@ -202,13 +259,13 @@ def test_split_plain_matches_emulated_pallas_split(name):
     """K8's plain version equals the emulated Pallas split on every chunk
     (unflushed chunks hold 0 in both), and K9's, on the triples layout of
     the same graph, equals K8's bit for bit."""
-    _, eng = _engine(name, "planes")
+    _, eng = _stages(name, "planes")
     _, lay = _layout(name, "planes")
     g1 = np.random.default_rng(3).integers(
         1, 2**31 - 1, eng.g1_numel).astype(np.int32)
     got = eng.split(torch.from_numpy(g1)).numpy()
     np.testing.assert_array_equal(got, _emulate_split(lay, g1))
-    _, eng_t = _engine(name, "triples")
+    _, eng_t = _stages(name, "triples")
     np.testing.assert_array_equal(
         eng_t.split(torch.from_numpy(g1)).numpy(), got)
     assert eng.launches == NO_LAUNCHES and eng_t.launches == NO_LAUNCHES
@@ -223,7 +280,7 @@ def test_tropical_spmv_bit_equal(name, fmt, deal):
     x = _x(eng.num_cols)
     y = eng(torch.from_numpy(x))
     assert y.shape == (eng.num_rows,) and y.dtype == torch.float32
-    assert eng.launches == NO_LAUNCHES
+    assert eng.launches == WALK_NO_LAUNCHES
     _assert_bits(y.numpy(), *_references(csr, x))
     if name == "empty_rows":
         deg = np.diff(csr.adj_indptr.astype(np.int64))
@@ -250,15 +307,16 @@ def test_tropical_predicated_frontier(name, fmt):
     FLOAT_INF elsewhere): the tile is active, K4p scatter's stream equals
     the unpredicated one, and the SpMSpV call is bit-equal to the SpMV and
     the references."""
-    csr, eng = _engine(name, fmt)
+    csr, stages = _stages(name, fmt)
+    eng = stages.walk
     x = np.full(eng.num_cols, INF, np.float32)
     x[1024 + 7] = 0.0
     x[1024 + 500] = 3.0
     xt = torch.from_numpy(x)
     act = eng.activity(xt)
     assert act.tolist() == [int(t == 1) for t in range(eng.num_col_tiles)]
-    np.testing.assert_array_equal(eng.scatter_predicated(xt, act).numpy(),
-                                  eng.scatter(xt).numpy())
+    np.testing.assert_array_equal(stages.scatter_predicated(xt, act).numpy(),
+                                  stages.scatter(xt).numpy())
     y = eng.call_predicated(xt)
     _assert_bits(y.numpy(), eng(xt).numpy(), *_references(csr, x))
     empty = torch.full((eng.num_cols,), INF)
@@ -267,30 +325,35 @@ def test_tropical_predicated_frontier(name, fmt):
 
 
 def test_engine_takes_jax_layout():
-    """A JAX package layout (plain numpy) drives the port's engine."""
+    """A JAX package layout (plain numpy) drives the port's engine (its
+    pass 1) and stages."""
     build, region_rows, kb = TROPICAL_FIXTURES["hub_row"]
-    csr, eng = _engine("hub_row", "triples")
+    csr, stages = _stages("hub_row", "triples")
     jlay = jax_pack_tropical(to_jax(csr), jg.EngineConfig(),
                              region_rows=region_rows, kb=kb, native=False,
                              split_format="triples")
-    x = torch.from_numpy(_x(eng.num_cols))
-    _assert_bits(TropicalSpMV(jlay, tg.TropicalSemiring, CPU)(x).numpy(),
-                 eng(x).numpy())
+    x = torch.from_numpy(_x(stages.walk.num_cols))
+    _assert_bits(TropicalSpMV(jlay.planar, tg.TropicalSemiring,
+                              CPU)(x).numpy(), stages.walk(x).numpy())
+    jstages = TropicalStages(jlay, CPU)
+    assert torch.equal(
+        jstages.window_reduce(jstages.split(jstages.scatter(x))),
+        stages.window_reduce(stages.split(stages.scatter(x))))
 
 
 def test_wrappers_check_arguments():
-    _, eng = _engine("rmat", "planes")
+    _, eng = _stages("rmat", "planes")
     with pytest.raises(ValueError, match="ADDMIN"):
-        TropicalSpMV(_layout("rmat", "planes")[1], tg.ArithmeticSemiring,
-                     CPU)
+        TropicalSpMV(_layout("rmat", "planes")[1].planar,
+                     tg.ArithmeticSemiring, CPU)
     with pytest.raises(ValueError, match="int32"):
         eng.split(torch.zeros(eng.g1_numel))
     with pytest.raises(ValueError, match="elements"):
         eng.window_reduce(torch.zeros(7, dtype=torch.int32))
     with pytest.raises(ValueError, match="float32"):
-        eng.scatter(torch.zeros(eng.num_cols, dtype=torch.float64))
+        eng.scatter(torch.zeros(eng.walk.num_cols, dtype=torch.float64))
     with pytest.raises(ValueError, match="K3 adds floats"):
-        eng.planar.fused_plain(torch.zeros(eng.num_cols))
+        eng.walk.planar.fused_plain(torch.zeros(eng.walk.num_cols))
 
 
 # ---- SpMSpV, SSSP and the ladder -------------------------------------------
@@ -307,7 +370,7 @@ def test_spmspv_tropical_branch(shared, monkeypatch):
         spmv.set_semiring(tg.TropicalSemiring)
         spmv.load_and_format_matrix(csr)
     else:
-        monkeypatch.setattr(tspmspv, "estimate_chunk_layout_gb",
+        monkeypatch.setattr(tspmv, "estimate_chunk_layout_gb",
                             lambda c: 3.0)
     mod = SpMSpVModule(tg.EngineConfig(engine="router", device="cpu"))
     mod.set_semiring(tg.TropicalSemiring)
@@ -352,7 +415,7 @@ def test_sssp_on_tropical_engine():
                                       err_msg=label)
         np.testing.assert_array_equal(got, want, err_msg=label)
     assert 1 < (want < INF).sum() < g.num_rows
-    assert app.SpMV_.engine.launches == NO_LAUNCHES
+    assert app.SpMV_.engine.launches == WALK_NO_LAUNCHES
 
 
 def test_ladder_sends_large_tropical_graphs_to_the_tropical_engine():
@@ -396,8 +459,8 @@ def test_stages_bit_equal_to_jax_interpret(fmt):
                              split_format=fmt)
     jeng = JaxTropicalSpMV(jlay, jg.TropicalSemiring,
                            jg.EngineConfig(interpret=True))
-    _, eng = _engine("multi_region", fmt)
-    x = _x(eng.num_cols)
+    _, eng = _stages("multi_region", fmt)
+    x = _x(eng.walk.num_cols)
     a = jeng.arrays
     g1j = np.asarray(_planar_scatter_call(
         a.a_page, a.a_r, a.a_vals, a.rg, a.planes,
@@ -418,7 +481,7 @@ def test_stages_bit_equal_to_jax_interpret(fmt):
     g2j = np.asarray(g2j).reshape(-1, 8, 128)
 
     g1 = eng.scatter(torch.from_numpy(x))
-    dst = eng.planar.plain_index()["dst"].numpy()
+    dst = eng.walk.planar.plain_index()["dst"].numpy()
     np.testing.assert_array_equal(g1.numpy().reshape(-1)[dst], g1j[dst])
     g2 = eng.split(g1)
     flushed = jlay.c_win >= 0

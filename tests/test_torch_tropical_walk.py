@@ -7,7 +7,7 @@ engine's row form, and `fused_predicated` over its tile form. Their plain
 version (`fused_plain`, what the engine runs on CPU tensors) is checked
 here:
 
-  * bit-equal to the three-pass plain versions,
+  * bit-equal to the three-pass plain versions of `TropicalStages`,
     window_reduce(split(scatter(x))), on the tropical fixtures, both split
     formats and the "free" and "bucket" deals, on x >= 0 and on negative
     x (ROADMAP queue 3 F2: the reference's wrong minima, which the port
@@ -23,7 +23,8 @@ here:
     test_torch_tropical.py; the three-pass equality above links the walk
     to it);
   * SSSP pull, push and pull_push on the tropical engine equal JAX's apps
-    and the oracle, and no app path runs the three-pass stages.
+    and the oracle, and no app path builds the three-pass stages: no split
+    schedule, no K8 form, no pass-1 store form.
 
 The empty matrix (ROADMAP queue 3 F1): a 2048 x 2048 CSR with no entry
 gives y = 0 on "roll" and the three planar deals, through SpMVModule and
@@ -47,26 +48,29 @@ import graphlily_tpu_torch as tg
 from graphlily_tpu_torch.apps import SSSP
 from graphlily_tpu_torch.io import (csr_from_coo, csr2csc, pack_tropical,
                                     rmat_csr)
+from graphlily_tpu_torch.io import tropical_format
 from graphlily_tpu_torch.module import SpMVModule, SpMSpVModule
-from graphlily_tpu_torch.ops import TropicalSpMV, sparse_from_entries
+from graphlily_tpu_torch.ops import TropicalStages, sparse_from_entries
+from graphlily_tpu_torch.ops import tropical
 
 from test_torch_fixtures import TROPICAL_FIXTURES, one_thread
 from test_torch_io import to_jax
 from test_torch_tropical import (CPU, DEALS, FORMATS, INF, _assert_bits,
-                                 _engine, _references, _x)
+                                 _engine, _references, _stages, _x)
 
 FRONTIERS = ["empty", "one", "5pct"]
 
 
-def _three_pass(eng, x):
+def _three_pass(stages, x):
     """K10's out through the three-pass plain versions."""
-    return eng.window_reduce(eng.split(eng.scatter(x)))
+    return stages.window_reduce(stages.split(stages.scatter(x)))
 
 
-def _assert_walk_is_three_pass(eng, out, three):
+def _assert_walk_is_three_pass(stages, out, three):
     """The walk's out holds K10's as its prefix, and 0 past it."""
-    assert out.dtype == torch.int32 and out.numel() == eng.planar.out_len
-    n = eng.num_windows * 128
+    assert (out.dtype == torch.int32
+            and out.numel() == stages.walk.planar.out_len)
+    n = stages.num_windows * 128
     assert three.numel() == n <= out.numel()
     assert torch.equal(out[:n], three)
     assert not out[n:].any()
@@ -87,13 +91,14 @@ def _negative_x(n, seed=5):
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("name", list(TROPICAL_FIXTURES))
 def test_walk_plain_equals_three_pass_plain(name, fmt, deal, sign):
-    _, eng = _engine(name, fmt, deal)
+    _, stages = _stages(name, fmt, deal)
+    eng = stages.walk
     x = torch.from_numpy(_x(eng.num_cols) if sign == "nonneg"
                          else _negative_x(eng.num_cols))
     out = eng.fused(x)
-    _assert_walk_is_three_pass(eng, out, _three_pass(eng, x))
+    _assert_walk_is_three_pass(stages, out, _three_pass(stages, x))
     assert torch.equal(out, eng.fused_plain(x))
-    assert eng.launches == dict.fromkeys(eng.launches, 0)
+    assert stages.launches == dict.fromkeys(stages.launches, 0)
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
@@ -107,10 +112,11 @@ def test_walk_on_negative_stored_values(fmt):
     with pytest.raises(ValueError, match="stored values >= 0"):
         pack_tropical(g, tg.EngineConfig(), split_format=fmt)
     g.adj_data[:g.nnz] = np.maximum(g.adj_data[:g.nnz], 0)
-    eng = TropicalSpMV(pack_tropical(g, tg.EngineConfig(), split_format=fmt),
-                       tg.TropicalSemiring, CPU)
-    x = torch.from_numpy(_negative_x(eng.num_cols))
-    _assert_walk_is_three_pass(eng, eng.fused(x), _three_pass(eng, x))
+    stages = TropicalStages(
+        pack_tropical(g, tg.EngineConfig(), split_format=fmt), CPU)
+    x = torch.from_numpy(_negative_x(stages.walk.num_cols))
+    _assert_walk_is_three_pass(stages, stages.walk.fused(x),
+                               _three_pass(stages, x))
 
 
 def _frontier(n, kind, seed=8):
@@ -130,7 +136,8 @@ def _frontier(n, kind, seed=8):
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("name", list(TROPICAL_FIXTURES))
 def test_predicated_walk_equals_unpredicated(name, fmt, kind):
-    csr, eng = _engine(name, fmt)
+    csr, stages = _stages(name, fmt)
+    eng = stages.walk
     x = _frontier(eng.num_cols, kind)
     xt = torch.from_numpy(x)
     act = eng.activity(xt)
@@ -139,7 +146,7 @@ def test_predicated_walk_equals_unpredicated(name, fmt, kind):
     out = eng.fused_predicated(xt, act)
     assert torch.equal(out, eng.fused(xt))
     assert torch.equal(out, eng.fused_plain(xt, act))
-    _assert_walk_is_three_pass(eng, out, _three_pass(eng, xt))
+    _assert_walk_is_three_pass(stages, out, _three_pass(stages, xt))
     y = eng.call_predicated(xt)
     _assert_bits(y.numpy(), eng(xt).numpy(), *_references(csr, x))
 
@@ -166,22 +173,26 @@ def test_walk_calls_bit_equal_to_references(fmt, deal, mask_type):
 
 
 @pytest.mark.parametrize("deal", DEALS)
-@pytest.mark.parametrize("fmt", FORMATS)
-def test_sssp_runs_the_walk_only(fmt, deal, monkeypatch):
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+def test_sssp_runs_the_walk_only(sort, deal, monkeypatch):
     """SSSP pull, push and pull_push on the tropical engine equal the JAX
-    app and the float64 oracle, with the three-pass stages made to raise:
-    no app path runs them."""
-    def refuse(self, *args, **kwargs):
-        raise AssertionError("an app path ran a three-pass stage")
+    app and the float64 oracle, with the three passes' set-up made to
+    raise: building the app packs no split schedule and derives no K8
+    form and no pass-1 store form."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("an app path built a three-pass stage")
 
-    for stage in ("scatter", "scatter_predicated", "split", "window_reduce"):
-        monkeypatch.setattr(TropicalSpMV, stage, refuse)
+    for fn in ("build_split_schedule", "derive_split_triples",
+               "compact_window_stream"):
+        monkeypatch.setattr(tropical_format, fn, refuse)
+    monkeypatch.setattr(tropical, "split_pieces", refuse)
     g = rmat_csr(12000, 60000, seed=11)
-    app = SSSP(tg.EngineConfig(engine="router", sort_rows_by_degree=True,
-                               planar_deal=deal, tropical_split_format=fmt,
-                               device="cpu"))
+    app = SSSP(tg.EngineConfig(engine="router", sort_rows_by_degree=sort,
+                               planar_deal=deal, device="cpu"))
     app.load_and_format_matrix(g)
     assert app.SpMV_.engine_name == "tropical"
+    assert app.SpMSpV_.engine is app.SpMV_.engine
+    assert not hasattr(app.SpMV_.engine.planar, "store_entries")
     jax_app = JaxSSSP(jg.EngineConfig(engine="xla"))
     jax_app.load_and_format_matrix(to_jax(g))
     want = app.compute_reference_results(0, 6)
