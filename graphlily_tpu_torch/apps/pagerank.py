@@ -5,7 +5,11 @@ mask. The matrix is outdegree-normalized and pre-scaled by the damping
 factor at format time; one iteration is rank = A_scaled @ rank + (1-d)/N
 (SpMV + eWiseAdd). The JAX app runs the iterations in `lax.fori_loop`;
 here they are a plain loop of asynchronous launches with the same
-semantics, and the host waits only when it reads the result.
+semantics, and the host waits only when it reads the result. On the fused
+walk (K1, K4 fused) an iteration is one launch: it adds into an output
+that the launch before set up to (1-d)/N, and sets up the next one
+(`SpMVModule.set_offset`), so the sum starts from the teleport term;
+elsewhere the add follows the SpMV.
 """
 from __future__ import annotations
 
@@ -18,7 +22,6 @@ from ..io.matrix import CSRMatrix, load_csr_matrix_from_float_npz
 from ..io.formatter import (util_round_csr_matrix_dim,
                             util_normalize_csr_matrix_by_outdegree)
 from ..module import SpMVModule, eWiseAddModule
-from ..ops.reference import ewise_add_scalar
 from ..utils.profiling import span
 from .module_collection import ModuleCollection
 
@@ -64,13 +67,18 @@ class PageRank(ModuleCollection):
         vertex order and without a host copy."""
         with span("apps.pagerank.pull"):
             n = self.matrix_num_rows_
+            # rounded to the dtype once, as each iteration's add rounds it
+            offset = np.array((1 - damping) / n, self.config.dtype).item()
             with span("apps.init"):
                 rank = torch.full((n,), 1.0 / n,
                                   dtype=self.config.torch_dtype,
                                   device=self.device)
-            offset = (1 - damping) / n
-            for _ in range(num_iterations):
-                rank = ewise_add_scalar(self.SpMV_.apply(rank), offset)
+                self.SpMV_.set_offset(offset, num_iterations)
+            try:
+                for _ in range(num_iterations):
+                    rank = self.SpMV_.apply(rank)
+            finally:
+                self.SpMV_.set_offset(None)
             if device_output:
                 return rank
             return self._external(rank.cpu().numpy())

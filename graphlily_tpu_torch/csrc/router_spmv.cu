@@ -419,6 +419,17 @@ __global__ void __launch_bounds__(kThreads) router_reduce_pred_kernel(
 // after its records when none of its segments is live (below): a
 // persistent walk would step through every dead row in turn.
 //
+// The next call's output (kNext; glt_router_fused_next: PageRank's pull
+// loop, MULADD). The walk adds into y from its first pass, with no barrier
+// across the grid, so y cannot be set up inside the launch that adds into
+// it: the launch before does it. Each thread first stores `value` over its
+// grid-stride share of `next_out`, which nothing else in the launch reads or
+// writes; the next launch adds into it in place of a zeroed y, so a loop of
+// y = A x + c needs neither a fill nor an add of its own. The stores go out
+// ahead of the walk's first loads: a few a thread, about 1 us of a launch.
+// Every other caller runs the kNext-false instantiation, whose code is the
+// walk's alone.
+//
 // Without values (kVals false, a null `vals`): the ANDOR form of a matrix
 // whose stored values are all nonzero (checked at init), 4 B an element.
 //
@@ -579,15 +590,26 @@ __device__ __forceinline__ void fold_lanes(Stored<kOp>* __restrict__ y,
 
 // blocks[b] = (e0, e1, g0, g1): elements [e0, e1) of segments [g0, g1);
 // deps[g] = (first element, x offset, y offset, activity flag). The grid
-// is at most nblocks; block i walks rows i, i + gridDim.x, ...
-template <Op kOp, bool kVals>
+// is at most nblocks; block i walks rows i, i + gridDim.x, ... With kNext,
+// next_out[0, next_len) is set to next_value first (above); an empty form
+// (nblocks 0) launches one block for it.
+template <Op kOp, bool kVals, bool kNext>
 __global__ void __launch_bounds__(kFusedThreads) router_fused_kernel(
     const int4* __restrict__ blocks, const int4* __restrict__ deps,
     const float* __restrict__ vals, const unsigned* __restrict__ idx,
     const float* __restrict__ x, Stored<kOp>* __restrict__ y, int nblocks,
-    int max_segments, int col_bits) {
+    int max_segments, int col_bits, float* __restrict__ next_out,
+    int next_len, float next_value) {
   using Acc = Stored<kOp>;
   extern __shared__ int4 tables[];   // two tables of max_segments records
+  if constexpr (kNext) {
+    const int stride = static_cast<int>(gridDim.x) * kFusedThreads;
+    for (int i = static_cast<int>(blockIdx.x) * kFusedThreads +
+                 static_cast<int>(threadIdx.x);
+         i < next_len; i += stride)
+      next_out[i] = next_value;
+    if (nblocks == 0) return;
+  }
   const unsigned mask = (1u << col_bits) - 1u;
   const int t8 = kVec * static_cast<int>(threadIdx.x);
   int at = blockIdx.x;
@@ -801,7 +823,7 @@ int run_scatter(const void* a_page, const void* a_r, const void* a_sub,
 // The unpredicated walk's grid: the blocks the card holds at once, from
 // the device's SM count and the kernel's occupancy with `smem` bytes of
 // shared table, found on the first launch of each card and table size.
-template <Op kOp, bool kVals>
+template <Op kOp, bool kVals, bool kNext>
 int resident_blocks(size_t smem, int& blocks) {
   struct Plan {
     int device = -1;
@@ -817,11 +839,45 @@ int resident_blocks(size_t smem, int& blocks) {
                                  device);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, router_fused_kernel<kOp, kVals>, kFusedThreads, smem);
+          &per_sm, router_fused_kernel<kOp, kVals, kNext>, kFusedThreads,
+          smem);
     if (err == cudaSuccess) plan = Plan{device, smem, sms * per_sm};
   }
   blocks = plan.blocks;
   return static_cast<int>(err);
+}
+
+// The next call's output that a kNext walk sets up: `len` floats of
+// `value` at `out`.
+struct NextOutput {
+  float* out = nullptr;
+  int len = 0;
+  float value = 0.f;
+};
+
+// The unpredicated walk, persistent: the grid is what the card holds at
+// once, at most a block a row (one for an empty form's fill).
+template <Op kOp, bool kVals, bool kNext>
+int launch_walk(const int4* b, const int4* d, const float* v,
+                const unsigned* w, const float* xs, Stored<kOp>* out,
+                int nblocks, int max_segments, int col_bits, NextOutput next,
+                cudaStream_t st) {
+  // two tables of whole records: the current row's and the next one's
+  const size_t smem = 2 * sizeof(int4) * static_cast<size_t>(max_segments);
+  const cudaError_t err =
+      allow_smem(router_fused_kernel<kOp, kVals, kNext>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int grid = 0;
+  const int rc = resident_blocks<kOp, kVals, kNext>(smem, grid);
+  if (rc != 0) return rc;
+  // a table too large for an SM holds no block: the empty grid's launch
+  // is refused and its error returned
+  const int rows = nblocks > 0 ? nblocks : 1;
+  router_fused_kernel<kOp, kVals, kNext><<<grid < rows ? grid : rows,
+                                           kFusedThreads, smem, st>>>(
+      b, d, v, w, xs, out, nblocks, max_segments, col_bits, next.out,
+      next.len, next.value);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <Op kOp, bool kVals, bool kPred>
@@ -844,21 +900,12 @@ int launch_fused(const void* blocks, const void* deps, const void* vals,
                                            st>>>(
         b, d, v, w, xs, out, static_cast<const uint8_t*>(act), max_segments,
         col_bits);
+    return static_cast<int>(cudaGetLastError());
   } else {
-    // two tables of whole records: the current row's and the next one's
-    const size_t smem = 2 * sizeof(int4) * static_cast<size_t>(max_segments);
-    const cudaError_t err = allow_smem(router_fused_kernel<kOp, kVals>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int grid = 0;
-    const int rc = resident_blocks<kOp, kVals>(smem, grid);
-    if (rc != 0) return rc;
-    // a table too large for an SM holds no block: the empty grid's launch
-    // is refused and its error returned
-    router_fused_kernel<kOp, kVals><<<grid < nblocks ? grid : nblocks,
-                                      kFusedThreads, smem, st>>>(
-        b, d, v, w, xs, out, nblocks, max_segments, col_bits);
+    return launch_walk<kOp, kVals, false>(b, d, v, w, xs, out, nblocks,
+                                          max_segments, col_bits,
+                                          NextOutput{}, st);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kPred>
@@ -874,6 +921,11 @@ int dispatch_fused(const void* blocks, const void* deps, const void* vals,
             col_bits, st);
 }
 
+bool valid_walk(int nblocks, int max_segments, int col_bits, int op) {
+  return op >= 0 && op <= 2 && nblocks >= 0 && max_segments >= 0 &&
+         col_bits >= 1 && col_bits <= 31;
+}
+
 // `op` is semiring.OpType (0 MULADD, 1 ANDOR: a float y; 2 ADDMIN: an
 // int32 out of encodings). A null `vals` is the ANDOR form without values
 // (op must be 1). A null `act` takes the unpredicated walk.
@@ -881,8 +933,7 @@ int run_fused(const void* blocks, const void* deps, const void* vals,
               const void* idx, const void* x, void* y, const void* act,
               int nblocks, int max_segments, int col_bits, int op,
               void* cuda_stream) {
-  if (op < 0 || op > 2 || nblocks < 0 || max_segments < 0 || col_bits < 1 ||
-      col_bits > 31)
+  if (!valid_walk(nblocks, max_segments, col_bits, op))
     return static_cast<int>(cudaErrorInvalidValue);
   // a form with no elements (an empty matrix) has no block, and its empty
   // value tensor may have a null pointer
@@ -902,7 +953,8 @@ int run_fused(const void* blocks, const void* deps, const void* vals,
 // ---------------------------------------------------------------------------
 // C entry points. Each launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (0 = launched).
-// Outputs must be zeroed by the caller. The *_pred forms take `act`, the
+// Outputs must be zeroed by the caller (or, for glt_router_fused_next,
+// set up to their initial value). The *_pred forms take `act`, the
 // (num_col_tiles*8,) uint8 page activity (K1p, K2p), or `live`, the
 // (nsteps*f,) uint8 flush-chunk liveness (K3p).
 
@@ -954,6 +1006,27 @@ extern "C" int glt_router_fused(
     int op, void* cuda_stream) {
   return run_fused(blocks, deps, vals, idx, x, y, nullptr, nblocks,
                    max_segments, col_bits, op, cuda_stream);
+}
+
+// K1 and K4 fused in MULADD (op 0, values required) that also set up the
+// next call's output: next[0, next_len) = next_value, in the same launch
+// (PageRank's pull loop). y is the output the launch before set up, or
+// zeroed. An empty form launches one block, for the fill alone.
+extern "C" int glt_router_fused_next(
+    const void* blocks, const void* deps, const void* vals, const void* idx,
+    const void* x, void* y, void* next, int nblocks, int max_segments,
+    int col_bits, int op, int next_len, float next_value,
+    void* cuda_stream) {
+  if (!valid_walk(nblocks, max_segments, col_bits, op) || op != 0 ||
+      next == nullptr || next_len < 0 || (vals == nullptr && nblocks > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_walk<Op::kMulAdd, true, true>(
+      static_cast<const int4*>(blocks), static_cast<const int4*>(deps),
+      static_cast<const float*>(vals), static_cast<const unsigned*>(idx),
+      static_cast<const float*>(x), static_cast<float*>(y), nblocks,
+      max_segments, col_bits,
+      NextOutput{static_cast<float*>(next), next_len, next_value},
+      static_cast<cudaStream_t>(cuda_stream));
 }
 
 // K1p: act is the (num_cols/128,) uint8 page activity; K4p fused and the

@@ -26,7 +26,7 @@ from ..io.formatter import (util_round_csr_matrix_dim,
 from ..io.router_format import choose_region_rows, pack_router
 from ..io.planar_format import pack_planar
 from ..io.tropical_format import pack_tropical_pass1
-from ..ops.reference import coo_from_csr, spmv_coo
+from ..ops.reference import coo_from_csr, spmv_coo, ewise_add_scalar
 from ..ops.chunked import ChunkedSpMV
 from ..ops.router import RouterSpMV
 from ..ops.planar import PlanarSpMV
@@ -112,6 +112,7 @@ class SpMVModule(BaseModule):
         self._coo = None
         self.num_rows_ = 0
         self.num_cols_ = 0
+        self.set_offset(None)
 
     # ---- matrix ----------------------------------------------------------
     def load_and_format_matrix(self, csr_matrix: CSRMatrix,
@@ -122,6 +123,7 @@ class SpMVModule(BaseModule):
         assert self.semiring_ is not None, "set_semiring before formatting"
         self.csr_matrix_ = csr_matrix.copy()
         self.engine, self._coo = None, None
+        self.set_offset(None)
         name = resolve_engine(csr_matrix, self.config.resolve_engine(),
                               self.semiring_.op == OpType.ADDMIN)
         self.engine_name = name
@@ -183,14 +185,54 @@ class SpMVModule(BaseModule):
         self.mask_buf = buf
 
     # ---- execution -------------------------------------------------------
+    def set_offset(self, offset: float | None, calls: int = 1) -> None:
+        """`apply` adds `offset`, a float already rounded to the config's
+        dtype, to each result from now on; None stops that.
+
+        On an engine whose fused walk adds into a set-up output
+        (`walks_into`: K1 and K4 fused in MULADD), each of the next `calls`
+        unmasked applies is one launch: it adds into the output that the
+        apply before set up to `offset` (the first sets up its own), and
+        sets up the next apply's in the same launch, all but the last. The
+        outputs rotate through three buffers that this call allocates
+        (torch.empty: no launch), so a result keeps its value until the
+        apply after next, and the last one for good: a loop that feeds each
+        result to the next apply (PageRank's pull) loses nothing. Every
+        other engine, branch or apply adds the offset after the SpMV."""
+        self.offset_ = offset
+        self._outputs, self._turn, self._calls = None, 0, calls
+        eng = self.engine
+        if offset is not None and getattr(eng, "walks_into", False):
+            self._outputs = torch.empty(
+                (3, eng.out_len), dtype=self.config.torch_dtype,
+                device=self.device).unbind(0)
+
     def apply(self, x: torch.Tensor,
               mask: torch.Tensor | None = None) -> torch.Tensor:
-        """Functional core: y = mask(A (x) x), in the span `module.spmv`."""
+        """Functional core: y = mask(A (x) x), plus the offset where
+        `set_offset` gave one, in the span `module.spmv`."""
         with span("module.spmv"):
-            if self.engine is not None:
-                return self.engine(x, mask, self.mask_type_)
-            return spmv_coo(self._coo, x, self.semiring_, mask,
-                            self.mask_type_)
+            if self.offset_ is None:
+                return self._spmv(x, mask)
+            i = self._turn
+            self._turn += 1
+            if (self._outputs is None or i >= self._calls
+                    or (mask is not None
+                        and self.mask_type_ != MaskType.NO_MASK)):
+                return ewise_add_scalar(self._spmv(x, mask), self.offset_)
+            # iteration i reads x, adds into the output iteration i - 1 set
+            # up and sets up the one iteration i + 1 adds into
+            out = self._outputs[(i - 1) % 3]
+            if i == 0:
+                out.fill_(self.offset_)
+            then = self._outputs[i % 3] if i + 1 < self._calls else None
+            return self.engine(x, out=out, then=then, value=self.offset_)
+
+    def _spmv(self, x: torch.Tensor,
+              mask: torch.Tensor | None) -> torch.Tensor:
+        if self.engine is not None:
+            return self.engine(x, mask, self.mask_type_)
+        return spmv_coo(self._coo, x, self.semiring_, mask, self.mask_type_)
 
     def run(self) -> None:
         mask = (self.mask_buf.value if self.mask_type_ != MaskType.NO_MASK

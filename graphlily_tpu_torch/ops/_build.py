@@ -47,6 +47,8 @@ SIGNATURES = {
     "glt_router_reduce_pred": [_P] * 6 + [_I] * 2 + [_P],
     "glt_router_fused": [_P] * 6 + [_I] * 4 + [_P],
     "glt_router_fused_pred": [_P] * 7 + [_I] * 4 + [_P],
+    # K1 / K4 fused in MULADD that also set up the next call's output
+    "glt_router_fused_next": [_P] * 7 + [_I] * 5 + [_F, _P],
     # planar_spmv.cu: K4 scatter and K4p scatter over the store form, K5
     # (K4 scatter's last int is the semiring op: 2 is the tropical ADDMIN)
     "glt_planar_scatter": [_P] * 7 + [_I] * 5 + [_P],

@@ -179,6 +179,7 @@ class ChunkedSpMV:
         self.col_order = layout.step_touch is not None   # SpMSpV's layout
         self.launches = _build.Launches("chunked",
                                         ("chunked", "chunked_pred"))
+        self.next_inits = 0   # no call here sets up a next output
         self._plain_index = None
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:

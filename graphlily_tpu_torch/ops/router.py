@@ -54,6 +54,15 @@ deposit already knows its flush chunk. Nothing is read back to the host.
 Their plain versions are the plain versions above with the plain index
 filtered by chunk activity.
 
+A MULADD engine on the fused path (`walks_into`) also takes an output
+that is already set up: `__call__(x, out=, then=, value=)` adds into `out`
+(its (out_len,) initial value) in place of a zeroed y, and sets `then` up
+to `value` in the same launch (`glt_router_fused_next`), for a later
+call's `out`. A loop of y = A x + c (PageRank) so runs one launch an
+iteration, with no fill and no add of its own. `next_inits` counts the
+calls that set one up; it is not a key of `launches`, since it counts no
+launch.
+
 `PlanarSpMV` (ops/planar.py) inherits the argument checks, K3 and K3p, the
 fused rule, the live sets and `__call__`/`call_predicated`.
 
@@ -413,6 +422,7 @@ class RouterSpMV:
         self.nnz, self.num_slots = lay.nnz, lay.num_slots
         self.out_len = self.num_regions * self.region_rows
         self.fused = self.out_len * 4 <= FUSED_MAX_Y_BYTES
+        self.next_inits = 0   # fused calls that set up a next output
         self._plain_index = None
         self._entries_index = {}   # id(form) -> (form, its index)
         self._deposits = None
@@ -443,6 +453,32 @@ class RouterSpMV:
         if t.device != self.arrays.a_vals.device:
             raise ValueError(f"{what} on {t.device}, engine arrays on "
                              f"{self.arrays.a_vals.device}")
+
+    def _check_outputs(self, x: torch.Tensor, out: torch.Tensor | None,
+                       then: torch.Tensor | None) -> None:
+        """Validate `out` and `then` as `x` is validated: (out_len,)
+        float32 outputs of a MULADD engine, neither overlapping x nor each
+        other (the walk reads x while it adds into out and fills then)."""
+        if not self.walks_into:
+            raise ValueError("out and then: only the fused walk of a MULADD "
+                             "engine adds into a set-up output")
+        held = [x]
+        for t, what in ((out, "out"), (then, "then")):
+            if t is None:
+                continue
+            self._check(t, self.out_len, what)
+            for h in held:
+                if (t.data_ptr() < h.data_ptr() + 4 * h.numel()
+                        and h.data_ptr() < t.data_ptr() + 4 * t.numel()):
+                    raise ValueError(f"{what} overlaps another operand")
+            held.append(t)
+
+    @property
+    def walks_into(self) -> bool:
+        """Whether `__call__` takes `out`, `then` and `value`: the fused
+        walk (K1, K4 fused) of a MULADD engine."""
+        return (self.fused and not self.TROPICAL
+                and self.semiring.op == OpType.MULADD)
 
     @property
     def _and_or(self) -> int:
@@ -534,31 +570,56 @@ class RouterSpMV:
                              "engine's own arrays")
 
     def fused_spmv(self, x: torch.Tensor,
-                   arrays: RouterArrays | None = None) -> torch.Tensor:
-        """Phases A+B+C in one kernel: (nregions*region_rows,) rows."""
+                   arrays: RouterArrays | None = None,
+                   out: torch.Tensor | None = None,
+                   then: torch.Tensor | None = None,
+                   value: float = 0.0) -> torch.Tensor:
+        """Phases A+B+C in one kernel: (nregions*region_rows,) rows. With
+        `out` (MULADD, `walks_into`), out + A x, added into `out`, in place
+        of A x into a zeroed y; with `then`, `then` is set to `value` in the
+        same launch, for a later call's `out`."""
         self._own_arrays(arrays)
         x = x.reshape(-1)
-        if not self._check(x, self.num_cols, "x"):
-            return self.fused_entries_plain(x)
-        return self._launch_fused(x, None, "glt_router_fused", "fused")
+        cuda = self._check(x, self.num_cols, "x")
+        if out is not None or then is not None:
+            self._check_outputs(x, out, then)
+        if then is not None:
+            self.next_inits += 1
+        if not cuda:
+            y = self.fused_entries_plain(x, out=out)
+            if then is not None:
+                then.fill_(value)
+            return y
+        return self._launch_fused(x, None, "glt_router_fused", "fused", out,
+                                  then, value)
 
     def _launch_fused(self, x: torch.Tensor, act: torch.Tensor | None,
-                      name: str, key: str) -> torch.Tensor:
-        """Zero y (the tropical pass 1's int32 out of encodings) and launch
-        K1 over `entries` (K1p over `pred_entries` when `act` is given) on
-        the current stream. A form without values passes a null value
-        pointer."""
+                      name: str, key: str, out: torch.Tensor | None = None,
+                      then: torch.Tensor | None = None,
+                      value: float = 0.0) -> torch.Tensor:
+        """Zero y (the tropical pass 1's int32 out of encodings), or take
+        `out`, and launch K1 over `entries` (K1p over `pred_entries` when
+        `act` is given) on the current stream; with `then`, the launch
+        that also sets it to `value` (`glt_router_fused_next`). A form
+        without values passes a null value pointer."""
         e = self.entries if act is None else self.pred_entries
         with self.launches(key):
-            y = torch.zeros(self.out_len, dtype=self._stream_dtype,
-                            device=x.device)
+            y = (torch.zeros(self.out_len, dtype=self._stream_dtype,
+                             device=x.device) if out is None else out)
             ptrs = [None if t is None else t.data_ptr()
                     for t in (e.blocks, e.deps, e.vals, e.idx, x, y)]
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if then is not None:
+                _build.launch(
+                    "glt_router_fused_next", *ptrs, then.data_ptr(),
+                    e.blocks.shape[0], e.max_segments, e.col_bits, self._op,
+                    then.numel(), value, stream)
+                return y
             if act is not None:
                 ptrs.append(act.data_ptr())
             _build.launch(
                 name, *ptrs, e.blocks.shape[0], e.max_segments, e.col_bits,
-                self._op, torch.cuda.current_stream(x.device).cuda_stream)
+                self._op, stream)
         return y
 
     # ---- SpMSpV: activity and live sets ----------------------------------------
@@ -791,10 +852,12 @@ class RouterSpMV:
 
     def fused_entries_plain(self, x: torch.Tensor,
                             act: torch.Tensor | None = None,
-                            entries: RouterEntries | None = None
+                            entries: RouterEntries | None = None,
+                            out: torch.Tensor | None = None
                             ) -> torch.Tensor:
         """K1's plain version: gather and product over `entries` (the
-        engine's `entries` when None), then index_add_ into y; with `act`,
+        engine's `entries` when None), then index_add_ into y (into `out`,
+        in place, when given: out + A x); with `act`,
         K1p's: the same over the elements of active pages (tiles on a
         planar engine) only. Each row's products are added in the form's
         order: by column, then value bits, in every row-ordered form, so
@@ -811,7 +874,8 @@ class RouterSpMV:
             keep = act.bool()[col // self.ACT_COLS]
             col, row, vals = col[keep], row[keep], vals[keep]
         g = self._product(vals, x.reshape(-1)[col])
-        y = torch.zeros(self.out_len, dtype=g.dtype, device=x.device)
+        y = (torch.zeros(self.out_len, dtype=g.dtype, device=x.device)
+             if out is None else out)
         if self.semiring.op == OpType.ADDMIN:
             return y.scatter_reduce_(0, row, g, "amax")
         return y.index_add_(0, row, g)
@@ -819,10 +883,17 @@ class RouterSpMV:
     # ---- SpMV and SpMSpV -------------------------------------------------------
     def __call__(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                  mask_type: MaskType | None = None,
-                 arrays: RouterArrays | None = None) -> torch.Tensor:
-        """One SpMV, y = mask(A (x) x), (num_rows,)."""
+                 arrays: RouterArrays | None = None,
+                 out: torch.Tensor | None = None,
+                 then: torch.Tensor | None = None,
+                 value: float = 0.0) -> torch.Tensor:
+        """One SpMV, y = mask(A (x) x), (num_rows,). `out`, `then` and
+        `value` as `fused_spmv` takes them (`walks_into` engines only)."""
         if self.fused:
-            y = self.fused_spmv(x, arrays)
+            y = self.fused_spmv(x, arrays, out, then, value)
+        elif out is not None or then is not None:
+            raise ValueError("out and then: the split branch (K2 -> K3) "
+                             "adds into a zeroed y")
         else:
             y = self.reduce(self.scatter(x, arrays), arrays)
         return self._epilogue(y, mask, mask_type)

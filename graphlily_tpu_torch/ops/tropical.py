@@ -196,6 +196,7 @@ class TropicalSpMV:
         self.init_seconds = self.planar.init_seconds   # the walk's forms
         self.launches = self.planar.launches = _build.Launches(
             "tropical", ("fused", "fused_pred"))
+        self.next_inits = 0   # no ADDMIN walk sets up a next output
 
     # ---- the walk: K4 fused and K4p fused (ADDMIN) ----------------------------
     def fused(self, x: torch.Tensor) -> torch.Tensor:
