@@ -11,6 +11,11 @@ import torch
 
 from precision import dtype, operand
 
+# the modes whose answers must fail the cell's limits, and those that must
+# be within them (`control.py`)
+CONTROLS = ("tf32",)
+SOUND = ("float32",)
+
 
 def solve(graph, config, traffic, queries, mode: str,
           device: torch.device) -> list:

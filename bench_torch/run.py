@@ -9,7 +9,9 @@ plain reference. The last line of standard output is one JSON object
 also `breakdown`, and last `checks`: each number compared with its
 limit); the last lines of standard error repeat the checks. Without a
 card, or with fewer cards than the cell asks for, it prints no result
-and exits with 2.
+and exits with 2; where the process has loaded JAX or the JAX package
+by the time the comparison is done, it names what it found on standard
+error, prints no result and exits with 3.
 """
 import time
 
@@ -22,6 +24,17 @@ from pathlib import Path  # noqa: E402
 
 BENCH_DIR = Path(__file__).resolve().parent
 sys.path[:0] = [str(BENCH_DIR), str(BENCH_DIR.parent)]
+
+# top-level modules that the process printing a result may not hold: JAX
+# and the JAX package the port was made from
+FORBIDDEN = ("jax", "jaxlib", "flax", "graphlily_tpu")
+
+
+def forbidden_modules() -> list:
+    """The names of `FORBIDDEN` that `sys.modules` holds, compared by
+    whole top-level name (`graphlily_tpu_torch` is not `graphlily_tpu`)."""
+    return sorted({m.split(".")[0] for m in list(sys.modules)}
+                  & set(FORBIDDEN))
 
 
 def main(argv=None) -> int:
@@ -54,6 +67,10 @@ def main(argv=None) -> int:
     result, lines = harness.run_cell(cell, args.seed, args.seconds,
                                      bool(args.trace), torch.device("cuda"),
                                      T_START)
+    found = forbidden_modules()
+    if found:
+        harness.log(f"no result: this process loaded {', '.join(found)}")
+        return 3
     emit(result, lines)
     return 0
 

@@ -23,10 +23,11 @@ import torch
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
-sys.path[:0] = [str(BENCH_DIR), str(ROOT)]
 
 import control  # noqa: E402
+from faults import FAULTS  # noqa: E402
 import harness  # noqa: E402
+import precision  # noqa: E402
 import spec  # noqa: E402
 import graph  # noqa: E402
 from graph import out_degree_sources  # noqa: E402
@@ -104,7 +105,7 @@ def test_every_metric_file_is_listed():
 
 
 def test_nothing_imports_jax_or_the_old_bench():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|graphlily_tpu)\b(?!_torch)",
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|graphlily_tpu)\b",
                      re.M)
     old = re.compile(r"BENCH_(r0|DETAILS)|\bbench\.py|BASELINE\.json")
     for p in BENCH_DIR.rglob("*.py"):
@@ -205,6 +206,36 @@ def test_cli_without_a_card_prints_nothing():
     assert proc.stdout == ""
 
 
+@pytest.mark.parametrize("loaded", ["jax", "jaxlib.xla_client", "flax",
+                                    "graphlily_tpu.apps", None])
+def test_run_prints_no_result_with_jax_loaded(loaded, monkeypatch, capsys):
+    """Once the window has closed, a process that holds JAX, jaxlib, flax
+    or the JAX package (by whole top-level name) prints no result and
+    exits with another code than 0; the port alone does not stop it."""
+    import types
+
+    import run
+    for m in [m for m in sys.modules if m.split(".")[0] in run.FORBIDDEN]:
+        monkeypatch.delitem(sys.modules, m)
+    if loaded:
+        monkeypatch.setitem(sys.modules, loaded, types.ModuleType(loaded))
+    spec.load_cell(CELLS[0])              # its traffic imports the port
+    assert "graphlily_tpu_torch" in sys.modules
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(harness, "card_line", lambda: "a stand-in card")
+    monkeypatch.setattr(harness, "run_cell",
+                        lambda *a, **k: ({"correct": True}, ["correct: True"]))
+    rc = run.main(["--workload", CELLS[0], "--seed", str(SEED),
+                   "--seconds", "1", "--trace", "0"])
+    out = capsys.readouterr()
+    if loaded:
+        assert rc != 0 and out.out == ""
+        assert loaded.split(".")[0] in out.err.strip().splitlines()[-1]
+    else:
+        assert rc == 0 and json.loads(out.out) == {"correct": True}
+
+
 def test_cli_in_a_checkout_without_the_program(tmp_path):
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
     shutil.copytree(BENCH_DIR, tmp_path / "bench_torch",
@@ -268,72 +299,93 @@ def test_sssp_reference_matches_the_apps_oracle(seed):
 
 # ---- the control and the faults ----------------------------------------
 
+REFERENCES = sorted(p.stem for p in (BENCH_DIR / "reference").glob("*.py"))
+# each traffic of a cell, with the first cell that runs it
+TRAFFICS = {}
+for _w in BENCH["workloads"]:
+    TRAFFICS.setdefault(_w["traffic"], _w["name"])
+
+
+@pytest.mark.parametrize("ref", REFERENCES)
+def test_reference_declares_its_modes(ref):
+    """Each reference names at least one control mode and one sound
+    mode, none of them both."""
+    mod = spec.load_module(BENCH_DIR / "reference" / f"{ref}.py")
+    for modes in (mod.CONTROLS, mod.SOUND):
+        assert isinstance(modes, tuple) and modes
+        assert all(isinstance(m, str) for m in modes)
+    assert not set(mod.CONTROLS) & set(mod.SOUND)
+
+
+@pytest.mark.parametrize("traffic", list(TRAFFICS))
+def test_traffic_entry_is_what_run_calls(traffic, monkeypatch):
+    """Each traffic's `ENTRY` is the app entry that its `run` calls, once
+    a query, and it has an `alter`."""
+    cell = spec.load_cell(TRAFFICS[traffic])
+    assert callable(cell.entry.alter)
+    cls, meth = cell.entry.ENTRY
+    orig = getattr(cls, meth)
+    calls = []
+
+    def counted(self, *a, **k):
+        calls.append(meth)
+        return orig(self, *a, **k)
+    monkeypatch.setattr(cls, meth, counted)
+    result, _ = run_tiny(TRAFFICS[traffic])
+    assert result["correct"] is True and result["failed"] == 0
+    assert len(calls) == (int(cell.traffic["warmup_queries"])
+                          + result["attempted"])
+
+
+# the step below each precision a configuration states (`precision.py`)
+BELOW = {"float64": "float32", "float32": "tf32"}
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_float_cell_controls_the_precision_below(name):
+    """A cell with a limit above 0 compares floats: its reference's
+    `CONTROLS` hold the precision below the one its configuration states.
+    Only an exact cell (every limit 0) names a control of its own."""
+    cell = spec.load_cell(name)
+    if any(v > 0 for v in cell.workload["limits"].values()):
+        below = BELOW[cell.config["engine"]["dtype"]]
+        assert below in precision.MODES
+        assert below in cell.reference.CONTROLS
+
+
 @pytest.mark.parametrize("seed", [3, 5, SEED])
 @pytest.mark.parametrize("name", CELLS)
 def test_control_fails(name, seed):
-    """The reference in TF32, put in the program's place, fails the
-    cell's limits; the float32 reference is within them."""
+    """The reference in each of its `CONTROLS` modes (for the float
+    references, TF32), put in the program's place, fails the cell's
+    limits; in each of its `SOUND` modes (float32) it is within them."""
     cell = spec.load_cell(name)
-    tf32, f32 = control.control(cell, seed, ["tf32", "float32"], CPU,
-                                scale=SCALE)
-    assert not all(tf32["within"].values()), tf32
-    assert all(f32["within"].values()), f32
+    ref = cell.reference
+    recs = control.control(cell, seed, ref.CONTROLS + ref.SOUND, CPU,
+                           scale=SCALE)
+    assert [r["role"] for r in recs] == (["control"] * len(ref.CONTROLS)
+                                         + ["sound"] * len(ref.SOUND))
+    for rec in recs:
+        if rec["role"] == "control":
+            assert not all(rec["within"].values()), rec
+        else:
+            assert all(rec["within"].values()), rec
 
 
-def _state_unchanged(monkeypatch):
-    from graphlily_tpu_torch.module import SpMSpVModule, SpMVModule
-    monkeypatch.setattr(SpMVModule, "apply", lambda self, x, mask=None: x)
-    monkeypatch.setattr(SpMSpVModule, "apply_dense",
-                        lambda self, x, mask=None: x)
-
-
-def _half_the_rows(monkeypatch):
-    """Each product leaves out its second half of rows (the semiring's
-    zero there)."""
-    from graphlily_tpu_torch.module import SpMSpVModule, SpMVModule
-    for cls, meth in ((SpMVModule, "apply"), (SpMSpVModule, "apply_dense")):
-        orig = getattr(cls, meth)
-
-        def half(self, x, mask=None, _orig=orig):
-            y = _orig(self, x, mask).clone()
-            y[y.shape[0] // 2:] = self.semiring_.zero
-            return y
-        monkeypatch.setattr(cls, meth, half)
-
-
-def _answer_altered(monkeypatch):
-    """One vertex of every answer off by a thousandth, where the app
-    produces it."""
-    from graphlily_tpu_torch.apps import SSSP, PageRank
-    pull = PageRank.pull
-
-    def pagerank(self, *a, **k):
-        r = pull(self, *a, **k).clone()
-        r[0] *= 1.001
-        return r
-    monkeypatch.setattr(PageRank, "pull", pagerank)
-    pull_push = SSSP.pull_push
-
-    def sssp(self, *a, **k):
-        d = pull_push(self, *a, **k).clone()
-        far = torch.where(d < 1e8, d, torch.zeros_like(d)).argmax()
-        d[far] *= 1.001
-        return d
-    monkeypatch.setattr(SSSP, "pull_push", sssp)
-
-
-FAULTS = {"state_unchanged": _state_unchanged,
-          "half_the_rows": _half_the_rows,
-          "answer_altered": _answer_altered}
+def test_control_role_of_an_undeclared_mode():
+    """A mode that the reference declares in neither `CONTROLS` nor
+    `SOUND` (float64, the reference itself) is given no role."""
+    cell = spec.load_cell(CELLS[0])
+    assert "float64" not in cell.reference.CONTROLS + cell.reference.SOUND
+    (rec,) = control.control(cell, SEED, ["float64"], CPU, scale=SCALE)
+    assert rec["role"] is None and all(rec["within"].values())
 
 
 @pytest.mark.parametrize("fault", list(FAULTS))
 @pytest.mark.parametrize("name", CELLS)
 def test_fault_is_not_correct(name, fault, monkeypatch):
-    """The run with the timed path broken underneath reads not correct.
-    The cells run on one card, so no exchange between cards can be left
-    out."""
-    FAULTS[fault](monkeypatch)
+    """The run with the timed path broken underneath reads not correct."""
+    FAULTS[fault](monkeypatch, spec.load_cell(name))
     result, _ = run_tiny(name)
     assert result["correct"] is False, result["checks"]
 

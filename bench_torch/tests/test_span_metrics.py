@@ -7,14 +7,12 @@ those spans.
 """
 from __future__ import annotations
 
-import sys
 import types
 from pathlib import Path
 
 import pytest
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(BENCH_DIR), str(BENCH_DIR.parent)]
 
 import spec  # noqa: E402
 from trace import Trace  # noqa: E402

@@ -6,14 +6,12 @@
 """
 from __future__ import annotations
 
-import sys
 import types
 from pathlib import Path
 
 import pytest
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(BENCH_DIR), str(BENCH_DIR.parent)]
 
 import spec  # noqa: E402
 from bounds import mv_bound  # noqa: E402

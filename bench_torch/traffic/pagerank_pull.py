@@ -9,6 +9,10 @@ from graphlily_tpu_torch.module import SpMVModule
 # (class, method, span name) of the module entries a traced run wraps
 SPANS = [(SpMVModule, "apply", "SpMVModule.apply")]
 
+# (class, method) of the app entry that `run` calls; the tests plant
+# `alter` there
+ENTRY = (PageRank, "pull")
+
 
 def make_app(engine_config):
     return PageRank(engine_config)
@@ -35,3 +39,11 @@ def engines(app) -> list:
 def answer(app, out, num_vertices: int):
     """The answer on the host, in the graph's own vertex ids."""
     return app._external(out.cpu().numpy())[:num_vertices]
+
+
+def alter(out):
+    """The answer made wrong by the least the limits must catch: vertex
+    0's rank off by a thousandth."""
+    out = out.clone()
+    out[0] *= 1.001
+    return out
