@@ -3,10 +3,11 @@
 Counterpart of `graphlily_tpu/apps/bfs.py`: logical semiring. Pull is a
 SpMV masked WRITE_TO_ZERO against the distance vector (visited vertices
 drop out), then a dense assign WRITE_TO_ONE stamps `iter + 1` into the
-distances at the new frontier. Push is the same step through the SpMSpV
-module (its frontier-predicated kernels), whose engine is the SpMV
-module's own when that is a router (`reuse_from`). pull_push pushes while
-the frontier is sparse, then pulls.
+distances at the new frontier (in the span `bfs.assign`, with pull_push's
+frontier count). Push is the same step through the SpMSpV module (its
+frontier-predicated kernels), whose engine is the SpMV module's own when
+that is a router (`reuse_from`). pull_push pushes while the frontier is
+sparse, then pulls.
 
 The JAX app's `fori_loop`s are plain loops of launches here. Its
 `while_loop` (pull_push) is a host loop that reads the 4-byte frontier
@@ -109,15 +110,17 @@ class BFS(ModuleCollection):
         the new frontier."""
         with span("apps.pull_step"):
             frontier = self.SpMV_.apply(frontier, distance)
-            return frontier, assign_vector_dense(distance, frontier, it + 1,
-                                                 MaskType.WRITE_TO_ONE)
+            with span("bfs.assign"):
+                return frontier, assign_vector_dense(
+                    distance, frontier, it + 1, MaskType.WRITE_TO_ONE)
 
     def _push_step(self, it: int, frontier, distance):
         """Iteration `it` through SpMSpV on the dense frontier; the sparse
         assign writes it + 1 exactly where the masked product is nonzero."""
         frontier = self.SpMSpV_.apply_dense(frontier, distance)
-        return frontier, assign_vector_dense(distance, frontier, it + 1,
-                                             MaskType.WRITE_TO_ONE)
+        with span("bfs.assign"):
+            return frontier, assign_vector_dense(distance, frontier, it + 1,
+                                                 MaskType.WRITE_TO_ONE)
 
     def _result(self, distance, device_output: bool):
         if device_output:
@@ -165,7 +168,8 @@ class BFS(ModuleCollection):
                 with span("apps.push_step"):
                     frontier, distance = self._push_step(it, frontier,
                                                          distance)
-                    count = (frontier != 0).sum()
+                    with span("bfs.assign"):
+                        count = (frontier != 0).sum()
                     with span("apps.host_read"):
                         nnz = int(count)
                 if not keep_pushing(it, num_iterations, nnz, n, threshold):

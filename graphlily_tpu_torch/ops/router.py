@@ -10,12 +10,14 @@ csrc/router_spmv.cu carry it:
   K3 reduce   `reduce`: add the flush stream into y.
 
 `__call__` runs K1 or K2 -> K3 by the `fused` rule below, then the ANDOR
-0/1 clamp and the SpMV mask, as the JAX engine does. Each wrapper runs its
-kernel on CUDA tensors, and its plain PyTorch version (`*_plain`, same
-contract: gather, `index_copy_` into a zeroed flush stream through the
-deposit targets, `index_add_` into y) only when given CPU tensors. Each
-kernel launch adds one to `launches[name]` and runs inside the span
-`ops.roll.<name>` (`ops.planar.<name>` on the planar engine).
+0/1 clamp and the SpMV mask, as the JAX engine does (torch ops, in the
+span `router.epilogue`, opened only where one of them runs; no launch is
+counted there). Each wrapper runs its kernel on CUDA tensors, and its
+plain PyTorch version (`*_plain`, same contract: gather, `index_copy_`
+into a zeroed flush stream through the deposit targets, `index_add_`
+into y) only when given CPU tensors. Each kernel launch adds one to
+`launches[name]` and runs inside the span `ops.roll.<name>`
+(`ops.planar.<name>` on the planar engine).
 
 K1 and K1p do not read the layout's streams. At init the engine derives
 two padding-free device forms (`router_entries`): every real element of
@@ -41,18 +43,18 @@ once per quad of rows. Its CPU path is `reduce_plain` (index_add_
 through `plain_index`). K3 and K1 read only what the engine derived from
 its own arrays: another engine's `arrays` raise.
 
-SpMSpV (`call_predicated`, JAX `__call__(tiles_active=, fidx=)`) runs the
-frontier-predicated forms K1p, K2p -> K3p (`*_predicated`, counted as
-`fused_pred`, `scatter_pred`, `reduce_pred`). Activity is per 128-column
-page (`activity`; a roll A-chunk holds one page). A deposit whose chunk's
-page is inactive gathers only zeros and is skipped; K3p skips the flush
-chunks that no live deposit targets (`live_chunks`, scattered on the
-device from the deposit targets), a block per chunk. That is the
-keep-set of JAX
-`_predicate_rg` and `_predicate_exact` without the host flush index: every
-deposit already knows its flush chunk. Nothing is read back to the host.
-Their plain versions are the plain versions above with the plain index
-filtered by chunk activity.
+SpMSpV (`call_predicated`, JAX `__call__(tiles_active=, fidx=)`) runs
+the frontier-predicated forms K1p, K2p -> K3p (`*_predicated`, counted
+as `fused_pred`, `scatter_pred`, `reduce_pred`). Activity is per
+128-column page (`activity`, torch ops in the span `router.activity`; a
+roll A-chunk holds one page). A deposit whose chunk's page is inactive
+gathers only zeros and is skipped; K3p skips the flush chunks that no
+live deposit targets (`live_chunks`, scattered on the device from the
+deposit targets), a block per chunk. That is the keep-set of JAX
+`_predicate_rg` and `_predicate_exact` without the host flush index:
+every deposit already knows its flush chunk. Nothing is read back to the
+host. Their plain versions are the plain versions above with the plain
+index filtered by chunk activity.
 
 A MULADD engine on the fused path (`walks_into`) also takes an output
 that is already set up: `__call__(x, out=, then=, value=)` adds into `out`
@@ -82,6 +84,7 @@ from ..config import EngineConfig, DEFAULT_CONFIG
 from ..io.router_format import CHUNK, deposit_targets
 from ..semiring import (Semiring, OpType, MaskType, apply_mask,
                         tropical_encode)
+from ..utils.profiling import span
 from . import _build
 
 # The fused rule for Hopper. K1 and the K2 -> K3 pair issue the same y
@@ -904,8 +907,9 @@ class RouterSpMV:
                         arrays: RouterArrays | None = None) -> torch.Tensor:
         """One SpMSpV on a dense frontier (x = 0 off the frontier):
         `__call__`'s result, through K1p or K2p -> K3p by the same fused
-        rule."""
-        act = self.activity(x)
+        rule. The activity's torch ops run in the span `router.activity`."""
+        with span("router.activity"):
+            act = self.activity(x)
         if self.fused:
             y = self.fused_predicated(x, act, arrays)
         else:
@@ -914,11 +918,18 @@ class RouterSpMV:
         return self._epilogue(y, mask, mask_type)
 
     def _epilogue(self, y, mask, mask_type):
-        """The ANDOR 0/1 clamp and the SpMV mask on the first num_rows."""
+        """The ANDOR 0/1 clamp and the SpMV mask on the first num_rows,
+        in the span `router.epilogue` where either launches anything (a
+        MULADD call with no mask returns a view and opens none)."""
         mt = self.mask_type if mask_type is None else mask_type
         y = y[:self.num_rows]
-        if self.semiring.op == OpType.ANDOR:
-            y = (y != 0).to(y.dtype)
-        if mask is not None and mt != MaskType.NO_MASK:
-            y = apply_mask(y, mask, mt, self.semiring.zero)
-        return y
+        clamp = self.semiring.op == OpType.ANDOR
+        masked = mask is not None and mt != MaskType.NO_MASK
+        if not (clamp or masked):
+            return y
+        with span("router.epilogue"):
+            if clamp:
+                y = (y != 0).to(y.dtype)
+            if masked:
+                y = apply_mask(y, mask, mt, self.semiring.zero)
+            return y

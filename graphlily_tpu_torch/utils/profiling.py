@@ -20,6 +20,12 @@ yet (ROADMAP queue 1, item 10).
   tropical.activity    the tropical engine's SpMSpV tile activity (torch
                        ops, no launch counted)
   tropical.decode      its decode and mask after each walk (the same)
+  router.activity      the roll and planar engines' SpMSpV activity
+                       flags (torch ops, no launch counted)
+  router.epilogue      their ANDOR 0/1 clamp and SpMV mask after a call,
+                       where either runs (the same)
+  bfs.assign           BFS's level stamp and its push step's frontier
+                       count, before the count's read (the same)
 """
 from __future__ import annotations
 
