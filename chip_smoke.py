@@ -107,7 +107,13 @@ Phases, one or more lines each:
                fused (K1p) and split (K2p -> K3p), bit-equal to the oracle
   15. push     pokec BFS push(0, 11) and pull_push(0, 11) on the free deal,
                fused (K4p fused) and split (K4p scatter -> K3p), and push
-               on the bucket deal (K4p fused, no K5); K5's launches (0)
+               on the bucket deal (K4p fused, no K5); K5's launches (0).
+               In phases 4-5, 8, 12, 14, 15 and 21 every launch of BFS's
+               level step (bfs_step) is held bit for bit against its
+               plain version on that launch's own y and distance, one an
+               iteration; here its time on the largest launch's inputs
+               and on 524,288 vertices (s19's), wrapper calls and device
+               time, beside the plain version's and the bound
   16. push     googleplus SSSP (the phase 11 app; SpMSpV packs its own
                chunk_order="col" layout) push(0, 7) and pull_push(0, 7)
                (K7p, ADDMIN) and BFS push on googleplus at scale 0.1 (K7p,
@@ -228,6 +234,7 @@ CHUNKED_SRC = "graphlily_tpu_torch/csrc/chunked_spmv.cu"
 TROPICAL_SRC = "graphlily_tpu_torch/csrc/tropical_spmv.cu"
 PERMC_SRC = "graphlily_tpu_torch/csrc/permc_spmv.cu"
 SSSP_SRC = "graphlily_tpu_torch/csrc/sssp_relax.cu"
+BFS_SRC = "graphlily_tpu_torch/csrc/bfs_step.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "K1_router_fused": (ROUTER_SRC, "graphlily_tpu/ops/router_pallas.py:419"),
     "K2_router_scatter": (ROUTER_SRC,
@@ -292,6 +299,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     # glue that XLA fuses
     "sssp_relax": (SSSP_SRC, "none (graphlily_tpu/apps/sssp.py:112-115, "
                    "jnp glue)"),
+    # BFS's level step: no Pallas kernel; the JAX app's clamp, mask and
+    # stamp are the SpMV's epilogue and jnp glue that XLA fuses
+    "bfs_step": (BFS_SRC, "none (graphlily_tpu/apps/bfs.py:112-134, "
+                 "jnp glue)"),
 }
 BUCKET_SCALE = 0.25  # the pokec stand-in's cut for the "bucket" deal
 # the TPU's three-pass stages, held to their plain versions and the walk;
@@ -407,6 +418,93 @@ class SSSPKernelCheck:
 
     def __exit__(self, *exc):
         self.mod.relax = self.real
+
+
+class BFSStepCheck:
+    """While open, every call of `ops.bfs_step.step` by the apps is held
+    bit for bit against `step_plain` on that call's own y and distance,
+    cloned before the in-place launch: frontier, distance and count. The
+    apps' `launches["step"]` are zeroed on entry and, on a clean exit,
+    must read the calls made; they add to `rec["bfs_step"]["launches"]`.
+    Keeps the largest call's inputs for the times."""
+
+    def __init__(self, torch, rec: dict, *apps):
+        from graphlily_tpu_torch.ops import bfs_step
+        self.torch, self.mod, self.rec, self.apps = torch, bfs_step, rec, apps
+        self.calls, self.last = 0, None
+
+    def _step(self, y, distance, count, level, launches):
+        m, torch = self.mod, self.torch
+        y0, d0, c0 = y.clone(), distance.clone(), int(count)
+        out = self.real(y, distance, count, level, launches)
+        want_f, want_d, want_c = m.step_plain(y0, d0, level)
+        bit_equal(torch, "bfs_step frontier", y, want_f)
+        bit_equal(torch, "bfs_step distance", distance, want_d)
+        if int(count) - c0 != int(want_c):
+            raise AssertionError(f"bfs_step counted {int(count) - c0}, "
+                                 f"plain {int(want_c)}")
+        self.calls += 1
+        if self.last is None or d0.numel() >= self.last[1].numel():
+            self.last = (y0, d0, level)
+        return out
+
+    def __enter__(self):
+        for app in self.apps:
+            app.launches["step"] = 0
+        self.real, self.mod.step = self.mod.step, self._step
+        return self
+
+    def __exit__(self, exc, *rest):
+        self.mod.step = self.real
+        if exc is None:
+            self.torch.cuda.synchronize()
+            launched = sum(app.launches["step"] for app in self.apps)
+            if launched != self.calls or not self.calls:
+                raise AssertionError(f"bfs launched {launched} steps, step "
+                                     f"calls {self.calls}")
+            r = self.rec["bfs_step"]
+            r["launches"] = r.get("launches", 0) + launched
+
+
+def bfs_step_times(torch, chk: BFSStepCheck, rec: dict, card: str) -> None:
+    """Phase 15's time of BFS's level step on the largest app call's y
+    and distance (repeated calls move the same bytes) and on a random
+    case at s19's 524,288 vertices, held to its plain version first;
+    beside the plain version and the bound, 16 B an entry."""
+    from graphlily_tpu_torch.ops import _build
+    m = chk.mod
+    launches = _build.Launches("bfs", ("step",))
+    slot = torch.zeros(1, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    n19 = 1 << 19
+    y19 = (torch.rand(n19, device="cuda", generator=g) < 0.3).float() * 3
+    d19 = torch.where(torch.rand(n19, device="cuda", generator=g) < 0.6,
+                      0.0, 4.0)
+    want = m.step_plain(y19, d19, 5.0)
+    got = m.step(y19.clone(), d19.clone(), slot[0], 5.0, launches)
+    bit_equal(torch, "bfs_step frontier (s19 n)", got[0], want[0])
+    bit_equal(torch, "bfs_step distance (s19 n)", got[1], want[1])
+    if int(slot[0]) != int(want[2]):
+        raise AssertionError(f"bfs_step counted {int(slot[0])} at s19's n, "
+                             f"plain {int(want[2])}")
+    r = rec["bfs_step"]
+    r["err"] = 0.0   # bit-equal on every launch (BFSStepCheck)
+    for label, (y0, d0, level) in (("app", chk.last),
+                                   ("s19", (y19, d19, 5.0))):
+        n = d0.numel()
+        y, d = y0.clone(), d0.clone()
+        ms = time_ms(torch, lambda: m.step(y, d, slot[0], level, launches))
+        plain_ms = time_ms(torch, lambda: m.step_plain(y0, d0, level))
+        us = device_us(torch, lambda: m.step(y, d, slot[0], level, launches),
+                       "bfs_step_kernel")
+        bound = {}
+        set_bound(bound, 16 * n, n)
+        if label == "app":
+            r.update(bound, ms=ms, plain_ms=plain_ms)
+        log(f"phase 15 bfs_step ({label}, n={n}): {ms:.4f} ms a wrapper "
+            f"call, device {us:.2f} us a launch; plain {plain_ms:.4f} ms; "
+            f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}, "
+            f"{16 * n / 1e6:.2f} MB); card {card}")
 
 
 def device_us(torch, fn, name: str, iters: int = 100) -> float:
@@ -770,10 +868,11 @@ def googleplus(torch, args, rec: dict, card: str) -> dict:
     iters = ICCAD_GRAPHS["googleplus"]["iters"]
     reset((pr_eng, bfs_eng))
     rank = pr.pull(0.9, 10)
-    dist_fused = bfs.pull(0, iters)
-    bfs_eng.fused = False          # the split branch, through the same API
-    dist_split = bfs.pull(0, iters)
-    bfs_eng.fused = True
+    with BFSStepCheck(torch, rec, bfs):
+        dist_fused = bfs.pull(0, iters)
+        bfs_eng.fused = False      # the split branch, through the same API
+        dist_split = bfs.pull(0, iters)
+        bfs_eng.fused = True
     torch.cuda.synchronize()
     rec["K1_router_fused"]["launches"] = (pr_eng.launches["fused"]
                                           + bfs_eng.launches["fused"])
@@ -902,14 +1001,15 @@ def pokec(torch, args, rec: dict, card: str) -> None:
     # ---- 8. main path: PageRank and BFS through the public API ------------
     reset((pr_eng, bfs_eng, bfsb_eng))
     rank = pr.pull(0.9, 10)
-    dist_fused = bfs.pull(0, iters)
-    bfs_eng.fused = False          # the split branch, through the same API
-    dist_split = bfs.pull(0, iters)
-    bfs_eng.fused = True
-    dist_bucket = bfsb.pull(0, iters)
-    bfsb_eng.fused = False   # the bucket deal's split branch (no K5)
-    dist_bucket_split = bfsb.pull(0, iters)
-    bfsb_eng.fused = True
+    with BFSStepCheck(torch, rec, bfs, bfsb):
+        dist_fused = bfs.pull(0, iters)
+        bfs_eng.fused = False      # the split branch, through the same API
+        dist_split = bfs.pull(0, iters)
+        bfs_eng.fused = True
+        dist_bucket = bfsb.pull(0, iters)
+        bfsb_eng.fused = False   # the bucket deal's split branch (no K5)
+        dist_bucket_split = bfsb.pull(0, iters)
+        bfsb_eng.fused = True
     torch.cuda.synchronize()
     engines = (pr_eng, bfs_eng, bfsb_eng)
     rec["K4_planar_fused"]["launches"] = sum(e.launches["fused"]
@@ -1187,7 +1287,8 @@ def chunked(torch, args, rec: dict, card: str, gp: dict) -> None:
                                  f"resolved {app.SpMV_.engine_name!r}")
     reset((pr.SpMV_.engine, bfs.SpMV_.engine))
     rank = pr.pull(0.9, 10)
-    dist = bfs.pull(0, iters)
+    with BFSStepCheck(torch, rec, bfs):
+        dist = bfs.pull(0, iters)
     torch.cuda.synchronize()
     rec["K6_K7_chunked_muladd"]["launches"] = pr.SpMV_.engine.launches[
         "chunked"]
@@ -1313,12 +1414,13 @@ def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict,
     iters = ICCAD_GRAPHS["googleplus"]["iters"]
     want = bfs.compute_reference_results(0, iters)
     reset((eng,))
-    runs = {"push fused": bfs.push(0, iters),
-            "pull_push fused": bfs.pull_push(0, iters, threshold=0.05)}
-    eng.fused = False
-    runs["push split"] = bfs.push(0, iters)
-    runs["pull_push split"] = bfs.pull_push(0, iters, threshold=0.05)
-    eng.fused = True
+    with BFSStepCheck(torch, rec, bfs):
+        runs = {"push fused": bfs.push(0, iters),
+                "pull_push fused": bfs.pull_push(0, iters, threshold=0.05)}
+        eng.fused = False
+        runs["push split"] = bfs.push(0, iters)
+        runs["pull_push split"] = bfs.pull_push(0, iters, threshold=0.05)
+        eng.fused = True
     torch.cuda.synchronize()
     rec["K1p_router_fused_pred"]["launches"] = eng.launches["fused_pred"]
     rec["K2p_router_scatter_pred"]["launches"] = eng.launches["scatter_pred"]
@@ -1339,14 +1441,16 @@ def push_paths(torch, args, gp: dict, pk: dict, ch: dict, rec: dict,
     iters = ICCAD_GRAPHS["pokec"]["iters"]
     want = bfs.compute_reference_results(0, iters)
     reset((eng, engb))
-    runs = {"push fused": bfs.push(0, iters),
-            "pull_push fused": bfs.pull_push(0, iters, threshold=0.05)}
-    eng.fused = False
-    runs["push split"] = bfs.push(0, iters)
-    runs["pull_push split"] = bfs.pull_push(0, iters, threshold=0.05)
-    eng.fused = True
-    dist_bucket = bfsb.push(0, iters)
+    with BFSStepCheck(torch, rec, bfs, bfsb) as chk:
+        runs = {"push fused": bfs.push(0, iters),
+                "pull_push fused": bfs.pull_push(0, iters, threshold=0.05)}
+        eng.fused = False
+        runs["push split"] = bfs.push(0, iters)
+        runs["pull_push split"] = bfs.pull_push(0, iters, threshold=0.05)
+        eng.fused = True
+        dist_bucket = bfsb.push(0, iters)
     torch.cuda.synchronize()
+    bfs_step_times(torch, chk, rec, card)
     rec["K4p_planar_fused_pred"]["launches"] = (eng.launches["fused_pred"]
                                                 + engb.launches["fused_pred"])
     rec["K4p_planar_scatter_pred"]["launches"] = eng.launches["scatter_pred"]
@@ -2089,13 +2193,14 @@ def permc(torch, args, rec: dict, card: str, pk: dict) -> None:
 
     # ---- 21. main path: BFS and PageRank through the public API ------------
     reset((eng, pr_eng))
-    dists = {"pull fused": bfs.pull(0, iters),
-             "push fused": bfs.push(0, iters),
-             "pull_push fused": bfs.pull_push(0, iters, threshold=0.05)}
-    eng.fused = False              # the split branch, through the same API
-    dists["pull split"] = bfs.pull(0, iters)
-    dists["push split"] = bfs.push(0, iters)
-    eng.fused = True
+    with BFSStepCheck(torch, rec, bfs):
+        dists = {"pull fused": bfs.pull(0, iters),
+                 "push fused": bfs.push(0, iters),
+                 "pull_push fused": bfs.pull_push(0, iters, threshold=0.05)}
+        eng.fused = False          # the split branch, through the same API
+        dists["pull split"] = bfs.pull(0, iters)
+        dists["push split"] = bfs.push(0, iters)
+        eng.fused = True
     rank = pr.pull(0.9, 10)
     torch.cuda.synchronize()
     rec["K4_planar_fused_permc"]["launches"] = (eng.launches["fused"]

@@ -16,11 +16,21 @@ is read back. The iteration semantics are JAX's fused loop's
 (`bfs.py:158-193`): iteration 1 always pushes; another push runs while
 it + 1 < num_iterations and nnz / n < threshold (in float32); pull runs
 the rest.
+
+The query's state lives on the engines' device (ops/bfs_step.py):
+`init_state` writes the initial frontier and distance there and zeroes
+one int32 count slot per iteration. On the card (`level_step`) the two
+modules skip their engines' epilogue (`epilogue = False`), and after
+each walk one launch of `bfs_step.step` (span `ops.bfs.step` inside
+`bfs.assign`, counted in the app's `launches["step"]`) clamps and masks
+the walk's output in place into the next frontier, stamps it + 1 into
+the distances and counts the frontier into the iteration's slot, which
+pull_push reads. On the CPU the modules clamp and mask, the dense
+assign stamps, and pull_push counts the frontier with torch ops.
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..config import EngineConfig, DEFAULT_CONFIG
 from ..semiring import LogicalSemiring, MaskType
@@ -28,6 +38,7 @@ from ..io.matrix import CSRMatrix, csr2csc, load_csr_matrix_from_float_npz
 from ..io.formatter import util_round_csr_matrix_dim
 from ..module import (SpMVModule, SpMSpVModule, eWiseAddModule,
                       AssignVectorDenseModule, AssignVectorSparseModule)
+from ..ops import _build, bfs_step
 from ..ops.reference import assign_vector_dense
 from ..utils.profiling import span
 from .module_collection import ModuleCollection
@@ -70,6 +81,8 @@ class BFS(ModuleCollection):
 
         self.matrix_num_rows_ = 0
         self.matrix_num_cols_ = 0
+        self.launches = _build.Launches("bfs", ("step",))
+        self.level_step = False   # set by load_and_format_matrix
 
     def get_nnz(self) -> int:
         return self.SpMV_.get_nnz()
@@ -90,37 +103,49 @@ class BFS(ModuleCollection):
         self.matrix_num_rows_ = self.SpMV_.get_num_rows()
         self.matrix_num_cols_ = self.SpMV_.get_num_cols()
         assert self.matrix_num_rows_ == self.matrix_num_cols_
+        # on the card the level step clamps and masks the walks' output
+        # (the COO engine, "xla", keeps its own)
+        self.level_step = self.device.type == "cuda"
+        for m in (self.SpMV_, self.SpMSpV_):
+            m.epilogue = m.engine is None or not self.level_step
 
     def send_matrix_host_to_device(self):
         self.SpMV_.send_matrix_host_to_device()
         self.SpMSpV_.send_matrix_host_to_device()
 
-    def _init_state(self, source: int):
+    def _init_state(self, source: int, slots: int):
+        """(frontier, distance, `slots` zeroed count slots)."""
         with span("apps.init"):
-            n = self.matrix_num_rows_
-            frontier = torch.zeros(n, dtype=self.config.torch_dtype)
-            distance = torch.zeros(n, dtype=self.config.torch_dtype)
-            frontier[source] = 1
-            distance[source] = 1
-            return frontier.to(self.device), distance.to(self.device)
+            return bfs_step.init_state(self.matrix_num_rows_, source, slots,
+                                       self.config.torch_dtype, self.device)
 
     # ---- one iteration ---------------------------------------------------
-    def _pull_step(self, it: int, frontier, distance):
+    def _level(self, it: int, y, distance, counts):
+        """(next frontier, distance) from iteration `it`'s walk output y:
+        on the card one launch of the level step, which counts the
+        frontier into slot it - 1; on the CPU y is the module's clamped,
+        masked output, and the dense assign stamps it + 1 where it is
+        nonzero."""
+        with span("bfs.assign"):
+            if self.level_step:
+                y, distance, _ = bfs_step.step(y, distance, counts[it - 1],
+                                               it + 1, self.launches)
+                return y, distance
+            return y, assign_vector_dense(distance, y, it + 1,
+                                          MaskType.WRITE_TO_ONE)
+
+    def _pull_step(self, it: int, frontier, distance, counts):
         """Iteration `it` (1-based): masked SpMV, then distance = it + 1 at
         the new frontier."""
         with span("apps.pull_step"):
-            frontier = self.SpMV_.apply(frontier, distance)
-            with span("bfs.assign"):
-                return frontier, assign_vector_dense(
-                    distance, frontier, it + 1, MaskType.WRITE_TO_ONE)
+            return self._level(it, self.SpMV_.apply(frontier, distance),
+                               distance, counts)
 
-    def _push_step(self, it: int, frontier, distance):
-        """Iteration `it` through SpMSpV on the dense frontier; the sparse
-        assign writes it + 1 exactly where the masked product is nonzero."""
-        frontier = self.SpMSpV_.apply_dense(frontier, distance)
-        with span("bfs.assign"):
-            return frontier, assign_vector_dense(distance, frontier, it + 1,
-                                                 MaskType.WRITE_TO_ONE)
+    def _push_step(self, it: int, frontier, distance, counts):
+        """Iteration `it` through SpMSpV on the dense frontier, then the
+        level step as a pull's."""
+        return self._level(it, self.SpMSpV_.apply_dense(frontier, distance),
+                           distance, counts)
 
     def _result(self, distance, device_output: bool):
         if device_output:
@@ -132,10 +157,11 @@ class BFS(ModuleCollection):
              device_output: bool = False):
         """Iterations 1..num_iterations of the masked SpMV."""
         with span("apps.bfs.pull"):
-            frontier, distance = self._init_state(
-                self._internal_source(source))
+            frontier, distance, counts = self._init_state(
+                self._internal_source(source), num_iterations)
             for it in range(1, num_iterations + 1):
-                frontier, distance = self._pull_step(it, frontier, distance)
+                frontier, distance = self._pull_step(it, frontier, distance,
+                                                     counts)
             return self._result(distance, device_output)
 
     def push(self, source: int, num_iterations: int, chained: bool = False,
@@ -147,11 +173,12 @@ class BFS(ModuleCollection):
             if chained:
                 return self._external(self._push_chained(source,
                                                           num_iterations))
-            frontier, distance = self._init_state(source)
+            frontier, distance, counts = self._init_state(source,
+                                                          num_iterations)
             for it in range(1, num_iterations + 1):
                 with span("apps.push_step"):
                     frontier, distance = self._push_step(it, frontier,
-                                                         distance)
+                                                         distance, counts)
             return self._result(distance, device_output)
 
     def pull_push(self, source: int, num_iterations: int,
@@ -160,29 +187,33 @@ class BFS(ModuleCollection):
         step), then pull for the remaining iterations."""
         with span("apps.bfs.pull_push"):
             n = self.matrix_num_rows_
-            frontier, distance = self._init_state(
-                self._internal_source(source))
+            # a slot per iteration: iteration 1 always pushes
+            frontier, distance, counts = self._init_state(
+                self._internal_source(source), max(num_iterations, 1))
             it = 0
             while True:
                 it += 1
                 with span("apps.push_step"):
                     frontier, distance = self._push_step(it, frontier,
-                                                         distance)
-                    with span("bfs.assign"):
-                        count = (frontier != 0).sum()
+                                                         distance, counts)
+                    count = counts[it - 1]
+                    if not self.level_step:
+                        with span("bfs.assign"):
+                            count = (frontier != 0).sum()
                     with span("apps.host_read"):
                         nnz = int(count)
                 if not keep_pushing(it, num_iterations, nnz, n, threshold):
                     break
             while it < num_iterations:
                 it += 1
-                frontier, distance = self._pull_step(it, frontier, distance)
+                frontier, distance = self._pull_step(it, frontier, distance,
+                                                     counts)
             return self._result(distance, device_output)
 
     def _push_chained(self, source: int, num_iterations: int) -> np.ndarray:
         """The reference call sequence, module by module: SpMSpV, copy the
         results into the frontier buffer, sparse assign it + 1."""
-        _, distance = self._init_state(source)
+        _, distance, _ = self._init_state(source, 0)
         self.SpMSpV_.send_vector_host_to_device(([source], [1.0]))
         self.SpMSpV_.send_mask_host_to_device(distance.cpu().numpy())
         self.SparseAssign_.bind_mask_buf(self.SpMSpV_.vector_buf)

@@ -55,6 +55,11 @@ class SpMSpVModule(BaseModule):
         self._coo = None
         self.num_rows_ = 0
         self.num_cols_ = 0
+        # False: `apply_dense` returns the engine's output as its kernels
+        # left it, without the ANDOR clamp and the mask, which the caller
+        # applies (BFS's level step on the card); router and chunked
+        # engines only
+        self.epilogue = True
 
     # ---- matrix ----------------------------------------------------------
     def load_and_format_matrix(self, csc_matrix: CSCMatrix,
@@ -145,24 +150,30 @@ class SpMSpVModule(BaseModule):
         self.mask_buf = buf
 
     # ---- execution -------------------------------------------------------
-    def _run_engine(self, x: torch.Tensor) -> torch.Tensor:
+    def _run_engine(self, x: torch.Tensor,
+                    epilogue: bool = True) -> torch.Tensor:
         """A (x) x through the engine's predicated kernels; x is padded
-        with the semiring zero to the engine's column space."""
+        with the semiring zero to the engine's column space. Without
+        `epilogue`, as the kernels left it (no ANDOR clamp); `apply`, the
+        reference call sequence's, always clamps."""
         ncp = self.engine.num_cols
         if x.shape[0] < ncp:
             x = torch.cat([x, x.new_full((ncp - x.shape[0],),
                                          self.semiring_.zero)])
-        return self.engine.call_predicated(x, None, MaskType.NO_MASK)
+        return self.engine.call_predicated(x, None, MaskType.NO_MASK,
+                                           epilogue=epilogue)
 
     def apply_dense(self, x: torch.Tensor, mask: torch.Tensor | None = None):
         """Dense-frontier SpMSpV for app loops: x and y dense (inactive =
         the semiring zero). Returns y alone (JAX's also returns its nnz):
         the apps count the new frontier where they need it. In the span
-        `module.spmspv`."""
+        `module.spmspv`. Without `epilogue`, y unclamped and unmasked."""
         zero = self.semiring_.zero
         with span("module.spmspv"):
             if self.engine is not None:
-                y = self._run_engine(x)
+                y = self._run_engine(x, self.epilogue)
+                if not self.epilogue:
+                    return y
             else:
                 sv = dense_to_sparse(x, zero, self.capacity)
                 _, y = spmspv_coo(self._coo, sv, self.semiring_, None,

@@ -113,6 +113,10 @@ class SpMVModule(BaseModule):
         self.num_rows_ = 0
         self.num_cols_ = 0
         self.set_offset(None)
+        # False: `apply` returns the engine's output as its kernels left it,
+        # without the ANDOR clamp and the mask, which the caller applies
+        # (BFS's level step on the card); router and chunked engines only
+        self.epilogue = True
 
     # ---- matrix ----------------------------------------------------------
     def load_and_format_matrix(self, csr_matrix: CSRMatrix,
@@ -231,7 +235,8 @@ class SpMVModule(BaseModule):
     def _spmv(self, x: torch.Tensor,
               mask: torch.Tensor | None) -> torch.Tensor:
         if self.engine is not None:
-            return self.engine(x, mask, self.mask_type_)
+            return self.engine(x, mask, self.mask_type_,
+                               epilogue=self.epilogue)
         return spmv_coo(self._coo, x, self.semiring_, mask, self.mask_type_)
 
     def run(self) -> None:

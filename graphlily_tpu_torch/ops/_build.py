@@ -63,6 +63,8 @@ SIGNATURES = {
     "glt_tropical_window_reduce": [_P] * 5 + [_I] + [_P],
     # sssp_relax.cu: SSSP's push-step relax
     "glt_sssp_relax": [_P] * 3 + [_I, _F, _P],
+    # bfs_step.cu: BFS's level step (clamp, mask, stamp, count)
+    "glt_bfs_step": [_P] * 3 + [_I, _F, _P],
 }
 
 

@@ -287,22 +287,28 @@ class ChunkedSpMV:
         return y.scatter_reduce_(0, row, g, reduce, include_self=True)
 
     def __call__(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                 mask_type: MaskType | None = None) -> torch.Tensor:
-        """One SpMV, y = mask(A (x) x), (num_rows,)."""
-        return self._epilogue(self.spmv(x), mask, mask_type)
+                 mask_type: MaskType | None = None,
+                 epilogue: bool = True) -> torch.Tensor:
+        """One SpMV, y = mask(A (x) x), (num_rows,); `epilogue=False`, as
+        the router engine's: the first num_rows unclamped and unmasked."""
+        return self._epilogue(self.spmv(x), mask, mask_type, epilogue)
 
     def call_predicated(self, x: torch.Tensor,
                         mask: torch.Tensor | None = None,
-                        mask_type: MaskType | None = None) -> torch.Tensor:
+                        mask_type: MaskType | None = None,
+                        epilogue: bool = True) -> torch.Tensor:
         """One SpMSpV on a dense frontier (inactive = the semiring zero):
         `__call__`'s result, through K7p over the active tiles' entries."""
         y = self.spmv_predicated(x, self.tile_activity(x))
-        return self._epilogue(y, mask, mask_type)
+        return self._epilogue(y, mask, mask_type, epilogue)
 
-    def _epilogue(self, y, mask, mask_type):
-        """The ANDOR 0/1 clamp and the SpMV mask on the first num_rows."""
+    def _epilogue(self, y, mask, mask_type, epilogue: bool = True):
+        """The ANDOR 0/1 clamp and the SpMV mask on the first num_rows
+        (neither with `epilogue=False`)."""
         mt = self.mask_type if mask_type is None else mask_type
         y = y[:self.num_rows]
+        if not epilogue:
+            return y
         if self.semiring.op == OpType.ANDOR:
             y = (y != 0).to(y.dtype)
         if mask is not None and mt != MaskType.NO_MASK:

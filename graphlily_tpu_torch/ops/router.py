@@ -889,9 +889,12 @@ class RouterSpMV:
                  arrays: RouterArrays | None = None,
                  out: torch.Tensor | None = None,
                  then: torch.Tensor | None = None,
-                 value: float = 0.0) -> torch.Tensor:
+                 value: float = 0.0, epilogue: bool = True) -> torch.Tensor:
         """One SpMV, y = mask(A (x) x), (num_rows,). `out`, `then` and
-        `value` as `fused_spmv` takes them (`walks_into` engines only)."""
+        `value` as `fused_spmv` takes them (`walks_into` engines only).
+        `epilogue=False` returns A (x) x's first num_rows as the kernels
+        left them: no ANDOR clamp and no mask (BFS's level step on the
+        card does both)."""
         if self.fused:
             y = self.fused_spmv(x, arrays, out, then, value)
         elif out is not None or then is not None:
@@ -899,15 +902,17 @@ class RouterSpMV:
                              "adds into a zeroed y")
         else:
             y = self.reduce(self.scatter(x, arrays), arrays)
-        return self._epilogue(y, mask, mask_type)
+        return self._epilogue(y, mask, mask_type, epilogue)
 
     def call_predicated(self, x: torch.Tensor,
                         mask: torch.Tensor | None = None,
                         mask_type: MaskType | None = None,
-                        arrays: RouterArrays | None = None) -> torch.Tensor:
+                        arrays: RouterArrays | None = None,
+                        epilogue: bool = True) -> torch.Tensor:
         """One SpMSpV on a dense frontier (x = 0 off the frontier):
         `__call__`'s result, through K1p or K2p -> K3p by the same fused
-        rule. The activity's torch ops run in the span `router.activity`."""
+        rule; `epilogue` as there. The activity's torch ops run in the
+        span `router.activity`."""
         with span("router.activity"):
             act = self.activity(x)
         if self.fused:
@@ -915,16 +920,17 @@ class RouterSpMV:
         else:
             y = self.reduce_predicated(self.scatter_predicated(x, act, arrays),
                                        self.live_chunks(act, arrays), arrays)
-        return self._epilogue(y, mask, mask_type)
+        return self._epilogue(y, mask, mask_type, epilogue)
 
-    def _epilogue(self, y, mask, mask_type):
+    def _epilogue(self, y, mask, mask_type, epilogue: bool = True):
         """The ANDOR 0/1 clamp and the SpMV mask on the first num_rows,
         in the span `router.epilogue` where either launches anything (a
-        MULADD call with no mask returns a view and opens none)."""
+        MULADD call with no mask, or `epilogue=False`, returns a view and
+        opens none)."""
         mt = self.mask_type if mask_type is None else mask_type
         y = y[:self.num_rows]
-        clamp = self.semiring.op == OpType.ANDOR
-        masked = mask is not None and mt != MaskType.NO_MASK
+        clamp = epilogue and self.semiring.op == OpType.ANDOR
+        masked = epilogue and mask is not None and mt != MaskType.NO_MASK
         if not (clamp or masked):
             return y
         with span("router.epilogue"):

@@ -228,25 +228,29 @@ class TropicalSpMV:
 
     # ---- SpMV and SpMSpV -------------------------------------------------------
     def __call__(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                 mask_type: MaskType | None = None) -> torch.Tensor:
-        """One SpMV, y = mask(A (min,+) x), (num_rows,): the walk."""
-        return self._finish(self.fused(x), mask, mask_type)
+                 mask_type: MaskType | None = None,
+                 epilogue: bool = True) -> torch.Tensor:
+        """One SpMV, y = mask(A (min,+) x), (num_rows,): the walk.
+        `epilogue=False` skips the mask, as the router engine's."""
+        return self._finish(self.fused(x), mask, mask_type, epilogue)
 
     def call_predicated(self, x: torch.Tensor,
                         mask: torch.Tensor | None = None,
-                        mask_type: MaskType | None = None) -> torch.Tensor:
+                        mask_type: MaskType | None = None,
+                        epilogue: bool = True) -> torch.Tensor:
         """One SpMSpV on a dense frontier (x = FLOAT_INF off the frontier):
         `__call__`'s result, through the walk of the active tiles."""
         with span("tropical.activity"):
             act = self.activity(x)
-        return self._finish(self.fused_predicated(x, act), mask, mask_type)
+        return self._finish(self.fused_predicated(x, act), mask, mask_type,
+                            epilogue)
 
-    def _finish(self, out, mask, mask_type) -> torch.Tensor:
-        """Decode and the SpMV mask."""
+    def _finish(self, out, mask, mask_type, epilogue: bool) -> torch.Tensor:
+        """Decode and, with `epilogue`, the SpMV mask."""
         with span("tropical.decode"):
             y = tropical_decode(out)[:self.num_rows]
             mt = self.mask_type if mask_type is None else mask_type
-            if mask is not None and mt != MaskType.NO_MASK:
+            if epilogue and mask is not None and mt != MaskType.NO_MASK:
                 y = apply_mask(y, mask, mt, self.semiring.zero)
             return y
 
